@@ -1,0 +1,30 @@
+"""Progressive accumulation (reference main.cpp:484-489, 805-806): the
+running mean ``mean' = (mean*n + batch_sum) / (n + k)`` over sample
+batches."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AccumState:
+    mean: torch.Tensor  # [H,W,3] f32 running mean of linear radiance
+    samples: int        # samples accumulated so far
+
+    @staticmethod
+    def zeros(height: int, width: int, device="cuda") -> "AccumState":
+        return AccumState(
+            mean=torch.zeros((height, width, 3), dtype=torch.float32,
+                             device=device),
+            samples=0)
+
+
+def accumulate(state: AccumState, batch_sum, batch_samples: int) -> AccumState:
+    """Fold a batch of ``batch_samples`` sample sums into the running mean."""
+    n = float(state.samples)
+    total = torch.tensor(n + batch_samples, dtype=torch.float32,
+                         device=batch_sum.device)
+    mean = torch.div(state.mean * n + batch_sum, total)
+    return AccumState(mean=mean, samples=state.samples + batch_samples)
