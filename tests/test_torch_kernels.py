@@ -33,6 +33,7 @@ from tpu_ray_torch.kernels.regen import (cam13, regen_steps,
 from tpu_ray_torch.kernels.sphere_intersect import (nearest_hit_plain,
                                                     sphere_nearest_hit)
 from tpu_ray_torch.models.path_tracer import tile_order
+from tpu_ray_torch.ops.intersect import payload_tables
 
 W, H = 32, 24
 REGEN_KW = dict(use_sky=True, max_bounces=5, width=W, height=H)
@@ -122,10 +123,10 @@ def test_k2_plain_matches_pallas(jax_wave):
     """JAX's search roots come from bf16x6 splits and its f32 chains are
     contracted into FMAs, so rare near-tie winners may differ and a few
     scatter directions drift (ROADMAP.md queue C)."""
-    ts = make_scene("rtweekend", device="cpu")
+    tb = payload_tables(make_scene("rtweekend", device="cpu"))
     st = torch.as_tensor(jax_wave["st0"].copy())
     cam = torch.as_tensor(jax_wave["cam"][0].copy())
-    regen_steps_plain(st, cam, ts, 2, **REGEN_KW)
+    regen_steps_plain(st, cam, tb, 2, **REGEN_KW)
     a, b = st.numpy(), jax_wave["out"]
     ctrl = (12, 14, 15, 22)
     for ch in ctrl:
@@ -148,15 +149,15 @@ def _regen_state(spp=2):
     perm, _ = tile_order(W, H)
     st, cam, r = wave_init(default_camera(ts), torch.as_tensor(perm), spp, 0,
                            0, W, H)
-    return ts, st, cam, r
+    return payload_tables(ts), st, cam, r
 
 
 def test_k2_wrapper_takes_plain_on_cpu():
-    ts, st, cam, _ = _regen_state()
+    tb, st, cam, _ = _regen_state()
     ref = st.clone()
     before = regen_steps.launches
-    regen_steps(st, cam, ts, 3, **REGEN_KW)
-    regen_steps_plain(ref, cam, ts, 3, **REGEN_KW)
+    regen_steps(st, cam, tb, 3, **REGEN_KW)
+    regen_steps_plain(ref, cam, tb, 3, **REGEN_KW)
     assert torch.equal(st.view(torch.int32), ref.view(torch.int32))
     assert regen_steps.launches == before
 
@@ -164,17 +165,17 @@ def test_k2_wrapper_takes_plain_on_cpu():
 def test_k2_steps_compose():
     """k steps in one call == k calls of one step, bit for bit (the early
     exit over dead lanes included)."""
-    ts, st, cam, _ = _regen_state()
+    tb, st, cam, _ = _regen_state()
     one = st.clone()
-    regen_steps_plain(st, cam, ts, 12, **REGEN_KW)
+    regen_steps_plain(st, cam, tb, 12, **REGEN_KW)
     for _ in range(12):
-        regen_steps_plain(one, cam, ts, 1, **REGEN_KW)
+        regen_steps_plain(one, cam, tb, 1, **REGEN_KW)
     assert torch.equal(st.view(torch.int32), one.view(torch.int32))
 
 
 def test_k2_runs_every_lane_to_exhaustion():
-    ts, st, cam, r = _regen_state(spp=2)
-    regen_steps_plain(st, cam, ts, 2 * 5, **REGEN_KW)
+    tb, st, cam, r = _regen_state(spp=2)
+    regen_steps_plain(st, cam, tb, 2 * 5, **REGEN_KW)
     assert not (st[12] > 0.5).any()
     assert (st[14, :r] == 2.0).all()          # every sample finished
     rays = st[22, :r]
@@ -183,10 +184,10 @@ def test_k2_runs_every_lane_to_exhaustion():
 
 
 def test_dead_lanes_only_advance_bounce_row():
-    ts, st, cam, r = _regen_state()
+    tb, st, cam, r = _regen_state()
     st[12] = 0.0
     before = st.clone()
-    regen_steps_plain(st, cam, ts, 4, **REGEN_KW)
+    regen_steps_plain(st, cam, tb, 4, **REGEN_KW)
     assert torch.equal(st[15], before[15] + 4.0)
     rows = [k for k in range(24) if k != 15]
     assert torch.equal(st[rows].view(torch.int32),

@@ -3,19 +3,23 @@ for what is ported.
 
 Subcommands:
   render  progressive render -> PNG
+  fit     inverse rendering: optimize scene/camera to match a target image
   scenes  list built-in scenes
 
 Run on the card (the default) or with ``--device cpu``, e.g.
   python -m tpu_ray_torch.cli render --scene rtweekend --width 1920 \\
       --height 1080 --spp 64 --backend fused --regen --out /tmp/x.png
+  python -m tpu_ray_torch.cli fit --scene rtweekend --width 512 \\
+      --height 512 --spp 4 --backend fused --steps 200 --out /tmp/fit.png
 
-Not ported yet (ROADMAP.md queue A): --checkpoint/--resume, --metrics,
---profile, --mesh, --exact-argmin (the port's search is always exact),
---cull-secondary and the fit, animate and bench subcommands.
+Not ported yet (ROADMAP.md queue A): --checkpoint/--resume, render's
+--metrics, --profile, --mesh, --exact-argmin (the port's search is always
+exact), --cull-secondary and the animate and bench subcommands.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -80,6 +84,138 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_fit(args) -> int:
+    """Inverse rendering: recover per-sphere materials (and, with
+    --perturb-geom, geometry; with --fit-camera, the camera position) from
+    a rendered target image. As ``tpu_ray/cli.py`` cmd_fit, whose
+    docstring gives the measured reasons for its choices: the target uses
+    the training spp and RNG streams (the loss is 0 at the truth), every
+    real sphere is perturbed independently, only the perturbed groups are
+    optimized, each group with its own learning rate and an Adam eps of 1%
+    of the group's initial gradient RMS. A frozen group is not handed to
+    the optimizer. Prints the loss and the parameter recovery."""
+    import numpy as np
+    import torch
+    from tpu_ray_torch.core.camera import Camera, default_camera
+    from tpu_ray_torch.core.scene import make_scene, trainable_scene
+    from tpu_ray_torch.grad import image_mse, make_train_step, render_mean
+    from tpu_ray_torch.ops.tonemap import linear_to_srgb, pack_rgba8
+    from tpu_ray_torch.utils.metrics import MetricsLogger, StepTimer
+    from tpu_ray_torch.utils.png import write_png
+
+    if args.mesh is not None:
+        raise NotImplementedError(
+            "--mesh: sharding is not ported yet (ROADMAP.md queue A, "
+            "item 4)")
+    scene = make_scene(args.scene, device=args.device)
+    camera = default_camera(scene)
+    kw = dict(width=args.width, height=args.height, spp=args.spp,
+              seed=args.seed, max_bounces=args.max_bounces,
+              backend=args.backend, ray_chunk=args.ray_chunk,
+              regen=_want_regen(args.regen, args.backend))
+    with torch.no_grad():
+        target = render_mean(scene, camera, sample_start=0, **{
+            **kw, "spp": args.target_spp or args.spp})
+
+    # per-sphere perturbations, masked so radius-0 padding stays inert
+    rng = np.random.default_rng(args.seed)
+    n = scene.n_pad
+    radius = scene.radius.cpu().numpy()
+    real = radius > 0.0
+    r_scale = float(np.mean(radius[real])) if real.any() else 1.0
+    p = args.perturb_geom
+    jit_c = rng.normal(0.0, p * 0.05 * r_scale, (n, 3)).astype(np.float32)
+    jit_r = rng.uniform(1.0 - p * 0.05, 1.0 + p * 0.05, n).astype(
+        np.float32)
+    jit_a = rng.uniform(0.6, 1.0, (n, 3)).astype(np.float32)
+
+    def dev(a):
+        return torch.as_tensor(a, device=scene.device)
+    perturbed = dataclasses.replace(
+        scene,
+        center=scene.center + dev(np.where(real[:, None], jit_c, 0.0)
+                                  .astype(np.float32)),
+        radius=scene.radius * dev(np.where(real, jit_r, 1.0)
+                                  .astype(np.float32)),
+        albedo=torch.clamp(scene.albedo * dev(jit_a), 0.0, 1.0),
+        emissive=scene.emissive * 0.5)
+    fit_camera = bool(args.fit_camera)
+    cam0 = camera
+    if fit_camera:
+        cam0 = Camera(position=camera.position + 0.05 * r_scale,
+                      look_at=camera.look_at)
+
+    def recovery(s, cam=None):
+        def err(a, b):
+            return float(np.abs((a - b).detach().cpu().numpy())[real].mean())
+        out = dict(d_center=err(s.center, scene.center),
+                   d_radius=err(s.radius, scene.radius),
+                   d_albedo=err(s.albedo, scene.albedo))
+        if fit_camera and cam is not None:
+            out["d_camera"] = float((cam.position - camera.position).detach().abs()
+                                    .mean())
+        return out
+
+    # the initial gradient of every group, for its Adam eps
+    group_of = {"center": "geom", "radius": "geom", "albedo": "alb",
+                "emissive": "emi", "position": "cam"}
+    s0 = trainable_scene(perturbed)
+    c0 = Camera(position=cam0.position.detach().clone().requires_grad_(),
+                look_at=cam0.look_at)
+    image_mse(render_mean(s0, c0, sample_start=0, **kw), target).backward()
+    grads = {k: getattr(s0, k).grad for k in ("center", "radius", "albedo",
+                                              "emissive")}
+    grads["position"] = c0.position.grad
+
+    def eps(group):
+        gs = [g for k, g in grads.items() if group_of[k] == group]
+        tot = sum(float(torch.sum(g.double() ** 2)) for g in gs)
+        cnt = sum(g.numel() for g in gs)
+        return max(1e-2 * (tot / max(cnt, 1)) ** 0.5, 1e-12)
+
+    lr_geom = args.lr * r_scale if args.perturb_geom > 0 else 0.0
+    has_emissive = bool((scene.emissive.cpu().numpy()[real] > 0.0).any())
+    groups = {"alb": (args.lr, ["albedo"])}
+    if lr_geom > 0:
+        groups["geom"] = (lr_geom, ["center", "radius"])
+    if fit_camera:
+        # the nudge is 0.05*r_scale: a fifth of that per step closes it
+        # in ~10 steps instead of oscillating across it
+        groups["cam"] = (0.01 * r_scale, ["position"])
+    if has_emissive:
+        groups["emi"] = (args.lr, ["emissive"])
+
+    def optimizer(params):
+        return torch.optim.Adam([
+            dict(params=[params[k] for k in names], lr=lr, eps=eps(g))
+            for g, (lr, names) in groups.items()])
+
+    init_fn, step_fn = make_train_step(
+        optimizer=optimizer, train_camera=fit_camera, fixed_samples=True,
+        **kw)
+    state = init_fn(perturbed, cam0)
+
+    log = MetricsLogger(path=args.metrics)
+    before = recovery(perturbed, cam0)
+    log.log(fit_step=-1, **before)
+    loss = float("nan")
+    for i in range(args.steps):
+        (state, loss), secs = StepTimer.timed(step_fn, state, target)
+        log.log(fit_step=i, loss=float(loss), seconds=round(secs, 4))
+    after = recovery(state.scene, state.camera)
+    log.log(fit_step=args.steps, **after)
+    log.close()
+    with torch.no_grad():
+        img = render_mean(state.scene, state.camera, sample_start=0, **kw)
+    write_png(args.out, torch.flip(pack_rgba8(linear_to_srgb(img)),
+                                   dims=[0]).cpu().numpy())
+    print(f"wrote {args.out} (final loss {float(loss):.6f})",
+          file=sys.stderr)
+    for k in before:
+        print(f"  {k}: {before[k]:.6f} -> {after[k]:.6f}", file=sys.stderr)
+    return 0
+
+
 def cmd_scenes(args) -> int:
     from tpu_ray_torch.core.scene import SCENE_BUILDERS, make_scene
     for i, name in enumerate(SCENE_BUILDERS):
@@ -100,11 +236,31 @@ def main(argv=None) -> int:
                    help="progressive passes (each adds spp samples)")
     r.add_argument("--out", default="out.png")
 
+    f = sub.add_parser("fit", help="inverse-rendering optimization demo")
+    _add_common(f)
+    f.add_argument("--steps", type=int, default=50)
+    f.add_argument("--perturb-geom", type=float, default=0.0,
+                   help="geometry perturbation scale (default 0: geometry "
+                        "gradients are boundary-dominated; set >0 to "
+                        "demonstrate)")
+    f.add_argument("--lr", type=float, default=0.05)
+    f.add_argument("--target-spp", type=int, default=0,
+                   help="target-render spp; 0 (default) = match --spp and "
+                        "its RNG streams so the loss is 0 at recovery")
+    f.add_argument("--fit-camera", action="store_true",
+                   help="also nudge + recover the camera position")
+    f.add_argument("--out", default="fit.png")
+    f.add_argument("--metrics", default=None, help="JSONL metrics file")
+    f.add_argument("--mesh", default=None,
+                   help="device mesh (not ported yet: raises)")
+
     sub.add_parser("scenes", help="list built-in scenes")
 
     args = ap.parse_args(argv)
     if args.cmd == "render":
         return cmd_render(args)
+    if args.cmd == "fit":
+        return cmd_fit(args)
     return cmd_scenes(args)
 
 

@@ -65,9 +65,32 @@ def default_camera(scene: Scene) -> Camera:
                         device=scene.device)
 
 
-def camera_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> Camera:
+CAMERA_LEAVES = ("position", "look_at")
+
+
+def camera_from_numpy(d: Dict[str, np.ndarray], device="cuda",
+                      requires_grad: bool = False) -> Camera:
     """Camera from numpy ``position`` and ``look_at`` arrays (e.g. a JAX
-    Camera's fields)."""
+    Camera's fields); ``requires_grad`` makes both trainable."""
     def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=device)
+        return torch.tensor(np.asarray(a, np.float32), device=device,
+                            requires_grad=requires_grad)
     return Camera(position=t(d["position"]), look_at=t(d["look_at"]))
+
+
+def camera_to_numpy(camera: Camera, grad: bool = False) -> Dict[str, np.ndarray]:
+    """``position`` and ``look_at`` (or, with ``grad``, their ``.grad``,
+    zeros where none was accumulated) as numpy arrays."""
+    out = {}
+    for k in CAMERA_LEAVES:
+        v = getattr(camera, k)
+        if grad:
+            v = v.grad if v.grad is not None else torch.zeros_like(v)
+        out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def trainable_camera(camera: Camera, names=CAMERA_LEAVES) -> Camera:
+    """A copy of ``camera`` whose leaves in ``names`` require grad."""
+    return Camera(**{k: getattr(camera, k).detach().clone()
+                     .requires_grad_(k in names) for k in CAMERA_LEAVES})

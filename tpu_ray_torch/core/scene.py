@@ -25,7 +25,8 @@ PI32 = np.float32(3.14159265358979323846)
 
 SPHERE_PAD = 128
 
-_FIELDS = ("center", "radius", "albedo", "emissive", "specular", "ior")
+# the trainable sphere leaves, in the JAX Scene's names
+SCENE_LEAVES = ("center", "radius", "albedo", "emissive", "specular", "ior")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,14 +120,37 @@ class SceneBuilder:
 
 
 def scene_from_numpy(d: Dict[str, np.ndarray], device="cuda",
-                     **static) -> Scene:
+                     requires_grad: bool = False, **static) -> Scene:
     """Scene from numpy arrays (the JAX Scene's fields, e.g. ``{k:
     np.asarray(getattr(jax_scene, k))}``) plus its static fields
     (use_sky, n_real, default_distance, default_x_angle,
-    default_y_height)."""
-    def t(a):
-        return torch.tensor(np.asarray(a, np.float32), device=device)
-    return Scene(**{k: t(d[k]) for k in _FIELDS + ("look_at",)}, **static)
+    default_y_height). ``requires_grad`` makes the six sphere leaves
+    trainable."""
+    def t(a, grad=False):
+        return torch.tensor(np.asarray(a, np.float32), device=device,
+                            requires_grad=grad)
+    return Scene(**{k: t(d[k], requires_grad) for k in SCENE_LEAVES},
+                 look_at=t(d["look_at"]), **static)
+
+
+def scene_to_numpy(scene: Scene, grad: bool = False) -> Dict[str, np.ndarray]:
+    """The sphere leaves (or, with ``grad``, their ``.grad``, zeros where
+    none was accumulated) as numpy arrays under the JAX leaf names."""
+    out = {}
+    for k in SCENE_LEAVES:
+        v = getattr(scene, k)
+        if grad:
+            v = v.grad if v.grad is not None else torch.zeros_like(v)
+        out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def trainable_scene(scene: Scene, names=SCENE_LEAVES) -> Scene:
+    """A copy of ``scene`` whose leaves in ``names`` are fresh tensors with
+    ``requires_grad`` (the others are detached copies)."""
+    return dataclasses.replace(scene, **{
+        k: getattr(scene, k).detach().clone().requires_grad_(k in names)
+        for k in SCENE_LEAVES})
 
 
 def make_rgb_scene(pad_to: int = SPHERE_PAD, device="cuda") -> Scene:
@@ -396,5 +420,5 @@ def make_scene(name_or_index, pad_to: int = SPHERE_PAD,
     if name_or_index in _NOT_PORTED or name_or_index.startswith("obj:"):
         raise NotImplementedError(
             f"scene {name_or_index!r}: triangle scenes are not ported yet "
-            "(ROADMAP.md queue A, item 4)")
+            "(ROADMAP.md queue A, item 2)")
     return SCENE_BUILDERS[name_or_index](pad_to=pad_to, device=device)

@@ -38,10 +38,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     # center, radius, n, origin, direction, r, t_out, idx_out, stream
     "trt_sphere_nearest_hit": [_P, _P, _I, _P, _P, _I, _P, _P, _P],
-    # state, r, cam13, center, radius, albedo, emissive, specular, ior, n,
-    # steps, use_sky, max_bounces, width, height, film_w, film_h, stream
-    "trt_regen_steps": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _F, _F, _P],
+    # state, r, cam13, table, n, steps, use_sky, max_bounces, width,
+    # height, film_w, film_h, stream
+    "trt_regen_steps": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    # as trt_regen_steps, then rec, chk, t_end, seg, stream
+    "trt_regen_steps_record": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                               _F, _P, _P, _P, _I, _P],
+    # d_state, r, cam13, table, n, rec, chk, t_end, steps, seg, use_sky,
+    # max_bounces, width, height, film_w, film_h, d_table, d_cam, stream
+    "trt_regen_bwd": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _F, _F, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -16,7 +16,8 @@ __all__ = ["sphere_nearest_hit", "nearest_hit_plain"]
 
 def sphere_nearest_hit(center, radius, origin, direction) -> Hit:
     """center [N,3], radius [N], origin/direction [R,3] f32 -> Hit(t [R] f32,
-    idx [R] i32): the exact nearest hit, lowest index on ties."""
+    idx [R] i32): the exact nearest hit, lowest index on ties. Neither
+    output carries autograd history (the search is a discrete choice)."""
     if not origin.is_cuda:
         return nearest_hit_plain(center, radius, origin, direction)
     n, r = center.shape[0], origin.shape[0]

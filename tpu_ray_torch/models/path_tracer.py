@@ -10,6 +10,12 @@ reference's counter: +1 per bounce-loop iteration entered per pixel sample
 Backends: "torch" searches with the plain ``ops/intersect.nearest_hit``,
 "cuda" with the K1 kernel inside the same bounce loop, and "fused" with
 regen runs the K2 persistent-wavefront kernel.
+
+``render_pixels``/``render_pass`` are differentiable w.r.t. the scene and
+camera tensors: "torch" and "cuda" through autograd of the eager bounce
+loop (the search carries no history; the payload recompute carries the
+gradient), "fused" through ``kernels/regen.RegenTrace`` (K2 recording
+forward, K3 backward).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from tpu_ray_torch.config import RenderConfig
 from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera, default_camera
 from tpu_ray_torch.core.scene import Scene, make_scene
-from tpu_ray_torch.kernels.regen import trace_regen
+from tpu_ray_torch.kernels.regen import make_regen_trace
 from tpu_ray_torch.kernels.sphere_intersect import sphere_nearest_hit
 from tpu_ray_torch.ops.accumulate import AccumState, accumulate
 from tpu_ray_torch.ops.intersect import (Hit, hit_payload, nearest_hit,
@@ -41,11 +47,11 @@ def _check_route(backend: str, shading: str, regen: bool) -> None:
     if shading != "path":
         raise NotImplementedError(
             f"shading={shading!r}: the flat and Lambert estimators are not "
-            "ported yet (ROADMAP.md queue A, item 5)")
+            "ported yet (ROADMAP.md queue A, item 3)")
     if backend == "fused" and not regen:
         raise NotImplementedError(
             "backend='fused' without regen (the per-sample bounce_fwd "
-            "route) is not ported yet (ROADMAP.md queue A, item 6)")
+            "route) is not ported yet (ROADMAP.md queue A, item 1)")
 
 
 def tile_order(width: int, height: int, tile: int = 32):
@@ -116,18 +122,17 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
                   ray_chunk: Optional[int] = None, shading: str = "path",
                   regen: bool = False):
     """``spp`` jittered samples for a flat pixel subset [R] ->
-    (color_sum [R,3] summed over spp, rays_cast int)."""
+    (color_sum [R,3] summed over spp, rays_cast int). Differentiable."""
     _check_route(backend, shading, regen)
     n = pixel.shape[0]
     chunk = n if ray_chunk is None else ray_chunk
     if n % chunk:
         raise ValueError("ray_chunk must divide the pixel count")
     if backend == "fused":
-        # each slab runs its own wavefront to its own slowest lane
-        parts = [trace_regen(scene, camera, pixel[k:k + chunk], width=width,
-                             height=height, spp=spp, seed=seed,
-                             max_bounces=max_bounces,
-                             sample_start=sample_start)
+        # each slab runs its own wavefront to its own slowest lane (and,
+        # under autograd, records and reverses its own trace)
+        trace = make_regen_trace(width, height, seed, max_bounces, spp)
+        parts = [trace(scene, camera, pixel[k:k + chunk], sample_start)
                  for k in range(0, n, chunk)]
         return (torch.cat([c for c, _ in parts]),
                 sum(r for _, r in parts))

@@ -8,7 +8,7 @@ project the centre onto the ray, compare the squared distance with r^2,
 take the near root t_proj - x, the far root when the near one is behind the
 origin, and reject t <= 1e-4. Radius-0 padding never passes ``dsq < r^2``.
 The JAX package's matmul-transpose gather is a TPU workaround; the port
-indexes the table directly.
+indexes the table directly. Gradients flow through ``hit_payload`` only.
 """
 from __future__ import annotations
 
@@ -28,9 +28,15 @@ class Hit(NamedTuple):
     idx: torch.Tensor  # [R] i32 winning sphere (0 on a miss; check t)
 
 
+@torch.no_grad()
 def nearest_hit(center, radius, origin, direction) -> Hit:
     """Brute-force nearest hit over all spheres; the lowest index wins a
-    tie in t. center [N,3], radius [N], origin/direction [R,3] -> Hit."""
+    tie in t. center [N,3], radius [N], origin/direction [R,3] -> Hit.
+
+    The search carries no autograd history (``stop_gradient`` in the JAX
+    package): the winner is a discrete choice, and its [R,N] intermediates
+    must not stay alive for a backward pass. ``hit_payload`` recomputes
+    the differentiable quantities from the winner."""
     cx, cy, cz = center[None, :, 0], center[None, :, 1], center[None, :, 2]
     ox, oy, oz = origin[:, 0:1], origin[:, 1:2], origin[:, 2:3]
     dx, dy, dz = direction[:, 0:1], direction[:, 1:2], direction[:, 2:3]

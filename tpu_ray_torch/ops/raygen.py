@@ -20,11 +20,10 @@ JITTER_SLOT_X = 4
 JITTER_SLOT_Y = 5
 
 
-def film_rays(ax, ay, base, width: int, height: int, position,
-              film_center, cam_x, cam_y):
-    """Pixel coords (ax, ay [R] f32) + stream base [R] -> unit directions
-    [R,3] through the jittered film point. position/film_center/cam_x/
-    cam_y: [3] f32."""
+def film_offsets(ax, ay, base, width: int, height: int):
+    """Pixel coords (ax, ay [R] f32) + stream base [R] -> the jittered
+    film point's offsets (fx, fy) [R] along cam_x and cam_y. They do not
+    depend on the camera, so the regen backward recomputes them."""
     jx = rng.draw_uniform(base, 0, JITTER_SLOT_X, -0.5, 0.5)
     jy = rng.draw_uniform(base, 0, JITTER_SLOT_Y, -0.5, 0.5)
     w = torch.tensor(float(width), dtype=torch.float32, device=ax.device)
@@ -32,8 +31,15 @@ def film_rays(ax, ay, base, width: int, height: int, position,
     film_x = -1.0 + torch.div((ax + jx) * 2.0, w)
     film_y = -1.0 + torch.div((ay + jy) * 2.0, h)
     film_w, film_h = film_extent(width, height)
-    fx = film_x * float(film_w) * 0.5
-    fy = film_y * float(film_h) * 0.5
+    return film_x * float(film_w) * 0.5, film_y * float(film_h) * 0.5
+
+
+def film_rays(ax, ay, base, width: int, height: int, position,
+              film_center, cam_x, cam_y):
+    """Pixel coords (ax, ay [R] f32) + stream base [R] -> unit directions
+    [R,3] through the jittered film point. position/film_center/cam_x/
+    cam_y: [3] f32."""
+    fx, fy = film_offsets(ax, ay, base, width, height)
     film_p = (film_center + fx[..., None] * cam_x) + fy[..., None] * cam_y
     return normalize_eps(film_p - position)
 
