@@ -16,12 +16,21 @@ the camera, three calls, through K2's recording mode and the K3 backward;
 K2-record is held against the forward-only K2 and (1 lane in 32) its plain
 version, K3 at the main path's own records against its plain version on
 1 lane in 32; the fused gradients against backend torch autograd at
-320x180; two make_train_step steps at full size. Prints each phase's wall
-seconds, a JSON line of main-path numbers, one JSON line of per-kernel
-numbers and, last, one JSON line with the device. Any failed check
-raises, so the exit code is nonzero; without a CUDA device, or without the
-tpu_ray_torch package beside this file, it exits nonzero before printing
-any result.
+320x180; two make_train_step steps at full size. Then the per-sample fused
+route (backend fused without regen) at the same size: K4, K5 and K6 at
+the route's own inputs (the main camera's sample 0, 1 lane in 32, and K6
+also on all lanes) against their plain versions, a forward pass as the
+CLI drives it (and the same samples without the Morton permutation, which
+must give the regen route's image bit for bit), three forward+backward
+steps as a user differentiates it, one more of each under torch.profiler
+for the kernels' device times and the device's idle share (the kernels'
+bounds are counted from the same samples outside those calls), and the
+route's gradients against the regen route's at 320x180. Prints each
+phase's wall seconds, a
+JSON line of main-path numbers, one JSON line of per-kernel numbers and,
+last, one JSON line with the device. Any failed check raises, so the exit
+code is nonzero; without a CUDA device, or without the tpu_ray_torch
+package beside this file, it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
@@ -53,6 +62,16 @@ SLICE_STRIDE = 32         # plain K2 runs on every 32nd lane of the main state
 # csrc/regen_bwd.cu (shade_vjp's primal recompute ~139 and transpose ~237,
 # the regenerated ray's camera transpose ~73), rounded down
 K3_FLOPS_PER_STEP = 550
+BOUNCE_STATE_BYTES = 16 * 4   # one lane of the per-sample state
+# the bytes a lane of K6 must move: state rows 0-8, 12 and 13 read, the
+# cotangent's rows 0-11 read, d_state rows 0-8 and 12-15 written in place
+# (rows 9-11 pass through untouched), the 4 B winner id read
+K6_LANE_BYTES = (11 + 12 + 13) * 4 + 4
+# fp32 operations of a live lane in K5 (csrc/shade.cuh trt_shade, ~107 on
+# a diffuse hit) and K6 (trt_shade_vjp's primal recompute ~139 and
+# transpose ~237), rounded down
+K5_FLOPS_PER_LANE = 100
+K6_FLOPS_PER_LANE = 370
 
 
 class CheckFailed(RuntimeError):
@@ -99,6 +118,52 @@ def bits_equal(torch, a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def k4_work(torch, state, table, mask, block_r, block_n):
+    """(fp32 operations, bytes) K4's launch must spend on these inputs:
+    each alive lane tests the real spheres of the tiles its block keeps
+    (FLOPS_PER_PAIR each); the state is read and written once, the ids
+    written, the table read. Device scalars (no synchronisation)."""
+    r = state.shape[1]
+    alive = torch.nn.functional.pad((state[12] > 0.5).double(),
+                                    (0, -r % block_r))
+    per_block = alive.view(-1, block_r).sum(1)
+    real = torch.nn.functional.pad((table[:, 3] > 0).double(),
+                                   (0, -table.shape[0] % block_n))
+    per_tile = real.view(-1, block_n).sum(1)
+    kept = (per_tile.sum().expand_as(per_block) if mask is None
+            else mask.double() @ per_tile)
+    flops = (per_block * kept).sum() * FLOPS_PER_PAIR
+    return flops, (2 * BOUNCE_STATE_BYTES + 4) * r + table.numel() * 4
+
+
+# the CUDA kernels of each bounce wrapper, as torch.profiler names them
+# (K6 is two launches: the per-block partials, then their fixed-order sum)
+BOUNCE_KERNELS = {"bounce_fwd": ("bounce_fwd_kernel",),
+                  "bounce_replay": ("bounce_replay_kernel",),
+                  "bounce_bwd": ("bounce_bwd_kernel", "sum_parts_kernel")}
+
+
+def profiled(torch, fn):
+    """(fn(), wall s, {kernel key: device ms}, device busy ms) of one call
+    under torch.profiler, which reads each kernel's time on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_key = {e.key: e.self_device_time_total / 1e3
+              for e in prof.key_averages()}
+    return out, wall, by_key, sum(by_key.values())
+
+
+def kernel_ms(by_key, names) -> float:
+    """Device ms of the profiled kernels whose name contains one of names."""
+    return sum(ms for key, ms in by_key.items()
+               if any(n in key for n in names))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -116,6 +181,12 @@ def main() -> int:
                                           trainable_scene)
     from tpu_ray_torch.grad import image_mse, make_train_step, render_mean
     from tpu_ray_torch.kernels import build
+    from tpu_ray_torch.kernels.bounce_step import (
+        BLOCK_N, BLOCK_R, FusedTables, bounce_bwd, bounce_bwd_plain,
+        bounce_cull_mask, bounce_cull_mask_octant, bounce_fwd,
+        bounce_fwd_plain, bounce_replay, bounce_replay_plain, fused_tables,
+        init_state, make_fused_sample, morton_perm, permute_spheres,
+        tile_bounds)
     from tpu_ray_torch.kernels.regen import (
         SEG_MAX, regen_bwd, regen_bwd_plain, regen_record, regen_steps,
         regen_steps_plain, wave_init)
@@ -128,11 +199,15 @@ def main() -> int:
     from tpu_ray_torch.ops.raygen import camera_rays
     from tpu_ray_torch.utils.png import write_png
 
-    counted = (sphere_nearest_hit, regen_steps, regen_record, regen_bwd)
+    counted = (sphere_nearest_hit, regen_steps, regen_record, regen_bwd,
+               bounce_fwd, bounce_replay, bounce_bwd)
 
     def reset_counts():
         for fn in counted:
             fn.launches = 0
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in counted}
 
     t_all = time.perf_counter()
     # 1. the card
@@ -278,8 +353,8 @@ def main() -> int:
     secs = time.perf_counter() - t_main
     k2_launches = regen_steps.launches
     require(k2_launches > 0, "main path did not launch K2")
-    require(sphere_nearest_hit.launches == 0 and regen_record.launches == 0
-            and regen_bwd.launches == 0, "forward path launched others")
+    require(sum(counts().values()) == k2_launches,
+            f"forward path launched others: {counts()}")
     mean = state.mean
     require(tuple(mean.shape) == (MAIN_H, MAIN_W, 3), "main image shape")
     require(bool(torch.isfinite(mean).all()), "main image not finite")
@@ -375,12 +450,12 @@ def main() -> int:
     img_g, rays_g = fwd_bwd()
     torch.cuda.synchronize()
     step_secs.append(time.perf_counter() - t_step)
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = counts()
     peak = torch.cuda.max_memory_allocated() - mem0
     require(launches["regen_record"] > 0, "fwd+bwd did not launch K2-record")
     require(launches["regen_bwd"] > 0, "fwd+bwd did not launch K3")
-    require(launches["regen_steps"] == 0 and
-            launches["sphere_nearest_hit"] == 0,
+    require(sum(launches.values()) == launches["regen_record"]
+            + launches["regen_bwd"],
             f"fwd+bwd launched other kernels: {launches}")
     require(rays_g == rays, f"fwd+bwd rays {rays_g} != forward {rays}")
     require(torch.equal(img_g, mean),
@@ -534,27 +609,35 @@ def main() -> int:
     phase("k3_check", t0)
     del recs, recs_s, recs_p, recs_sl, st_r
 
-    # 11. fused+regen gradients against backend torch autograd at 320x180,
-    # 4 spp on the card: each group within 3e-3 of its max
+    # 11. fused+regen gradients against backend torch autograd, and the
+    # per-sample fused route's (K4/K5/K6) against fused+regen's, at
+    # 320x180, 4 spp on the card: each group within 3e-3 of its max
     t0 = time.perf_counter()
     small = {}
-    for backend in ("fused", "torch"):
+    for route, backend, regen in (("fused", "fused", True),
+                                  ("torch", "torch", False),
+                                  ("sample", "fused", False)):
         s2 = trainable_scene(scene)
         c2 = trainable_camera(tracer.camera)
         img2 = render_mean(s2, c2, width=CHECK_W, height=CHECK_H,
                            spp=CHECK_SPP, seed=SEED, max_bounces=MAX_BOUNCES,
-                           backend=backend, regen=backend == "fused")
+                           backend=backend, regen=regen)
         image_mse(img2, torch.zeros_like(img2)).backward()
-        small[backend] = [getattr(s2, k).grad for k in SCENE_LEAVES] + [
+        small[route] = [getattr(s2, k).grad for k in SCENE_LEAVES] + [
             c2.position.grad, c2.look_at.grad]
-    small_err = 0.0
-    for k, a, b in zip(SCENE_LEAVES + ("position", "look_at"),
-                       small["fused"], small["torch"]):
+    small_err, sample_err = 0.0, 0.0
+    for k, a, b, c in zip(SCENE_LEAVES + ("position", "look_at"),
+                          small["fused"], small["torch"], small["sample"]):
         rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
         small_err = max(small_err, rel)
         require(rel < 3e-3, f"fused grad {k} differs from torch by {rel}")
+        rel = ((c - a).abs().max() / a.abs().max().clamp_min(1e-12)).item()
+        sample_err = max(sample_err, rel)
+        require(rel < 3e-3,
+                f"per-sample grad {k} differs from fused+regen by {rel}")
     print(f"fused+regen vs torch autograd gradients, {CHECK_W}x{CHECK_H} "
-          f"{CHECK_SPP} spp: max relative {small_err}", flush=True)
+          f"{CHECK_SPP} spp: max relative {small_err}; per-sample fused vs "
+          f"fused+regen: max relative {sample_err}", flush=True)
     phase("grad_routes_check", t0)
 
     # 12. two make_train_step steps at the main path's size (the first
@@ -576,6 +659,374 @@ def main() -> int:
     print(f"train steps: {train_secs} s, loss {loss}, max |d albedo| "
           f"{moved}", flush=True)
     phase("train_step", t0)
+    del state, init_fn, step_fn
+
+    # 13. K4, K5 and K6 at the per-sample route's own inputs: the main
+    # camera's sample 0 on 1 lane in 32 of the tile-ordered pixels, bounce
+    # after bounce (launches not counted). K4 bit-equal to plain, culled
+    # (the primary mask at bounce 0, the octant mask after) and not; K5
+    # bit-equal to K4; K6's d_state equal to plain, d_table within 1e-4 of
+    # each group's max of the plain f64 sum, two launches bit-equal
+    t0 = time.perf_counter()
+    ftb = fused_tables(scene)
+    scene_p = permute_spheres(scene, morton_perm(scene))
+    use_sky = scene.use_sky
+    px_sl = torch.as_tensor(perm[::SLICE_STRIDE].copy(), device=dev)
+    st = init_state(*camera_rays(tracer.camera, MAIN_W, MAIN_H, px_sl, 0,
+                                 SEED))
+    slice_ms = {"bounce_fwd": [0.0, 0.0], "bounce_replay": [0.0, 0.0],
+                "bounce_bwd": [0.0, 0.0]}     # kernel, plain
+    states, idxs = [], []
+    for b in range(MAX_BOUNCES):
+        mask = (bounce_cull_mask if b == 0 else bounce_cull_mask_octant)(
+            scene_p, st)
+        (out_k, idx_k), _, by_key, _ = profiled(torch, lambda: bounce_fwd(
+            st, ftb.table, b, use_sky=use_sky))
+        ms_k = kernel_ms(by_key, BOUNCE_KERNELS["bounce_fwd"])
+        (out_p, idx_p), ms_p = timed(torch, lambda: bounce_fwd_plain(
+            st, ftb.table, b, use_sky=use_sky))
+        out_kc, idx_kc = bounce_fwd(st, ftb.table, b, mask, use_sky=use_sky)
+        out_pc, idx_pc = bounce_fwd_plain(st, ftb.table, b, mask,
+                                          use_sky=use_sky)
+        torch.cuda.synchronize()
+        for name, o_, i_ in (("plain", out_p, idx_p), ("culled", out_kc,
+                                                         idx_kc),
+                             ("plain culled", out_pc, idx_pc)):
+            require(torch.equal(i_, idx_k) and bits_equal(torch, o_, out_k),
+                    f"K4 bounce {b}: {name} differs from the kernel")
+        rep, _, by_key, _ = profiled(torch, lambda: bounce_replay(
+            st, ftb.table, idx_k, b, use_sky=use_sky))
+        ms_rk = kernel_ms(by_key, BOUNCE_KERNELS["bounce_replay"])
+        rep_p, ms_rp = timed(torch, lambda: bounce_replay_plain(
+            st, ftb.table, idx_k, b, use_sky=use_sky))
+        require(bits_equal(torch, rep, out_k) and bits_equal(torch, rep_p,
+                                                             out_k),
+                f"K5 bounce {b}: not K4's state bit for bit")
+        slice_ms["bounce_fwd"][0] += ms_k
+        slice_ms["bounce_fwd"][1] += ms_p
+        if b < MAX_BOUNCES - 1:       # the backward replays B-1 bounces
+            slice_ms["bounce_replay"][0] += ms_rk
+            slice_ms["bounce_replay"][1] += ms_rp
+        states.append(st)
+        idxs.append(idx_k)
+        st = out_k
+    d = torch.zeros_like(st)
+    d[9:12] = st[9:12]                # the cotangent of sum(color^2) / 2
+    k6_err = 0.0
+    for b in reversed(range(MAX_BOUNCES)):
+        d_in = d.clone()
+        (d_k, tab_k), _, by_key, _ = profiled(torch, lambda: bounce_bwd(
+            states[b], ftb.table, idxs[b], b, d_in, use_sky=use_sky))
+        ms_k = kernel_ms(by_key, BOUNCE_KERNELS["bounce_bwd"])
+        d_k2, tab_k2 = bounce_bwd(states[b], ftb.table, idxs[b], b,
+                                  d.clone(), use_sky=use_sky)
+        (d_p, tab_p), ms_p = timed(torch, lambda: bounce_bwd_plain(
+            states[b], ftb.table, idxs[b], b, d.clone(), use_sky=use_sky))
+        require(torch.equal(d_k, d_p), f"K6 bounce {b}: d_state differs "
+                f"from plain by {(d_k - d_p).abs().max().item()}")
+        require(bits_equal(torch, d_k, d_k2) and bits_equal(torch, tab_k,
+                                                            tab_k2),
+                f"K6 bounce {b}: two launches differ")
+        for c in (slice(0, 3), slice(3, 4), slice(4, 7), slice(7, 10),
+                  slice(10, 11), slice(11, 12)):
+            err = (tab_k[:, c] - tab_p[:, c]).abs().max().item()
+            k6_err = max(k6_err, err)
+            require(err <= 1e-4 * tab_p[:, c].abs().max().item(),
+                    f"K6 bounce {b}: d_table[:, {c}] differs by {err}")
+        slice_ms["bounce_bwd"][0] += ms_k
+        slice_ms["bounce_bwd"][1] += ms_p
+        d = d_k
+    n_sl = px_sl.shape[0]
+    print(f"K4/K5/K6 at the per-sample route's inputs, 1 lane in "
+          f"{SLICE_STRIDE} ({n_sl} lanes), sample 0: K4 bit-equal to plain "
+          f"culled and unculled, K5 bit-equal to K4, K6 d_state equal to "
+          f"plain and d_table within 1e-4 (max |d| {k6_err}), two K6 "
+          f"launches bit-equal; kernel / plain ms {slice_ms}", flush=True)
+    del states, idxs, st, d, out_k, out_p, out_kc, out_pc, rep, rep_p
+
+    # the same at the route's full width, sample 0: all 2,073,600 lanes,
+    # so each of K6's blocks sums some 32 lane tiles into its partials
+    # (the slice is one tile a block). K4 culled as on the route, equal
+    # to unculled (and to the octant mask after bounce 0); K5 bit-equal
+    # to K4; K6 against its plain version as above
+    px_all = torch.as_tensor(perm, device=dev)
+    st = init_state(*camera_rays(tracer.camera, MAIN_W, MAIN_H, px_all, 0,
+                                 SEED))
+    states, idxs = [], []
+    for b in range(MAX_BOUNCES):
+        masks = ([bounce_cull_mask(scene_p, st)] if b == 0 else
+                 [None, bounce_cull_mask_octant(scene_p, st)])
+        out_k, idx_k = bounce_fwd(st, ftb.table, b, masks[0],
+                                  use_sky=use_sky)
+        for mask in ([None] if b == 0 else []) + masks[1:]:
+            out_m, idx_m = bounce_fwd(st, ftb.table, b, mask,
+                                      use_sky=use_sky)
+            require(torch.equal(idx_m, idx_k) and bits_equal(torch, out_m,
+                                                             out_k),
+                    f"K4 full width, bounce {b}: culled differs")
+        rep = bounce_replay(st, ftb.table, idx_k, b, use_sky=use_sky)
+        require(bits_equal(torch, rep, out_k),
+                f"K5 full width, bounce {b}: not K4's state bit for bit")
+        states.append(st)
+        idxs.append(idx_k)
+        st = out_k
+    del out_m, rep
+    d = torch.zeros_like(st)
+    d[9:12] = st[9:12]
+    k6_full_err, k6_full_rel = 0.0, 0.0
+    for b in reversed(range(MAX_BOUNCES)):
+        d_k, tab_k = bounce_bwd(states[b], ftb.table, idxs[b], b, d.clone(),
+                                use_sky=use_sky)
+        d_k2, tab_k2 = bounce_bwd(states[b], ftb.table, idxs[b], b,
+                                  d.clone(), use_sky=use_sky)
+        d_p, tab_p = bounce_bwd_plain(states[b], ftb.table, idxs[b], b,
+                                      d.clone(), use_sky=use_sky)
+        require(torch.equal(d_k, d_p), f"K6 full width, bounce {b}: d_state "
+                f"differs from plain by {(d_k - d_p).abs().max().item()}")
+        require(bits_equal(torch, d_k, d_k2) and bits_equal(torch, tab_k,
+                                                            tab_k2),
+                f"K6 full width, bounce {b}: two launches differ")
+        for c in (slice(0, 3), slice(3, 4), slice(4, 7), slice(7, 10),
+                  slice(10, 11), slice(11, 12)):
+            err = (tab_k[:, c] - tab_p[:, c]).abs().max().item()
+            top = tab_p[:, c].abs().max().item()
+            k6_full_err = max(k6_full_err, err)
+            k6_full_rel = max(k6_full_rel, err / max(top, 1e-30))
+            require(err <= 1e-4 * top,
+                    f"K6 full width, bounce {b}: d_table[:, {c}] differs "
+                    f"by {err}")
+        d = d_k
+    k6_err = max(k6_err, k6_full_err)
+    k6_parts = build.load().trt_bounce_bwd_parts(px_all.shape[0])
+    print(f"K4/K5/K6 at the per-sample route's full width, sample 0 "
+          f"({px_all.shape[0]} lanes, {k6_parts} K6 blocks): K4 culled "
+          f"equal to unculled, K5 "
+          f"bit-equal to K4, K6 d_state equal to plain and d_table within "
+          f"1e-4 (max |d| {k6_full_err}, {k6_full_rel} of its group's "
+          f"max), two K6 launches bit-equal",
+          flush=True)
+    phase("k4k5k6_check", t0)
+    del states, idxs, st, d, d_k, d_k2, d_p, out_k
+
+    # 14. the per-sample fused route's forward pass as the CLI drives it
+    # (render --backend fused --no-regen), two calls; then one more under
+    # torch.profiler (CUDA events around a launch would also count the
+    # host's time to issue it: this route is bound by the host)
+    t0 = time.perf_counter()
+    cfg_s = RenderConfig(scene="rtweekend", width=MAIN_W, height=MAIN_H,
+                         spp=MAIN_SPP, max_bounces=MAX_BOUNCES,
+                         backend="fused", seed=SEED, regen=False)
+    tracer_s = PathTracer(cfg_s, scene=scene, device=dev)
+    fwd_secs = []
+    for _ in range(2):
+        state0 = tracer_s.init_state()
+        torch.cuda.synchronize()
+        reset_counts()
+        t_main = time.perf_counter()
+        state_s, rays_s = tracer_s.step(state0)
+        torch.cuda.synchronize()
+        fwd_secs.append(time.perf_counter() - t_main)
+        k4_launches = bounce_fwd.launches
+        require(k4_launches == MAIN_SPP * MAX_BOUNCES,
+                f"per-sample forward launched K4 {k4_launches} times")
+        require(sum(counts().values()) == k4_launches,
+                f"per-sample forward launched others: {counts()}")
+    mean_s = state_s.mean
+    require(rays_s == rays,
+            f"per-sample rays {rays_s} != fused+regen's {rays}")
+    require(bool(torch.isfinite(mean_s).all()) and
+            tuple(mean_s.shape) == (MAIN_H, MAIN_W, 3), "per-sample image")
+    img_d = (mean_s - mean).abs()
+    img_close = torch.isclose(mean_s, mean, rtol=1e-5, atol=1e-6).all(-1)
+    require(img_close.float().mean().item() >= 0.999,
+            f"per-sample image differs from fused+regen's: max {img_d.max()}")
+    # the same samples with the spheres in scene order (no Morton
+    # permutation): exact ties in t then go to the same sphere as on the
+    # regen route, and the image must be the regen route's bit for bit
+    sample = make_fused_sample(MAIN_W, MAIN_H, SEED, MAX_BOUNCES)
+    unperm = FusedTables(payload_tables(scene), *tile_bounds(scene),
+                         scene.use_sky)
+    with torch.no_grad():
+        sum_u = sum(sample(scene, tracer_s.camera, px_all, k, unperm)[0]
+                    for k in range(MAIN_SPP))
+    mean_u = accumulate(tracer_s.init_state(), untile_image(
+        sum_u, MAIN_W, MAIN_H, inv), MAIN_SPP).mean
+    require(torch.equal(mean_u, mean),
+            "per-sample image without the permutation differs from "
+            "fused+regen's")
+    print(f"per-sample forward: rtweekend {MAIN_W}x{MAIN_H} {MAIN_SPP} spp "
+          f"fused --no-regen: {rays_s} rays (= fused+regen) in {fwd_secs} s "
+          f"= {[rays_s / t for t in fwd_secs]} rays/s on {card}; K4 launches "
+          f"{k4_launches}; image equal to fused+regen's: "
+          f"{torch.equal(mean_s, mean)} ({int((img_d > 0).any(-1).sum())} "
+          f"pixels differ, max |d| {img_d.max().item()}); without the Morton "
+          f"permutation equal", flush=True)
+    # the work of this pass's K4, K5 and K6 launches on this run's data,
+    # counted outside the profiled calls: the route's bounces (the primary
+    # culled, the rest not) of every sample again, each launch's alive
+    # lanes per block against the real spheres of the tiles it keeps, and
+    # the live lanes that K5 (bounces 0..B-2) and K6 (all) shade
+    work = {n: [0.0, 0.0, 0] for n in BOUNCE_KERNELS}   # flops, bytes, n
+    tab_bytes = ftb.table.numel() * 4
+    acc_rays = 0
+    with torch.no_grad():
+        for k in range(MAIN_SPP):
+            st = init_state(*camera_rays(tracer_s.camera, MAIN_W, MAIN_H,
+                                         px_all, k, SEED))
+            for b in range(MAX_BOUNCES):
+                acc_rays = acc_rays + (st[12] > 0.5).sum()
+                mask = bounce_cull_mask(scene_p, st) if b == 0 else None
+                flops, nbytes = k4_work(torch, st, ftb.table, mask, BLOCK_R,
+                                        BLOCK_N)
+                st, idx = bounce_fwd(st, ftb.table, b, mask,
+                                     use_sky=use_sky)
+                live = (idx >= 0).double().sum()
+                todo = [("bounce_fwd", flops, nbytes),
+                        ("bounce_bwd", live * K6_FLOPS_PER_LANE,
+                         K6_LANE_BYTES * st.shape[1] + 2 * tab_bytes)]
+                if b < MAX_BOUNCES - 1:
+                    todo.append(("bounce_replay", live * K5_FLOPS_PER_LANE,
+                                 (2 * BOUNCE_STATE_BYTES + 4) * st.shape[1]
+                                 + tab_bytes))
+                for n, f_, b_ in todo:
+                    work[n][0] = work[n][0] + f_
+                    work[n][1] += b_
+                    work[n][2] += 1
+    require(int(acc_rays) == rays_s,
+            f"the bounds' bounce loop cast {int(acc_rays)} rays, the route "
+            f"{rays_s}")
+    work = {n: (int(w[2]),) + bound(float(w[0]), float(w[1]))
+            for n, w in work.items()}
+    del st, idx
+    before = counts()
+    (state_t, _), fwd_prof_secs, by_key, busy = profiled(
+        torch, lambda: tracer_s.step(tracer_s.init_state()))
+    require(counts()["bounce_fwd"] - before["bounce_fwd"]
+            == work["bounce_fwd"][0], "the profiled pass launched K4 "
+            "another number of times than the bounds count")
+    require(torch.equal(state_t.mean, mean_s), "profiled pass image differs")
+    k4_ms = kernel_ms(by_key, BOUNCE_KERNELS["bounce_fwd"])
+    require(k4_ms > 0, "torch.profiler recorded no K4 device time")
+    k4_bound = work["bounce_fwd"][1:]
+    fwd_idle = 1.0 - busy / 1e3 / fwd_prof_secs
+    print(f"per-sample forward under torch.profiler: {fwd_prof_secs:.3f} s "
+          f"wall, device busy {busy:.3f} ms (idle share {fwd_idle:.3f}); "
+          f"K4 {k4_ms:.3f} ms over {work['bounce_fwd'][0]} launches "
+          f"(bound {k4_bound[0]:.3f} ms by {k4_bound[1]})", flush=True)
+    phase("sample_forward", t0)
+
+    # 15. the per-sample route's forward+backward, as a user
+    # differentiates it: image_mse(render_mean(..., regen=False), 0)
+    # .backward() w.r.t. every scene leaf and the camera, three calls; then
+    # one more under torch.profiler
+    t0 = time.perf_counter()
+
+    def fwd_bwd_sample():
+        for leaf in leaves:
+            leaf.grad = None
+        img_g, rays_g = render_mean(sc, cm, width=MAIN_W, height=MAIN_H,
+                                    spp=MAIN_SPP, seed=SEED,
+                                    max_bounces=MAX_BOUNCES, backend="fused",
+                                    regen=False, return_rays=True)
+        image_mse(img_g, target).backward()
+        return img_g.detach(), rays_g
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0_s = torch.cuda.memory_allocated()
+    reset_counts()
+    sample_secs = []
+    t_step = time.perf_counter()
+    img_s, rays_sg = fwd_bwd_sample()
+    torch.cuda.synchronize()
+    sample_secs.append(time.perf_counter() - t_step)
+    launches_s = counts()
+    peak_s = torch.cuda.max_memory_allocated() - mem0_s
+    require(launches_s["bounce_fwd"] == MAIN_SPP * MAX_BOUNCES
+            and launches_s["bounce_replay"] == MAIN_SPP * (MAX_BOUNCES - 1)
+            and launches_s["bounce_bwd"] == MAIN_SPP * MAX_BOUNCES,
+            f"per-sample fwd+bwd launches {launches_s}")
+    require(sum(launches_s.values()) == launches_s["bounce_fwd"]
+            + launches_s["bounce_replay"] + launches_s["bounce_bwd"],
+            f"per-sample fwd+bwd launched other kernels: {launches_s}")
+    require(rays_sg == rays, f"per-sample fwd+bwd rays {rays_sg} != {rays}")
+    require(torch.equal(img_s, mean_s),
+            "per-sample fwd+bwd image differs from its forward pass")
+    grads_s = {k: getattr(sc, k).grad for k in SCENE_LEAVES}
+    grads_s.update(position=cm.position.grad, look_at=cm.look_at.grad)
+    for k, g in grads_s.items():
+        require(g is not None and bool(torch.isfinite(g).all()),
+                f"per-sample gradient of {k} missing or not finite")
+    for k in ("center", "albedo", "position"):
+        require(grads_s[k].abs().max().item() > 0,
+                f"per-sample gradient of {k} is zero")
+    for _ in range(2):
+        t_step = time.perf_counter()
+        fwd_bwd_sample()
+        torch.cuda.synchronize()
+        sample_secs.append(time.perf_counter() - t_step)
+    print(f"per-sample fwd+bwd: rtweekend {MAIN_W}x{MAIN_H} {MAIN_SPP} spp "
+          f"fused --no-regen: {rays_sg} rays; step {sample_secs} s = "
+          f"{[rays_sg / t for t in sample_secs]} rays/s on {card}; launches "
+          f"{launches_s}; peak memory {peak_s} B above the {mem0_s} B held "
+          f"before", flush=True)
+
+    before = counts()
+    (img_t, _), step_prof_secs, by_key, busy = profiled(torch,
+                                                        fwd_bwd_sample)
+    require(all(counts()[n] - before[n] == w[0] for n, w in work.items()),
+            "the profiled step's launches differ from the bounds' count")
+    require(torch.equal(img_t, mean_s), "profiled step image differs")
+    step_tot = {n: (kernel_ms(by_key, BOUNCE_KERNELS[n]),) + w
+                for n, w in work.items()}
+    step_idle = 1.0 - busy / 1e3 / step_prof_secs
+    require(all(v[0] > 0 for v in step_tot.values()),
+            f"torch.profiler recorded no device time: {step_tot}")
+    print(f"per-sample fwd+bwd under torch.profiler: {step_prof_secs:.3f} s "
+          f"wall, device busy {busy:.3f} ms (idle share {step_idle:.3f}); "
+          + "; ".join(f"{n} {v[0]:.3f} ms over {v[1]} launches (bound "
+                      f"{v[2]:.3f} ms by {v[3]})"
+                      for n, v in step_tot.items()), flush=True)
+    phase("sample_fwd_bwd", t0)
+
+    path_s = (f"per-sample: render fused --no-regen {MAIN_W}x{MAIN_H} "
+              f"{MAIN_SPP} spp")
+    path_sg = (f"per-sample fwd+bwd: render_mean fused --no-regen "
+               f"{MAIN_W}x{MAIN_H} {MAIN_SPP} spp")
+    k5_step, k6_step = step_tot["bounce_replay"], step_tot["bounce_bwd"]
+    kernels["bounce_fwd"] = dict(
+        name="bounce_fwd", route="cuda", source="tpu_ray_torch/csrc/bounce.cu",
+        replaces="tpu_ray/kernels/bounce_step.py:1548",
+        launches=k4_launches, max_abs_err=0.0, ms=k4_ms,
+        plain_ms=slice_ms["bounce_fwd"][1], bound_ms=k4_bound[0],
+        bound_by=k4_bound[1], library_ms=None, path=path_s,
+        shape=f"{MAIN_SPP * MAX_BOUNCES} launches of {r2} lanes x "
+              f"{scene.n_pad} spheres ({n_real} real); ms and bound: the "
+              f"whole pass",
+        plain_lanes=n_sl, ms_same_lanes=slice_ms["bounce_fwd"][0],
+        same_lanes="sample 0, 5 bounces")
+    kernels["bounce_replay"] = dict(
+        name="bounce_replay", route="cuda",
+        source="tpu_ray_torch/csrc/bounce.cu",
+        replaces="tpu_ray/kernels/bounce_step.py:1871",
+        launches=launches_s["bounce_replay"], max_abs_err=0.0,
+        ms=k5_step[0], plain_ms=slice_ms["bounce_replay"][1],
+        bound_ms=k5_step[2], bound_by=k5_step[3], library_ms=None,
+        path=path_sg,
+        shape=f"{k5_step[1]} launches of {r2} lanes; ms and bound: one step",
+        plain_lanes=n_sl, ms_same_lanes=slice_ms["bounce_replay"][0],
+        same_lanes="sample 0, 4 bounces")
+    kernels["bounce_bwd"] = dict(
+        name="bounce_bwd", route="cuda", source="tpu_ray_torch/csrc/bounce.cu",
+        replaces="tpu_ray/kernels/bounce_step.py:1901",
+        launches=launches_s["bounce_bwd"], max_abs_err=k6_err,
+        ms=k6_step[0], plain_ms=slice_ms["bounce_bwd"][1],
+        bound_ms=k6_step[2], bound_by=k6_step[3], library_ms=None,
+        path=path_sg,
+        shape=f"{k6_step[1]} launches of {r2} lanes; ms and bound: one step",
+        plain_lanes=n_sl, ms_same_lanes=slice_ms["bounce_bwd"][0],
+        same_lanes="sample 0, 5 bounces",
+        k4_ms_in_step=step_tot["bounce_fwd"][0])
     phase("total", t_all)
 
     print(json.dumps({"main_path": {
@@ -584,7 +1035,14 @@ def main() -> int:
         "seconds": secs, "rays_per_s": rays / secs,
         "fwd_bwd_seconds": step_secs,
         "fwd_bwd_rays_per_s": [rays_g / t for t in step_secs],
-        "fwd_bwd_peak_bytes": peak}}))
+        "fwd_bwd_peak_bytes": peak,
+        "per_sample": {
+            "seconds": fwd_secs, "rays_per_s": [rays_s / t for t in fwd_secs],
+            "fwd_bwd_seconds": sample_secs,
+            "fwd_bwd_rays_per_s": [rays_sg / t for t in sample_secs],
+            "fwd_bwd_peak_bytes": peak_s,
+            "device_idle_share": {"forward": fwd_idle,
+                                  "fwd_bwd": step_idle}}}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,11 @@ import torch
 
 from tpu_ray_torch.core.camera import default_camera
 from tpu_ray_torch.core.scene import make_scene
+from tpu_ray_torch.kernels import build
+from tpu_ray_torch.kernels.bounce_step import (
+    bounce_bwd, bounce_bwd_plain, bounce_cull_mask, bounce_cull_mask_octant,
+    bounce_fwd, bounce_fwd_plain, bounce_replay, bounce_replay_plain,
+    init_state, morton_perm, permute_spheres, scene_table)
 from tpu_ray_torch.kernels.regen import (regen_bwd, regen_bwd_plain,
                                          regen_record, regen_steps,
                                          regen_steps_plain, wave_init)
@@ -19,6 +24,7 @@ from tpu_ray_torch.kernels.sphere_intersect import (nearest_hit_plain,
                                                     sphere_nearest_hit)
 from tpu_ray_torch.models.path_tracer import tile_order
 from tpu_ray_torch.ops.intersect import payload_tables
+from tpu_ray_torch.ops.raygen import camera_rays
 
 REGEN_KW = dict(use_sky=True, max_bounces=5)
 
@@ -127,5 +133,119 @@ def test_fused_grads_match_torch_route_on_card(cuda_device):
         image_mse(img, torch.zeros_like(img)).backward()
         grads[backend] = [sc.center.grad, sc.radius.grad, sc.albedo.grad,
                           sc.emissive.grad, cam.position.grad]
+    for a, b in zip(grads["fused"], grads["torch"]):
+        assert (a - b).abs().max() <= 3e-3 * b.abs().max()
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _fused_chain(dev, w=64, h=48):
+    """rtweekend permuted, and the per-bounce input states of the plain
+    route from a tile-ordered camera wavefront (primary bounce culled)."""
+    ts = make_scene("rtweekend", device=dev)
+    ts = permute_spheres(ts, morton_perm(ts))
+    table = scene_table(ts)
+    px = torch.as_tensor(tile_order(w, h)[0], device=dev)
+    st = init_state(*camera_rays(default_camera(ts), w, h, px, 0, 0))
+    states, idxs = [], []
+    for b in range(5):
+        states.append(st)
+        mask = bounce_cull_mask(ts, st) if b == 0 else None
+        st, idx = bounce_fwd_plain(st, table, b, mask, use_sky=True)
+        idxs.append(idx)
+    return ts, table, states, idxs
+
+
+@pytest.mark.cuda
+def test_k4_matches_plain_on_card(cuda_device):
+    """K4 bit-equal to its plain version, unculled, with the primary mask
+    and with the octant mask."""
+    ts, table, states, _ = _fused_chain(cuda_device)
+    for b, st in enumerate(states):
+        masks = [None, bounce_cull_mask(ts, st), bounce_cull_mask_octant(
+            ts, st)]
+        want = bounce_fwd_plain(st, table, b, use_sky=True)
+        for mask in masks:
+            got = bounce_fwd(st, table, b, mask, use_sky=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(_bits(got[0]), _bits(want[0]))
+
+
+@pytest.mark.cuda
+def test_k5_replays_k4_on_card(cuda_device):
+    ts, table, states, _ = _fused_chain(cuda_device)
+    for b, st in enumerate(states):
+        out, idx = bounce_fwd(st, table, b, use_sky=True)
+        rep = bounce_replay(st, table, idx, b, use_sky=True)
+        want = bounce_replay_plain(st, table, idx, b, use_sky=True)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(rep), _bits(out))
+        assert torch.equal(_bits(rep), _bits(want))
+
+
+def _check_k6(dev, w, h):
+    """K6 over the chain's states with random cotangents: d_state equal to
+    the plain version's, d_table within 1e-4 of each group's max of the
+    plain f64 sum, and two launches bit-equal."""
+    ts, table, states, idxs = _fused_chain(dev, w, h)
+    g = np.random.default_rng(2)
+    for b, st in enumerate(states):
+        d_out = torch.as_tensor(g.standard_normal(st.shape).astype(
+            np.float32), device=dev)
+        d_out[12:16] = 0.0
+        a = bounce_bwd(st, table, idxs[b], b, d_out.clone(), use_sky=True)
+        a2 = bounce_bwd(st, table, idxs[b], b, d_out.clone(), use_sky=True)
+        p = bounce_bwd_plain(st, table, idxs[b], b, d_out.clone(),
+                             use_sky=True)
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], p[0])
+        assert torch.equal(_bits(a[0]), _bits(a2[0]))
+        assert torch.equal(_bits(a[1]), _bits(a2[1]))
+        for cols in (slice(0, 3), slice(3, 4), slice(4, 7), slice(7, 10),
+                     slice(10, 11), slice(11, 12)):
+            want = p[1][:, cols]
+            err = (a[1][:, cols] - want).abs().max().item()
+            assert err <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_k6_matches_plain_on_card(cuda_device):
+    """K6 against its plain version, one lane tile a block."""
+    _check_k6(cuda_device, 64, 48)
+
+
+@pytest.mark.cuda
+def test_k6_multi_tile_matches_plain_on_card(cuda_device):
+    """K6 against its plain version where each block sums several lane
+    tiles into its partials: 650x350 = 227,500 lanes, 889 tiles of 256
+    (the last ragged) over the 256 blocks of the first launch."""
+    assert build.load().trt_bounce_bwd_parts(650 * 350) == 256
+    _check_k6(cuda_device, 650, 350)
+
+
+@pytest.mark.cuda
+def test_fused_no_regen_grads_match_torch_route_on_card(cuda_device):
+    """render_mean through K4/K5/K6 against torch.autograd of the eager
+    route, on the card: the same image and each group within 3e-3 of its
+    max."""
+    from tpu_ray_torch.core.camera import trainable_camera
+    from tpu_ray_torch.core.scene import trainable_scene
+    from tpu_ray_torch.grad import image_mse, render_mean
+
+    base = make_scene("rtweekend", device=cuda_device)
+    grads, imgs = {}, {}
+    for backend in ("fused", "torch"):
+        sc = trainable_scene(base)
+        cam = trainable_camera(default_camera(base))
+        img = render_mean(sc, cam, width=64, height=48, spp=2,
+                          backend=backend, regen=False)
+        image_mse(img, torch.zeros_like(img)).backward()
+        imgs[backend] = img.detach()
+        grads[backend] = [sc.center.grad, sc.radius.grad, sc.albedo.grad,
+                          sc.emissive.grad, cam.position.grad]
+    assert torch.equal(imgs["fused"], imgs["torch"])
     for a, b in zip(grads["fused"], grads["torch"]):
         assert (a - b).abs().max() <= 3e-3 * b.abs().max()

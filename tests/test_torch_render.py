@@ -121,7 +121,7 @@ def test_path_tracer_accumulates():
     assert int(img[..., :3].max()) > 0
 
 
-@pytest.mark.parametrize("kw", [dict(backend="fused", regen=False),
+@pytest.mark.parametrize("kw", [dict(backend="fused", shading="flat"),
                                 dict(backend="torch", shading="flat"),
                                 dict(backend="torch",
                                      shading="lambert_shadow")])

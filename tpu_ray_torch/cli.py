@@ -11,10 +11,13 @@ Run on the card (the default) or with ``--device cpu``, e.g.
       --height 1080 --spp 64 --backend fused --regen --out /tmp/x.png
   python -m tpu_ray_torch.cli fit --scene rtweekend --width 512 \\
       --height 512 --spp 4 --backend fused --steps 200 --out /tmp/fit.png
+  python -m tpu_ray_torch.cli render --backend fused --no-regen \\
+      --cull-secondary --out /tmp/y.png
 
-Not ported yet (ROADMAP.md queue A): --checkpoint/--resume, render's
---metrics, --profile, --mesh, --exact-argmin (the port's search is always
-exact), --cull-secondary and the animate and bench subcommands.
+--exact-argmin is accepted and changes nothing: the port's search is
+always exact. Not ported yet (ROADMAP.md queue A): --checkpoint/--resume,
+render's --metrics, --profile, --mesh and the animate and bench
+subcommands.
 """
 from __future__ import annotations
 
@@ -37,15 +40,23 @@ def _add_common(ap: argparse.ArgumentParser):
                     choices=["torch", "cuda", "fused"],
                     help="torch = plain PyTorch search; cuda = the CUDA "
                          "sphere-search kernel; fused = the CUDA regen "
-                         "kernel (with --regen)")
+                         "kernel (with --regen) or the per-sample CUDA "
+                         "bounce kernels (--no-regen)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ray-chunk", type=int, default=None)
     ap.add_argument("--shading", default="path",
                     choices=["path", "flat", "lambert_shadow"])
+    ap.add_argument("--exact-argmin", action="store_true",
+                    help="accepted for the JAX command lines; the port's "
+                         "search is always exact")
+    ap.add_argument("--cull-secondary", action="store_true",
+                    help="fused backend without regen: octant-split tile "
+                         "culling on bounces 1.. (bit-identical)")
     ap.add_argument("--regen", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="fused backend: persistent-wavefront sample "
-                         "regeneration (default ON with --backend fused)")
+                         "regeneration (default ON with --backend fused; "
+                         "--no-regen runs the per-sample route)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -66,6 +77,7 @@ def cmd_render(args) -> int:
                        spp=args.spp, max_bounces=args.max_bounces,
                        backend=args.backend, seed=args.seed,
                        ray_chunk=args.ray_chunk, shading=args.shading,
+                       cull_secondary=args.cull_secondary,
                        regen=_want_regen(args.regen, args.backend))
     tracer = PathTracer(cfg, device=args.device)
     state = tracer.init_state()
@@ -106,12 +118,13 @@ def cmd_fit(args) -> int:
     if args.mesh is not None:
         raise NotImplementedError(
             "--mesh: sharding is not ported yet (ROADMAP.md queue A, "
-            "item 4)")
+            "item 5)")
     scene = make_scene(args.scene, device=args.device)
     camera = default_camera(scene)
     kw = dict(width=args.width, height=args.height, spp=args.spp,
               seed=args.seed, max_bounces=args.max_bounces,
               backend=args.backend, ray_chunk=args.ray_chunk,
+              cull_secondary=args.cull_secondary,
               regen=_want_regen(args.regen, args.backend))
     with torch.no_grad():
         target = render_mean(scene, camera, sample_start=0, **{
@@ -190,9 +203,10 @@ def cmd_fit(args) -> int:
             dict(params=[params[k] for k in names], lr=lr, eps=eps(g))
             for g, (lr, names) in groups.items()])
 
+    # remat=True as the JAX fit passes it (eager backends only)
     init_fn, step_fn = make_train_step(
         optimizer=optimizer, train_camera=fit_camera, fixed_samples=True,
-        **kw)
+        remat=True, **kw)
     state = init_fn(perturbed, cam0)
 
     log = MetricsLogger(path=args.metrics)

@@ -7,6 +7,8 @@ Backends (the JAX package's names on the left):
                              eager bounce loop (kernels/sphere_intersect.py)
   fused + regen  -> "fused"  the CUDA persistent-wavefront regen kernel
                    + regen   (kernels/regen.py), the default route on the card
+  fused          -> "fused"  the per-sample route through the CUDA bounce
+                             kernels (kernels/bounce_step.py)
 """
 from __future__ import annotations
 
@@ -28,7 +30,11 @@ class RenderConfig:
     shading: str = "path"             # only 'path' is ported so far
     ray_chunk: Optional[int] = None   # split the ray wavefront to bound memory
     exact_srgb: bool = False          # the reference ships the sqrt curve
+    exact_argmin: bool = False        # accepted; the port's search is exact
     regen: bool = False               # fused backend: persistent wavefront
+    cull_secondary: bool = False      # fused without regen: octant-split
+                                      # tile culling on bounces 1..
+                                      # (bit-identical)
 
     def __post_init__(self):
         if self.backend not in BACKENDS:

@@ -420,5 +420,5 @@ def make_scene(name_or_index, pad_to: int = SPHERE_PAD,
     if name_or_index in _NOT_PORTED or name_or_index.startswith("obj:"):
         raise NotImplementedError(
             f"scene {name_or_index!r}: triangle scenes are not ported yet "
-            "(ROADMAP.md queue A, item 2)")
+            "(ROADMAP.md queue A, item 3)")
     return SCENE_BUILDERS[name_or_index](pad_to=pad_to, device=device)

@@ -57,15 +57,13 @@ __device__ __forceinline__ void trt_normalize_eps(float& x, float& y,
   }
 }
 
-// ops/intersect.py nearest_hit for one ray over n spheres staged in shared
-// memory as (cx, cy, cz, r). Strict < keeps the lowest index on ties; a
-// miss leaves t = 1e30, idx = 0.
-__device__ __forceinline__ void trt_nearest_sphere(
-    const float4* __restrict__ sph, int n, float ox, float oy, float oz,
-    float dx, float dy, float dz, float& t_out, int& idx_out) {
-  float best = TRT_F32_MAX;
-  int bi = 0;
-  for (int i = 0; i < n; ++i) {
+// ops/intersect.py nearest_hit folded over spheres [k0, k1) staged in
+// shared memory as (cx, cy, cz, r) into a running (best, bi). Strict <
+// keeps the lowest index on ties when ranges are folded in index order.
+__device__ __forceinline__ void trt_fold_spheres(
+    const float4* __restrict__ sph, int k0, int k1, float ox, float oy,
+    float oz, float dx, float dy, float dz, float& best, int& bi) {
+  for (int i = k0; i < k1; ++i) {
     const float4 s = sph[i];
     const float mx = s.x - ox, my = s.y - oy, mz = s.z - oz;
     const float tp = mx * dx + my * dy + mz * dz;
@@ -82,8 +80,16 @@ __device__ __forceinline__ void trt_nearest_sphere(
       }
     }
   }
-  t_out = best;
-  idx_out = bi;
+}
+
+// ops/intersect.py nearest_hit for one ray over n spheres staged in shared
+// memory. A miss leaves t = 1e30, idx = 0.
+__device__ __forceinline__ void trt_nearest_sphere(
+    const float4* __restrict__ sph, int n, float ox, float oy, float oz,
+    float dx, float dy, float dz, float& t_out, int& idx_out) {
+  t_out = TRT_F32_MAX;
+  idx_out = 0;
+  trt_fold_spheres(sph, 0, n, ox, oy, oz, dx, dy, dz, t_out, idx_out);
 }
 
 // Stage n spheres (center [n,3], radius [n]) into shared memory.

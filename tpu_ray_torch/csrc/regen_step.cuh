@@ -4,11 +4,11 @@
 // _step_tail the same way, tpu_ray/kernels/regen.py:167-224).
 //
 // The plain version is kernels/regen.py step_tail_plain (shading by
-// kernels/bounce_step.py shade_plain); this file repeats its f32 op
-// sequence (see common.cuh on -fmad=false).
+// kernels/bounce_step.py shade_plain, here shade.cuh trt_shade); this file
+// repeats its f32 op sequence (see common.cuh on -fmad=false).
 #pragma once
 
-#include "common.cuh"
+#include "shade.cuh"
 
 struct TrtCam {
   float px, py, pz, fcx, fcy, fcz, xx, xy, xz, yx, yy, yz, s_end;
@@ -100,100 +100,15 @@ __device__ __forceinline__ void trt_film_vec(const TrtCam& c, float fx,
 }
 
 // The regen step of an alive lane after the search: idx is the winner row
-// of the [P,12] table (center 0-2, radius 3, albedo 4-6, emissive 7-9,
-// specular 10, ior 11), -1 on a miss. Sky / emissive / albedo, the scatter
-// with draws keyed by the lane's bounce row, the flush of a finished
-// sample, has_more against s_end, regeneration, and rays += 1.
+// of the [P,12] table, -1 on a miss. The shading (trt_shade) with draws
+// keyed by the lane's bounce row, the flush of a finished sample, has_more
+// against s_end, regeneration, and rays += 1.
 __device__ __forceinline__ void trt_step_tail(TrtLane& L, const TrtCam& c,
                                               const float* table, int idx,
                                               const TrtRegenParams& p) {
   const bool live = idx >= 0;
-  const float s_pm1 = 4.656612873077393e-10f;   // 2 * 2^-32
-  const float s_01 = 2.3283064365386963e-10f;   // 2^-32
-  if (!live) {
-    if (p.use_sky) {
-      // ops/shade.py sky_color(d) * atten
-      const float a = (L.dy + 1.0f) * 0.5f;
-      const float oma = 1.0f - a;
-      L.cr = L.cr + (oma * 1.0f + a * 0.5f) * L.ar;
-      L.cg = L.cg + (oma * 1.0f + a * 0.7f) * L.ag;
-      L.cb = L.cb + (oma * 1.0f + a * 1.0f) * L.ab;
-    }
-  } else {
-    // ops/intersect.py hit_payload
-    const float* w = table + 12 * (size_t)idx;
-    const float mx = w[0] - L.ox, my = w[1] - L.oy, mz = w[2] - L.oz;
-    const float tp = mx * L.dx + my * L.dy + mz * L.dz;
-    const float qx = mx - L.dx * tp, qy = my - L.dy * tp,
-                qz = mz - L.dz * tp;
-    const float dsq = qx * qx + qy * qy + qz * qz;
-    const float x = trt_safe_sqrt(w[3] * w[3] - dsq);
-    const float tn = tp - x;
-    const bool inside = tn < TRT_F32_EPS;
-    const float t = inside ? tp + x : tn;
-    const float ptx = L.dx * t, pty = L.dy * t, ptz = L.dz * t;
-    const float nox = L.ox + ptx, noy = L.oy + pty, noz = L.oz + ptz;
-
-    L.cr = L.cr + w[7] * L.ar;
-    L.cg = L.cg + w[8] * L.ag;
-    L.cb = L.cb + w[9] * L.ab;
-    L.ar = L.ar * w[4];
-    L.ag = L.ag * w[5];
-    L.ab = L.ab * w[6];
-    const float spec = w[10];
-    const float eta = w[11];
-
-    // draws keyed by the lane's bounce row (core/rng.py slots 0-3)
-    const uint32_t bterm = (uint32_t)L.b_i * TRT_MIX_BOUNCE;
-    float rx = trt_draw(L.base, bterm, 0u, s_pm1, -1.0f);
-    float ry = trt_draw(L.base, bterm, 1u, s_pm1, -1.0f);
-    float rz = trt_draw(L.base, bterm, 2u, s_pm1, -1.0f);
-    const float rrefl = trt_draw(L.base, bterm, 3u, s_01, 0.0f);
-
-    // ops/shade.py scatter_direction
-    float nx = ptx - mx, ny = pty - my, nz = ptz - mz;
-    trt_normalize_eps(nx, ny, nz);
-    const float dn2 = 2.0f * (L.dx * nx + L.dy * ny + L.dz * nz);
-    const float purex = L.dx - dn2 * nx, purey = L.dy - dn2 * ny,
-                purez = L.dz - dn2 * nz;
-    const float n2x = inside ? -nx : nx, n2y = inside ? -ny : ny,
-                n2z = inside ? -nz : nz;
-    float ndx, ndy, ndz;
-    if (eta == 0.0f) {
-      trt_normalize_eps(rx, ry, rz);
-      const float rbx = n2x + rx, rby = n2y + ry, rbz = n2z + rz;
-      const float om = 1.0f - spec;
-      ndx = om * rbx + spec * purex;
-      ndy = om * rby + spec * purey;
-      ndz = om * rbz + spec * purez;
-      trt_normalize_eps(ndx, ndy, ndz);
-    } else {
-      const float ri = inside ? eta : 1.0f / eta;
-      const float cdot = (-L.dx) * n2x + (-L.dy) * n2y + (-L.dz) * n2z;
-      const float cos_t = fminf(cdot, 1.0f);
-      const float sin_t = trt_safe_sqrt(1.0f - cos_t * cos_t);
-      const bool cant = ri * sin_t > 1.0f;
-      const float perpx = ri * (L.dx + cos_t * n2x);
-      const float perpy = ri * (L.dy + cos_t * n2y);
-      const float perpz = ri * (L.dz + cos_t * n2z);
-      const float par = -trt_safe_sqrt(fabsf(
-          1.0f - (perpx * perpx + perpy * perpy + perpz * perpz)));
-      float rfx = perpx + par * n2x, rfy = perpy + par * n2y,
-            rfz = perpz + par * n2z;
-      trt_normalize_eps(rfx, rfy, rfz);
-      float r0 = (1.0f - ri) / (1.0f + ri);
-      r0 = r0 * r0;
-      float r1 = 1.0f - cos_t;
-      r1 = r1 * r1 * r1 * r1 * r1;
-      const float schlick = r0 + (1.0f - r0) * r1;
-      const bool refl = (cant || schlick > rrefl) && !inside;
-      ndx = refl ? purex : rfx;
-      ndy = refl ? purey : rfy;
-      ndz = refl ? purez : rfz;
-    }
-    L.ox = nox; L.oy = noy; L.oz = noz;
-    L.dx = ndx; L.dy = ndy; L.dz = ndz;
-  }
+  trt_shade(L, live ? table + 12 * (size_t)idx : nullptr,
+            (uint32_t)L.b_i * TRT_MIX_BOUNCE, p.use_sky != 0);
 
   // the sample ends when its ray dies or its bounce budget is spent
   const float b_next = L.b_i + 1.0f;

@@ -1,0 +1,347 @@
+// The bounce's shading and its transpose, shared by every kernel that
+// shades a ray: K2 (regen.cu, through trt_step_tail), K3 (regen_bwd.cu),
+// and K4, K5, K6 (bounce.cu). One copy of each, so the forward, the
+// backward's replay and the two backwards repeat one f32 op sequence.
+//
+// The plain versions are kernels/bounce_step.py shade_plain and
+// shade_vjp_plain; this file repeats their op order (see common.cuh on
+// -fmad=false). The JAX package shares _shade and _shade_vjp the same way
+// (tpu_ray/kernels/bounce_step.py).
+#pragma once
+
+#include "common.cuh"
+
+// One bounce's shading of an alive lane (shade_plain): w is the winner's
+// row of the [P,12] table (center 0-2, radius 3, albedo 4-6, emissive 7-9,
+// specular 10, ior 11), nullptr on a miss. A miss adds the sky colour when
+// use_sky; a hit adds the emission, multiplies in the albedo and scatters,
+// with the draws keyed by the lane's stream base and bterm (the bounce
+// times TRT_MIX_BOUNCE, core/rng.py slots 0-3). Lane: any struct with the
+// rows ox..cb and base.
+template <class Lane>
+__device__ __forceinline__ void trt_shade(Lane& L, const float* w,
+                                          uint32_t bterm, bool use_sky) {
+  const float s_pm1 = 4.656612873077393e-10f;   // 2 * 2^-32
+  const float s_01 = 2.3283064365386963e-10f;   // 2^-32
+  if (w == nullptr) {
+    if (use_sky) {
+      // ops/shade.py sky_color(d) * atten
+      const float a = (L.dy + 1.0f) * 0.5f;
+      const float oma = 1.0f - a;
+      L.cr = L.cr + (oma * 1.0f + a * 0.5f) * L.ar;
+      L.cg = L.cg + (oma * 1.0f + a * 0.7f) * L.ag;
+      L.cb = L.cb + (oma * 1.0f + a * 1.0f) * L.ab;
+    }
+  } else {
+    // ops/intersect.py hit_payload
+    const float mx = w[0] - L.ox, my = w[1] - L.oy, mz = w[2] - L.oz;
+    const float tp = mx * L.dx + my * L.dy + mz * L.dz;
+    const float qx = mx - L.dx * tp, qy = my - L.dy * tp,
+                qz = mz - L.dz * tp;
+    const float dsq = qx * qx + qy * qy + qz * qz;
+    const float x = trt_safe_sqrt(w[3] * w[3] - dsq);
+    const float tn = tp - x;
+    const bool inside = tn < TRT_F32_EPS;
+    const float t = inside ? tp + x : tn;
+    const float ptx = L.dx * t, pty = L.dy * t, ptz = L.dz * t;
+    const float nox = L.ox + ptx, noy = L.oy + pty, noz = L.oz + ptz;
+
+    L.cr = L.cr + w[7] * L.ar;
+    L.cg = L.cg + w[8] * L.ag;
+    L.cb = L.cb + w[9] * L.ab;
+    L.ar = L.ar * w[4];
+    L.ag = L.ag * w[5];
+    L.ab = L.ab * w[6];
+    const float spec = w[10];
+    const float eta = w[11];
+
+    // draws keyed by the lane's bounce row (core/rng.py slots 0-3)
+    float rx = trt_draw(L.base, bterm, 0u, s_pm1, -1.0f);
+    float ry = trt_draw(L.base, bterm, 1u, s_pm1, -1.0f);
+    float rz = trt_draw(L.base, bterm, 2u, s_pm1, -1.0f);
+    const float rrefl = trt_draw(L.base, bterm, 3u, s_01, 0.0f);
+
+    // ops/shade.py scatter_direction
+    float nx = ptx - mx, ny = pty - my, nz = ptz - mz;
+    trt_normalize_eps(nx, ny, nz);
+    const float dn2 = 2.0f * (L.dx * nx + L.dy * ny + L.dz * nz);
+    const float purex = L.dx - dn2 * nx, purey = L.dy - dn2 * ny,
+                purez = L.dz - dn2 * nz;
+    const float n2x = inside ? -nx : nx, n2y = inside ? -ny : ny,
+                n2z = inside ? -nz : nz;
+    float ndx, ndy, ndz;
+    if (eta == 0.0f) {
+      trt_normalize_eps(rx, ry, rz);
+      const float rbx = n2x + rx, rby = n2y + ry, rbz = n2z + rz;
+      const float om = 1.0f - spec;
+      ndx = om * rbx + spec * purex;
+      ndy = om * rby + spec * purey;
+      ndz = om * rbz + spec * purez;
+      trt_normalize_eps(ndx, ndy, ndz);
+    } else {
+      const float ri = inside ? eta : 1.0f / eta;
+      const float cdot = (-L.dx) * n2x + (-L.dy) * n2y + (-L.dz) * n2z;
+      const float cos_t = fminf(cdot, 1.0f);
+      const float sin_t = trt_safe_sqrt(1.0f - cos_t * cos_t);
+      const bool cant = ri * sin_t > 1.0f;
+      const float perpx = ri * (L.dx + cos_t * n2x);
+      const float perpy = ri * (L.dy + cos_t * n2y);
+      const float perpz = ri * (L.dz + cos_t * n2z);
+      const float par = -trt_safe_sqrt(fabsf(
+          1.0f - (perpx * perpx + perpy * perpy + perpz * perpz)));
+      float rfx = perpx + par * n2x, rfy = perpy + par * n2y,
+            rfz = perpz + par * n2z;
+      trt_normalize_eps(rfx, rfy, rfz);
+      float r0 = (1.0f - ri) / (1.0f + ri);
+      r0 = r0 * r0;
+      float r1 = 1.0f - cos_t;
+      r1 = r1 * r1 * r1 * r1 * r1;
+      const float schlick = r0 + (1.0f - r0) * r1;
+      const bool refl = (cant || schlick > rrefl) && !inside;
+      ndx = refl ? purex : rfx;
+      ndy = refl ? purey : rfy;
+      ndz = refl ? purez : rfz;
+    }
+    L.ox = nox; L.oy = noy; L.oz = noz;
+    L.dx = ndx; L.dy = ndy; L.dz = ndz;
+  }
+}
+
+__device__ __forceinline__ float trt_dot3(float ax, float ay, float az,
+                                          float bx, float by, float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+
+// bounce_step.py nrm3_fwd: normalize_eps keeping inv and ok
+__device__ __forceinline__ void trt_nrm3_fwd(float x, float y, float z,
+                                             float& ox, float& oy, float& oz,
+                                             float& inv, bool& ok) {
+  const float lsq = trt_dot3(x, y, z, x, y, z);
+  ok = lsq > TRT_F32_EPS;
+  inv = 1.0f / sqrtf(ok ? lsq : 1.0f);
+  ox = ok ? x * inv : 0.0f;
+  oy = ok ? y * inv : 0.0f;
+  oz = ok ? z * inv : 0.0f;
+}
+
+// bounce_step.py nrm3_bwd: d_x = where(ok, (g - y (y.g)) inv, 0)
+__device__ __forceinline__ void trt_nrm3_bwd(float yx, float yy, float yz,
+                                             float inv, bool ok, float gx,
+                                             float gy, float gz, float& dx,
+                                             float& dy, float& dz) {
+  const float s = trt_dot3(yx, yy, yz, gx, gy, gz);
+  dx = ok ? (gx - yx * s) * inv : 0.0f;
+  dy = ok ? (gy - yy * s) * inv : 0.0f;
+  dz = ok ? (gz - yz * s) * inv : 0.0f;
+}
+
+__device__ __forceinline__ float trt_sign(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// bounce_step.py shade_vjp_plain for one lane. s: the pre-bounce rows
+// (o 0-2, d 3-5, a 6-8); w: the winner's table row (row 0 on a miss,
+// as the plain version gathers; every use is masked); g: cotangent rows
+// 0-11. -> d_s rows 0-8 (rows 9-11 are g's) and d_w [12].
+static __device__ void trt_shade_vjp(const float* s, const float* w,
+                                     bool live, bool sky, float rd0,
+                                     float rd1, float rd2, float rrefl,
+                                     bool use_sky, const float* g, float* d_s,
+                                     float* d_w) {
+  const float o0 = s[0], o1 = s[1], o2 = s[2];
+  const float d0 = s[3], d1 = s[4], d2 = s[5];
+  const float a0 = s[6], a1 = s[7], a2 = s[8];
+  const float r_ = w[3];
+  const float al0 = w[4], al1 = w[5], al2 = w[6];
+  const float em0 = w[7], em1 = w[8], em2 = w[9];
+  const float spec = w[10], ior = w[11];
+
+  // ---- forward recompute, in shade_plain's op order ----
+  const float m0 = w[0] - o0, m1 = w[1] - o1, m2 = w[2] - o2;
+  const float tp = trt_dot3(m0, m1, m2, d0, d1, d2);
+  const float p0 = m0 - d0 * tp, p1 = m1 - d1 * tp, p2 = m2 - d2 * tp;
+  const float dsq = trt_dot3(p0, p1, p2, p0, p1, p2);
+  const float xx = trt_safe_sqrt(r_ * r_ - dsq);
+  const float tn = tp - xx;
+  const bool inside = tn < TRT_F32_EPS;
+  const float tt = inside ? tp + xx : tn;
+  const bool qpos = xx > 0.0f;
+  float nx, ny, nz, n_inv;
+  bool n_ok;
+  trt_nrm3_fwd(d0 * tt - m0, d1 * tt - m1, d2 * tt - m2, nx, ny, nz, n_inv,
+               n_ok);
+  const float dn = trt_dot3(d0, d1, d2, nx, ny, nz);
+  const float dn2 = 2.0f * dn;
+  const float pu0 = d0 - dn2 * nx, pu1 = d1 - dn2 * ny, pu2 = d2 - dn2 * nz;
+  const float sgn = inside ? -1.0f : 1.0f;
+  const float t20 = inside ? -nx : nx, t21 = inside ? -ny : ny,
+              t22 = inside ? -nz : nz;
+  float ru0, ru1, ru2, ru_inv;
+  bool ru_ok;
+  trt_nrm3_fwd(rd0, rd1, rd2, ru0, ru1, ru2, ru_inv, ru_ok);
+  const float rb0 = t20 + ru0, rb1 = t21 + ru1, rb2 = t22 + ru2;
+  const float om = 1.0f - spec;
+  float ddx, ddy, ddz, dd_inv;
+  bool dd_ok;
+  trt_nrm3_fwd(om * rb0 + spec * pu0, om * rb1 + spec * pu1,
+           om * rb2 + spec * pu2, ddx, ddy, ddz, dd_inv, dd_ok);
+  const bool is_diel = ior != 0.0f;
+  const float ior_safe = is_diel ? ior : 1.0f;
+  const float ri = inside ? ior_safe : 1.0f / ior_safe;
+  const float uu = trt_dot3(-d0, -d1, -d2, t20, t21, t22);
+  const float cos_t = fminf(uu, 1.0f);
+  const float sin_t = trt_safe_sqrt(1.0f - cos_t * cos_t);
+  const float pe0 = ri * (d0 + cos_t * t20);
+  const float pe1 = ri * (d1 + cos_t * t21);
+  const float pe2 = ri * (d2 + cos_t * t22);
+  const float wv = 1.0f - trt_dot3(pe0, pe1, pe2, pe0, pe1, pe2);
+  const float sq = trt_safe_sqrt(fabsf(wv));
+  const bool zpos = sq > 0.0f;
+  const float par = -sq;
+  float rfx, rfy, rfz, rf_inv;
+  bool rf_ok;
+  trt_nrm3_fwd(pe0 + par * t20, pe1 + par * t21, pe2 + par * t22, rfx, rfy, rfz,
+           rf_inv, rf_ok);
+  const bool cant = ri * sin_t > 1.0f;
+  float sr0 = (1.0f - ri) / (1.0f + ri);
+  sr0 = sr0 * sr0;
+  float sr1 = 1.0f - cos_t;
+  sr1 = sr1 * sr1 * sr1 * sr1 * sr1;
+  const float schlick = sr0 + (1.0f - sr0) * sr1;
+  const bool refl = (cant || schlick > rrefl) && !inside;
+
+  // ---- transpose ----
+  const float g_no0 = live ? g[0] : 0.0f, g_no1 = live ? g[1] : 0.0f,
+              g_no2 = live ? g[2] : 0.0f;
+  const float g_nd0 = live ? g[3] : 0.0f, g_nd1 = live ? g[4] : 0.0f,
+              g_nd2 = live ? g[5] : 0.0f;
+  const float g_a0 = g[6], g_a1 = g[7], g_a2 = g[8];
+  const float g_c0 = g[9], g_c1 = g[10], g_c2 = g[11];
+  float d_o0 = live ? 0.0f : g[0], d_o1 = live ? 0.0f : g[1],
+        d_o2 = live ? 0.0f : g[2];
+  float d_d0 = live ? 0.0f : g[3], d_d1 = live ? 0.0f : g[4],
+        d_d2 = live ? 0.0f : g[5];
+
+  d_w[7] = live ? g_c0 * a0 : 0.0f;
+  d_w[8] = live ? g_c1 * a1 : 0.0f;
+  d_w[9] = live ? g_c2 * a2 : 0.0f;
+  d_w[4] = live ? g_a0 * a0 : 0.0f;
+  d_w[5] = live ? g_a1 * a1 : 0.0f;
+  d_w[6] = live ? g_a2 * a2 : 0.0f;
+  float d_a0 = live ? g_a0 * al0 + g_c0 * em0 : g_a0;
+  float d_a1 = live ? g_a1 * al1 + g_c1 * em1 : g_a1;
+  float d_a2 = live ? g_a2 * al2 + g_c2 * em2 : g_a2;
+  if (use_sky) {
+    const float sa = (d1 + 1.0f) * 0.5f;
+    d_a0 = d_a0 + (sky ? (1.0f - 0.5f * sa) * g_c0 : 0.0f);
+    d_a1 = d_a1 + (sky ? (1.0f - 0.3f * sa) * g_c1 : 0.0f);
+    d_a2 = d_a2 + (sky ? g_c2 : 0.0f);
+    d_d1 = d_d1 + (sky ? (-0.25f * a0) * g_c0 - (0.15f * a1) * g_c1 : 0.0f);
+  }
+
+  const float d_dl0 = is_diel ? g_nd0 : 0.0f, d_dl1 = is_diel ? g_nd1 : 0.0f,
+              d_dl2 = is_diel ? g_nd2 : 0.0f;
+  const float g_dd0 = is_diel ? 0.0f : g_nd0, g_dd1 = is_diel ? 0.0f : g_nd1,
+              g_dd2 = is_diel ? 0.0f : g_nd2;
+  float d_pu0 = refl ? d_dl0 : 0.0f, d_pu1 = refl ? d_dl1 : 0.0f,
+        d_pu2 = refl ? d_dl2 : 0.0f;
+  const float g_rf0 = refl ? 0.0f : d_dl0, g_rf1 = refl ? 0.0f : d_dl1,
+              g_rf2 = refl ? 0.0f : d_dl2;
+
+  float d_pe0, d_pe1, d_pe2;
+  trt_nrm3_bwd(rfx, rfy, rfz, rf_inv, rf_ok, g_rf0, g_rf1, g_rf2, d_pe0, d_pe1,
+           d_pe2);
+  const float d_par = trt_dot3(t20, t21, t22, d_pe0, d_pe1, d_pe2);
+  float d_t20 = par * d_pe0, d_t21 = par * d_pe1, d_t22 = par * d_pe2;
+  const float d_z = zpos ? (-d_par) / (2.0f * sq) : 0.0f;
+  const float d_psq = (-trt_sign(wv)) * d_z;
+  d_pe0 = d_pe0 + (2.0f * pe0) * d_psq;
+  d_pe1 = d_pe1 + (2.0f * pe1) * d_psq;
+  d_pe2 = d_pe2 + (2.0f * pe2) * d_psq;
+  const float d_ri = trt_dot3(d0 + cos_t * t20, d1 + cos_t * t21,
+                          d2 + cos_t * t22, d_pe0, d_pe1, d_pe2);
+  d_d0 = d_d0 + ri * d_pe0;
+  d_d1 = d_d1 + ri * d_pe1;
+  d_d2 = d_d2 + ri * d_pe2;
+  const float d_cos = ri * trt_dot3(t20, t21, t22, d_pe0, d_pe1, d_pe2);
+  const float ric = ri * cos_t;
+  d_t20 = d_t20 + ric * d_pe0;
+  d_t21 = d_t21 + ric * d_pe1;
+  d_t22 = d_t22 + ric * d_pe2;
+  const float d_u = uu <= 1.0f ? d_cos : 0.0f;
+  d_d0 = d_d0 - t20 * d_u;
+  d_d1 = d_d1 - t21 * d_u;
+  d_d2 = d_d2 - t22 * d_u;
+  d_t20 = d_t20 - d0 * d_u;
+  d_t21 = d_t21 - d1 * d_u;
+  d_t22 = d_t22 - d2 * d_u;
+  const float d_iorsafe =
+      inside ? d_ri : (-d_ri) / (ior_safe * ior_safe);
+  d_w[11] = is_diel ? d_iorsafe : 0.0f;
+  float d_mx0, d_mx1, d_mx2;
+  trt_nrm3_bwd(ddx, ddy, ddz, dd_inv, dd_ok, g_dd0, g_dd1, g_dd2, d_mx0, d_mx1,
+           d_mx2);
+  d_w[10] = trt_dot3(pu0 - rb0, pu1 - rb1, pu2 - rb2, d_mx0, d_mx1, d_mx2);
+  d_t20 = d_t20 + om * d_mx0;
+  d_t21 = d_t21 + om * d_mx1;
+  d_t22 = d_t22 + om * d_mx2;
+  d_pu0 = d_pu0 + spec * d_mx0;
+  d_pu1 = d_pu1 + spec * d_mx1;
+  d_pu2 = d_pu2 + spec * d_mx2;
+  d_d0 = d_d0 + d_pu0;
+  d_d1 = d_d1 + d_pu1;
+  d_d2 = d_d2 + d_pu2;
+  const float d_dn = -2.0f * trt_dot3(nx, ny, nz, d_pu0, d_pu1, d_pu2);
+  float d_nx = (-dn2) * d_pu0, d_ny = (-dn2) * d_pu1, d_nz = (-dn2) * d_pu2;
+  d_nx = d_nx + sgn * d_t20;
+  d_ny = d_ny + sgn * d_t21;
+  d_nz = d_nz + sgn * d_t22;
+  d_d0 = d_d0 + nx * d_dn;
+  d_d1 = d_d1 + ny * d_dn;
+  d_d2 = d_d2 + nz * d_dn;
+  d_nx = d_nx + d0 * d_dn;
+  d_ny = d_ny + d1 * d_dn;
+  d_nz = d_nz + d2 * d_dn;
+  float d_nr0, d_nr1, d_nr2;
+  trt_nrm3_bwd(nx, ny, nz, n_inv, n_ok, d_nx, d_ny, d_nz, d_nr0, d_nr1, d_nr2);
+
+  d_o0 = d_o0 + g_no0;
+  d_o1 = d_o1 + g_no1;
+  d_o2 = d_o2 + g_no2;
+  d_d0 = d_d0 + g_no0 * tt;
+  d_d1 = d_d1 + g_no1 * tt;
+  d_d2 = d_d2 + g_no2 * tt;
+  float d_tt = trt_dot3(d0, d1, d2, g_no0, g_no1, g_no2);
+  d_d0 = d_d0 + d_nr0 * tt;
+  d_d1 = d_d1 + d_nr1 * tt;
+  d_d2 = d_d2 + d_nr2 * tt;
+  d_tt = d_tt + trt_dot3(d0, d1, d2, d_nr0, d_nr1, d_nr2);
+  float d_m0 = -d_nr0, d_m1 = -d_nr1, d_m2 = -d_nr2;
+  float d_tp = d_tt;
+  const float d_xx = inside ? d_tt : -d_tt;
+  const float d_q = qpos ? d_xx / (2.0f * xx) : 0.0f;
+  d_w[3] = (2.0f * r_) * d_q;
+  const float d_p0 = (-2.0f * p0) * d_q, d_p1 = (-2.0f * p1) * d_q,
+              d_p2 = (-2.0f * p2) * d_q;
+  d_m0 = d_m0 + d_p0;
+  d_m1 = d_m1 + d_p1;
+  d_m2 = d_m2 + d_p2;
+  d_d0 = d_d0 - d_p0 * tp;
+  d_d1 = d_d1 - d_p1 * tp;
+  d_d2 = d_d2 - d_p2 * tp;
+  d_tp = d_tp - trt_dot3(d0, d1, d2, d_p0, d_p1, d_p2);
+  d_m0 = d_m0 + d0 * d_tp;
+  d_m1 = d_m1 + d1 * d_tp;
+  d_m2 = d_m2 + d2 * d_tp;
+  d_d0 = d_d0 + m0 * d_tp;
+  d_d1 = d_d1 + m1 * d_tp;
+  d_d2 = d_d2 + m2 * d_tp;
+  d_o0 = d_o0 - d_m0;
+  d_o1 = d_o1 - d_m1;
+  d_o2 = d_o2 - d_m2;
+  d_w[0] = d_m0; d_w[1] = d_m1; d_w[2] = d_m2;
+
+  d_s[0] = d_o0; d_s[1] = d_o1; d_s[2] = d_o2;
+  d_s[3] = d_d0; d_s[4] = d_d1; d_s[5] = d_d2;
+  d_s[6] = d_a0; d_s[7] = d_a1; d_s[8] = d_a2;
+}

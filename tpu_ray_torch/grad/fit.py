@@ -34,7 +34,9 @@ def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
                     ray_chunk: Optional[int] = None,
                     optimizer: Optional[OptimizerFactory] = None,
                     train_camera: bool = True, train_scene: bool = True,
-                    regen: bool = False, fixed_samples: bool = False):
+                    remat: bool = False, cull_secondary: bool = False,
+                    exact_argmin: bool = False, regen: bool = False,
+                    fixed_samples: bool = False):
     """-> (init_fn(scene, camera) -> TrainState,
            step_fn(state, target) -> (TrainState, loss [] tensor)).
 
@@ -45,7 +47,10 @@ def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
     spp fresh samples (sample_start advances by spp per step, so the
     estimator never reuses RNG streams); fixed_samples=True pins
     sample_start=0, a deterministic loss for fitting a target rendered
-    with the same streams. The optimizer updates the leaves in place."""
+    with the same streams. The optimizer updates the leaves in place.
+    remat and cull_secondary go to ``render_mean``; exact_argmin changes
+    nothing (the port's search is always exact)."""
+    del exact_argmin
     make_opt = optimizer or (
         lambda params: torch.optim.Adam(list(params.values()), lr=1e-2))
 
@@ -67,7 +72,8 @@ def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
                             height=height, spp=spp,
                             sample_start=sample_start, seed=seed,
                             max_bounces=max_bounces, backend=backend,
-                            ray_chunk=ray_chunk, regen=regen)
+                            ray_chunk=ray_chunk, remat=remat,
+                            cull_secondary=cull_secondary, regen=regen)
         loss = image_mse(image, target)
         loss.backward()
         state.optimizer.step()

@@ -21,16 +21,23 @@ from tpu_ray_torch.models.path_tracer import (render_pixels, tile_order,
 def render_mean(scene: Scene, camera: Camera, *, width: int, height: int,
                 spp: int, sample_start: int = 0, seed: int = 0,
                 max_bounces: int = 5, backend: str = "torch",
-                ray_chunk: Optional[int] = None, regen: bool = False,
-                return_rays: bool = False):
+                ray_chunk: Optional[int] = None, remat: bool = False,
+                cull_secondary: bool = False, exact_argmin: bool = False,
+                regen: bool = False, return_rays: bool = False):
     """Differentiable spp-mean radiance image [H,W,3] on the scene's
     device.
 
-    backend "torch"/"cuda": autograd of the eager bounce loop. "fused"
-    with regen=True: the persistent-wavefront trace with its K2 recording
-    forward and K3 backward (pixels in 32x32-tile order, so the lanes of a
-    warp stay coherent in both sweeps). return_rays=True also returns the
+    backend "torch"/"cuda": autograd of the eager bounce loop; remat=True
+    recomputes each sample in the backward (``torch.utils.checkpoint``)
+    instead of keeping its activations. "fused" (pixels in 32x32-tile
+    order, so the lanes of a warp stay coherent in both sweeps) ignores
+    remat: with regen=True the persistent-wavefront trace with its K2
+    recording forward and K3 backward; without, the per-sample route (K4
+    forward, K5 replay, K6 backward), its later bounces culled by the
+    octant mask when cull_secondary. exact_argmin changes nothing (the
+    port's search is always exact). return_rays=True also returns the
     rays-cast count (an int, no gradient)."""
+    del exact_argmin
     dev = scene.device
     fused = backend == "fused"
     if fused:
@@ -41,7 +48,8 @@ def render_mean(scene: Scene, camera: Camera, *, width: int, height: int,
     color_sum, rays = render_pixels(
         scene, camera, pixel, width=width, height=height, spp=spp,
         sample_start=sample_start, seed=seed, max_bounces=max_bounces,
-        backend=backend, ray_chunk=ray_chunk, regen=regen)
+        backend=backend, ray_chunk=ray_chunk, regen=regen, remat=remat,
+        cull_secondary=cull_secondary)
     if fused:
         img = untile_image(color_sum, width, height, inv)
     else:

@@ -1,35 +1,69 @@
-"""The per-bounce shading chain and its hand transpose, in plain PyTorch.
+"""The bounce kernels of the per-sample fused route, their plain versions,
+and the shading chain they share with the regen route.
 
-Port of the parts of ``tpu_ray/kernels/bounce_step.py`` that the regen
-route needs: ``_shade`` (sphere branch; the port has no triangles yet),
-``_nrm3_fwd``/``_nrm3_bwd`` and ``_shade_vjp``. The fused per-bounce
-kernels of that file (``bounce_fwd``, ``bounce_replay``, ``bounce_bwd``)
-are not ported yet (ROADMAP.md queue B items 6-9).
+Port of ``tpu_ray/kernels/bounce_step.py`` (spheres; the port has no
+triangles yet):
 
-Both functions work on rows: a state ``st`` [16,R] (rows 0-2 origin, 3-5
-direction, 6-8 attenuation, 9-11 colour, 12 alive, 13 rng base bits, 14
-sample, 15 bounce) and the gathered winner ``winner`` [>=12,R] (rows 0-2
-centre, 3 radius, 4-6 albedo, 7-9 emissive, 10 specular, 11 ior: the
-columns of ``scene_table``). ``shade_plain`` repeats the f32 op sequence
-of ``ops/intersect.hit_payload`` + ``ops/shade.scatter_direction`` (and
-of ``csrc/regen_step.cuh``), so the regen forward built on it is bit-equal
-to the bounce-loop render. ``shade_vjp_plain`` recomputes those primals
-in the same op order and pushes a cotangent back through them; its
-op order is repeated by ``csrc/regen_bwd.cu``. Normalisation is the port's
+- ``shade_plain`` / ``shade_vjp_plain`` (JAX ``_shade`` / ``_shade_vjp``):
+  one bounce's smooth state update given the winner, and its hand
+  transpose. ``csrc/shade.cuh`` repeats their f32 op sequence, so every
+  kernel built on them agrees with its plain version bit for bit.
+- K4 ``bounce_fwd`` (``_fwd_kernel``): search + shading of one bounce,
+  optionally culled by a (ray block x sphere tile) mask; K5
+  ``bounce_replay`` (``_replay_kernel``): the shading from a saved winner;
+  K6 ``bounce_bwd`` (``_bwd_kernel``): the bounce's transpose. CUDA in
+  ``csrc/bounce.cu``; each wrapper takes its plain version
+  (``*_plain``) for CPU tensors only.
+- The host side of the route: the Morton permutation of the spheres, the
+  conservative cull masks, ``trace_rays_fused`` (forward only) and
+  ``make_fused_sample``, the differentiable sample (a
+  ``torch.autograd.Function``, the JAX custom VJP).
+
+The shading functions work on rows: a state ``st`` [16,R] (rows 0-2
+origin, 3-5 direction, 6-8 attenuation, 9-11 colour, 12 alive, 13 rng base
+bits, 14-15 passed through: the regen route's sample and bounce, unused
+here) and the gathered winner ``winner`` [>=12,R] (rows 0-2 centre, 3
+radius, 4-6 albedo, 7-9 emissive, 10 specular, 11 ior: the columns of
+``scene_table``). ``shade_plain`` repeats the f32 op sequence of
+``ops/intersect.hit_payload`` + ``ops/shade.scatter_direction``, so the
+routes built on it are bit-equal to the bounce-loop render.
+``shade_vjp_plain`` recomputes those primals in the same op order and
+pushes a cotangent back through them. Normalisation is the port's
 ``1 / sqrt`` (``ops/vec.normalize_eps``), not the JAX package's rsqrt.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+from typing import NamedTuple
+
 import torch
 
-from tpu_ray_torch.core.scene import F32_EPS
+from tpu_ray_torch.core import rng
+from tpu_ray_torch.core.camera import Camera
+from tpu_ray_torch.core.scene import F32_EPS, F32_MAX, Scene
+from tpu_ray_torch.kernels import build
+from tpu_ray_torch.ops.intersect import nearest_hit
 from tpu_ray_torch.ops.intersect import payload_tables as scene_table
+from tpu_ray_torch.ops.raygen import camera_rays
 from tpu_ray_torch.ops.vec import safe_sqrt, sqrt_f32
 
 __all__ = ["shade_plain", "shade_vjp_plain", "nrm3_fwd", "nrm3_bwd",
-           "scene_table"]
+           "scene_table", "BLOCK_R", "BLOCK_N", "morton_perm",
+           "permute_spheres", "tile_bounds", "ray_block_bounds",
+           "cull_mask", "bounce_cull_mask", "octant_occupancy",
+           "bounce_cull_mask_octant", "init_state", "bounce_fwd",
+           "bounce_fwd_plain", "bounce_replay", "bounce_replay_plain",
+           "bounce_bwd", "bounce_bwd_plain", "FusedTables", "fused_tables",
+           "trace_rays_fused", "FusedSample", "make_fused_sample"]
 
 _EPS = float(F32_EPS)
+_MAX = float(F32_MAX)
+# lanes of a K4/K5/K6 thread block, and so the ray block of the cull mask
+# (csrc/bounce.cu TRT_BOUNCE_THREADS); the JAX package's is 1024
+BLOCK_R = 256
+# spheres per cull tile, as in the JAX package (a SPHERE_PAD divisor)
+BLOCK_N = 128
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -361,3 +395,480 @@ def shade_vjp_plain(st, winner, live, sky, rand, use_sky: bool, g):
     d_winner = torch.stack([d_m0, d_m1, d_m2, d_r, d_al0, d_al1, d_al2,
                             d_em0, d_em1, d_em2, d_spec, d_ior])
     return d_st, d_winner
+
+
+# ---------------------------------------------------------------------------
+# Morton permutation and tile culling (host side, no gradient)
+# ---------------------------------------------------------------------------
+
+def _spread3(x):
+    """10-bit ints (int64 carriers) -> bits spread to every 3rd position."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _morton_codes(c, valid):
+    v3 = valid[:, None]
+    lo = torch.where(v3, c, _MAX).amin(dim=0)
+    hi = torch.where(v3, c, -_MAX).amax(dim=0)
+    ext = torch.clamp_min(hi - lo, 1e-20)
+    q = torch.clamp((c - lo) / ext * 1024.0, 0.0, 1023.0).to(torch.int64)
+    code = (_spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1)
+            | (_spread3(q[:, 2]) << 2))
+    return torch.where(valid, code, 0xFFFFFFFF)
+
+
+@torch.no_grad()
+def morton_perm(scene: Scene):
+    """Spatial (Morton / Z-order) sphere permutation -> [N] int64.
+
+    Sorting by the 30-bit Morton code of the quantised centre makes each
+    BLOCK_N-sphere tile spatially compact, so the cull mask can skip it;
+    padding spheres (radius <= 0) sort last, ties keep scene order. The
+    permutation changes no hit except an exact tie in t between two
+    spheres, where the lower index in permuted order wins."""
+    return torch.argsort(_morton_codes(scene.center, scene.radius > 0.0),
+                         stable=True)
+
+
+def permute_spheres(scene: Scene, perm) -> Scene:
+    """The scene with its per-sphere arrays reordered by perm. Autograd
+    carries cotangents back through the gather."""
+    return dataclasses.replace(
+        scene, center=scene.center[perm], radius=scene.radius[perm],
+        albedo=scene.albedo[perm], emissive=scene.emissive[perm],
+        specular=scene.specular[perm], ior=scene.ior[perm])
+
+
+@torch.no_grad()
+def tile_bounds(scene: Scene, block_n: int = BLOCK_N):
+    """Radius-inflated boxes of the sphere tiles -> (lo [T,3], hi [T,3]),
+    T = ceil(N / block_n). Padding spheres are left out, so an all-padding
+    tile gets an empty box (lo > hi) that every ray block culls."""
+    c, r = scene.center, scene.radius[:, None]
+    valid = r > 0.0
+    lo = torch.where(valid, c - r, _MAX)
+    hi = torch.where(valid, c + r, -_MAX)
+    n_t = -(-c.shape[0] // block_n)
+    pad = n_t * block_n - c.shape[0]
+    lo = torch.cat([lo, lo.new_full((pad, 3), _MAX)])
+    hi = torch.cat([hi, hi.new_full((pad, 3), -_MAX)])
+    return (lo.reshape(n_t, block_n, 3).amin(dim=1),
+            hi.reshape(n_t, block_n, 3).amax(dim=1))
+
+
+def _blocks(x, block_r: int, fill):
+    """[..., R] -> [..., B, block_r], the ragged last block filled."""
+    r = x.shape[-1]
+    b = -(-r // block_r)
+    pad = x.new_full(x.shape[:-1] + (b * block_r - r,), fill)
+    return torch.cat([x, pad], dim=-1).reshape(x.shape[:-1] + (b, block_r))
+
+
+@torch.no_grad()
+def ray_block_bounds(state, block_r: int = BLOCK_R):
+    """Alive-masked bounds of each ray block's origins and directions.
+    state [16,R] -> (olo, ohi, dlo, dhi) each [B,3], B = ceil(R/block_r).
+    An all-dead block gets inverted bounds; its mask row does not matter,
+    since its lanes search nothing."""
+    alive = _blocks(state[12] > 0.5, block_r, False)[None]   # [1,B,br]
+    sv = _blocks(state[0:6], block_r, 0.0)                    # [6,B,br]
+    lo = torch.where(alive, sv, _MAX).amin(dim=2).T           # [B,6]
+    hi = torch.where(alive, sv, -_MAX).amax(dim=2).T
+    return lo[:, 0:3], hi[:, 0:3], lo[:, 3:6], hi[:, 3:6]
+
+
+@torch.no_grad()
+def cull_mask(olo, ohi, dlo, dhi, tlo, thi):
+    """Conservative (ray block x tile) reachability -> [B,T] int32.
+
+    With o_k in [olo_k, ohi_k] and d_k in [dlo_k, dhi_k], the points a
+    ray of the block reaches on axis k at t >= 0 lie in
+    [olo_k + t dlo_k, ohi_k + t dhi_k]; the tile box is reachable iff some
+    common t >= 0 meets, on every axis, olo_k + t dlo_k <= thi_k and
+    ohi_k + t dhi_k >= tlo_k. A hit lies in its tile's box, so a culled
+    tile never holds a lane's nearest hit and a culled bounce is
+    bit-identical to an unculled one."""
+    inf = float("inf")
+
+    def le_interval(a, b, c):
+        # the t >= -inf for which a + t b <= c ([B,1,3] against [1,T,3])
+        a, b, c = a[:, None, :], b[:, None, :], c[None, :, :]
+        q = (c - a) / torch.where(b == 0.0, 1.0, b)
+        never = (b == 0.0) & (a > c)
+        lo = torch.where(b < 0.0, q, torch.where(never, inf, -inf))
+        hi = torch.where(b > 0.0, q, torch.where(never, -inf, inf))
+        return lo, hi
+
+    lo1, hi1 = le_interval(olo, dlo, thi)          # olo + t dlo <= thi
+    lo2, hi2 = le_interval(-ohi, -dhi, -tlo)       # ohi + t dhi >= tlo
+    t_lo = torch.maximum(lo1.amax(dim=2), lo2.amax(dim=2)).clamp_min(0.0)
+    t_hi = torch.minimum(hi1.amin(dim=2), hi2.amin(dim=2))
+    return (t_lo <= t_hi).to(torch.int32)
+
+
+@torch.no_grad()
+def octant_occupancy(state, block_r: int = BLOCK_R):
+    """[B,8] bool: does ray block b hold an alive ray whose direction lies
+    in sign octant k = (dx>=0) + 2 (dy>=0) + 4 (dz>=0)?"""
+    alive = _blocks(state[12] > 0.5, block_r, False)
+    d = _blocks(state[3:6], block_r, 0.0)
+    oct_id = ((d[0] >= 0.0).long() + 2 * (d[1] >= 0.0).long()
+              + 4 * (d[2] >= 0.0).long())
+    return torch.stack([(alive & (oct_id == k)).any(dim=1)
+                        for k in range(8)], dim=1)
+
+
+@torch.no_grad()
+def _octant_mask(state, tlo, thi, block_r: int):
+    olo, ohi, dlo, dhi = ray_block_bounds(state, block_r)
+    occ = octant_occupancy(state, block_r)
+    mask = torch.zeros((olo.shape[0], tlo.shape[0]), dtype=torch.int32,
+                       device=state.device)
+    for k in range(8):
+        box_lo = torch.tensor([0.0 if k & 1 else -1.0,
+                               0.0 if k & 2 else -1.0,
+                               0.0 if k & 4 else -1.0], device=state.device)
+        box_hi = torch.tensor([1.0 if k & 1 else 0.0,
+                               1.0 if k & 2 else 0.0,
+                               1.0 if k & 4 else 0.0], device=state.device)
+        mk = cull_mask(olo, ohi, torch.maximum(dlo, box_lo),
+                       torch.minimum(dhi, box_hi), tlo, thi)
+        mask = torch.maximum(mask, mk * occ[:, k:k + 1].to(torch.int32))
+    return mask
+
+
+def bounce_cull_mask(scene: Scene, state, block_r: int = BLOCK_R,
+                     block_n: int = BLOCK_N):
+    """The primary bounce's cull mask [B,T] int32 (JAX
+    ``bounce_cull_mask``, spheres)."""
+    return cull_mask(*ray_block_bounds(state, block_r),
+                     *tile_bounds(scene, block_n))
+
+
+def bounce_cull_mask_octant(scene: Scene, state, block_r: int = BLOCK_R,
+                            block_n: int = BLOCK_N):
+    """The secondary bounces' cull mask [B,T] int32: the OR, over the sign
+    octants an alive ray of the block occupies, of ``cull_mask`` with the
+    block's direction bounds cut to the octant. The plain interval mask
+    never culls after a diffuse bounce (a block's directions span
+    [-1,1]^3); per octant the direction signs are fixed, so tiles behind
+    the block are culled. Conservative for each octant's rays, so still
+    bit-identical."""
+    return _octant_mask(state, *tile_bounds(scene, block_n), block_r)
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5 / K6 and their plain versions
+# ---------------------------------------------------------------------------
+
+def init_state(origins, directions, stream_base):
+    """One sample's [16,R] state from its primary rays [R,3] and stream
+    bases [R] (unpadded; rows 14-15 zero)."""
+    st = torch.zeros((16, origins.shape[0]), dtype=torch.float32,
+                     device=origins.device)
+    st[0:3] = origins.T
+    st[3:6] = directions.T
+    st[6:9] = 1.0
+    st[12] = 1.0
+    st[13] = rng.u32_to_bits(stream_base)
+    return st
+
+
+def _draws(state, bounce: int):
+    """The four draws of bounce ``bounce`` (JAX ``_rand_draws``)."""
+    base = rng.bits_to_u32(state[13].detach())
+    return (rng.draw_uniform(base, bounce, 0, -1.0, 1.0),
+            rng.draw_uniform(base, bounce, 1, -1.0, 1.0),
+            rng.draw_uniform(base, bounce, 2, -1.0, 1.0),
+            rng.draw_uniform(base, bounce, 3, 0.0, 1.0))
+
+
+def _check_bounce_args(state, table):
+    dev = state.device
+    build.require(state, "state", torch.float32, (16, state.shape[1]), dev)
+    build.require(table, "table", torch.float32, (table.shape[0], 12), dev)
+    return dev, state.shape[1], table.shape[0]
+
+
+def bounce_replay_plain(state, table, idx, bounce: int, *, use_sky: bool):
+    """Plain version of K5: the bounce's shading from the winner idx [R]
+    (-1: no hit). live = idx >= 0, sky = alive & ~live; a lane that is
+    neither keeps its state. -> new state [16,R]."""
+    live = idx >= 0
+    sky = (state[12] > 0.5) & ~live
+    winner = table[idx.clamp(min=0).long()].T
+    return shade_plain(state, winner, live, sky, _draws(state, bounce),
+                       use_sky)
+
+
+def bounce_fwd_plain(state, table, bounce: int, mask=None, *,
+                     use_sky: bool, block_n: int = BLOCK_N):
+    """Plain version of K4: one bounce of the per-sample state [16,R]
+    against the winner table [P,12]. The exact search of
+    ``ops/intersect.nearest_hit`` over the spheres of the tiles that the
+    lane's ray block keeps in ``mask`` ([ceil(R/BLOCK_R), ceil(P/block_n)]
+    int32, None = all), then the shading.
+    -> (new state [16,R], winner idx [R] int32, -1 on a miss or a dead
+    lane)."""
+    allowed = None
+    if mask is not None:
+        lanes = torch.arange(state.shape[1], device=state.device) // BLOCK_R
+        allowed = (mask[lanes] != 0).repeat_interleave(block_n, dim=1)
+        allowed = allowed[:, :table.shape[0]]
+    hit = nearest_hit(table[:, 0:3], table[:, 3], state[0:3].T,
+                      state[3:6].T, allowed)
+    live = (state[12] > 0.5) & (hit.t < _MAX)
+    idx = torch.where(live, hit.idx, -1)
+    return bounce_replay_plain(state, table, idx, bounce,
+                               use_sky=use_sky), idx
+
+
+def bounce_fwd(state, table, bounce: int, mask=None, *, use_sky: bool,
+               block_n: int = BLOCK_N):
+    """K4 (``csrc/bounce.cu``): ``bounce_fwd_plain``'s contract in one
+    launch, one thread per lane. The search is always exact (the JAX
+    ``exact_argmin=True``); the route's entry points accept the flag and
+    ignore it. CPU tensors take ``bounce_fwd_plain``."""
+    if not state.is_cuda:
+        return bounce_fwd_plain(state, table, bounce, mask, use_sky=use_sky,
+                                block_n=block_n)
+    dev, r, n = _check_bounce_args(state, table)
+    n_tiles = -(-n // block_n)
+    if mask is not None:
+        build.require(mask, "mask", torch.int32, (-(-r // BLOCK_R), n_tiles),
+                      dev)
+    out = torch.empty_like(state)
+    idx = torch.empty(r, dtype=torch.int32, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.trt_bounce_fwd(
+            state.data_ptr(), out.data_ptr(), r, table.data_ptr(), n,
+            int(bounce), None if mask is None else mask.data_ptr(), n_tiles,
+            int(block_n), int(bool(use_sky)), idx.data_ptr(),
+            build.stream_of(state))
+    build.check("trt_bounce_fwd", err)
+    bounce_fwd.launches += 1
+    return out, idx
+
+
+bounce_fwd.launches = 0
+
+
+def bounce_replay(state, table, idx, bounce: int, *, use_sky: bool):
+    """K5 (``csrc/bounce.cu``): ``bounce_replay_plain``'s contract in one
+    launch; given K4's idx it gives K4's state bit for bit. CPU tensors
+    take ``bounce_replay_plain``."""
+    if not state.is_cuda:
+        return bounce_replay_plain(state, table, idx, bounce,
+                                   use_sky=use_sky)
+    dev, r, _ = _check_bounce_args(state, table)
+    build.require(idx, "idx", torch.int32, (r,), dev)
+    out = torch.empty_like(state)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.trt_bounce_replay(
+            state.data_ptr(), out.data_ptr(), r, table.data_ptr(),
+            idx.data_ptr(), int(bounce), int(bool(use_sky)),
+            build.stream_of(state))
+    build.check("trt_bounce_replay", err)
+    bounce_replay.launches += 1
+    return out
+
+
+bounce_replay.launches = 0
+
+
+def bounce_bwd_plain(state, table, idx, bounce: int, d_out, *,
+                     use_sky: bool):
+    """Plain version of K6: the transpose of ``bounce_replay_plain`` at
+    the bounce's input state, given its winner idx and the cotangent d_out
+    [16,R] of its output (rows 0-11 read). d_out is overwritten with the
+    cotangent of the input state (rows 12-15 zero); a lane that neither
+    hits nor sees the sky passes it through. -> (d_out, d_table [P,12],
+    summed over the live lanes in f64, then rounded)."""
+    live = idx >= 0
+    sky = (state[12] > 0.5) & ~live
+    winner = table[idx.clamp(min=0).long()].T
+    d_st, d_wn = shade_vjp_plain(state, winner, live, sky,
+                                 _draws(state, bounce), use_sky, d_out)
+    d_st[0:9] = torch.where(live | sky, d_st[0:9], d_out[0:9])
+    d_tab = torch.zeros(table.shape, dtype=torch.float64,
+                        device=d_out.device)
+    d_tab.index_add_(0, idx[live].long(), d_wn[:, live].T.to(torch.float64))
+    d_out.copy_(d_st)
+    return d_out, d_tab.to(torch.float32)
+
+
+def bounce_bwd(state, table, idx, bounce: int, d_out, *, use_sky: bool):
+    """K6 (``csrc/bounce.cu``): ``bounce_bwd_plain``'s contract, d_out
+    overwritten in place. d_table is summed in f32 per block of lanes in
+    a fixed order, then over the blocks in a second launch, so it is the
+    same from run to run. CPU tensors take ``bounce_bwd_plain``."""
+    if not d_out.is_cuda:
+        return bounce_bwd_plain(state, table, idx, bounce, d_out,
+                                use_sky=use_sky)
+    dev, r, n = _check_bounce_args(state, table)
+    build.require(idx, "idx", torch.int32, (r,), dev)
+    build.require(d_out, "d_out", torch.float32, (16, r), dev)
+    lib = build.load()
+    part = torch.empty((lib.trt_bounce_bwd_parts(r), n, 12),
+                       dtype=torch.float32, device=dev)
+    d_table = torch.empty_like(table)
+    with torch.cuda.device(dev):
+        err = lib.trt_bounce_bwd(
+            state.data_ptr(), idx.data_ptr(), table.data_ptr(), n,
+            d_out.data_ptr(), r, int(bounce), int(bool(use_sky)),
+            part.data_ptr(), d_table.data_ptr(), build.stream_of(d_out))
+    build.check("trt_bounce_bwd", err)
+    bounce_bwd.launches += 1
+    return d_out, d_table
+
+
+bounce_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the per-sample trace, forward only and differentiable
+# ---------------------------------------------------------------------------
+
+class FusedTables(NamedTuple):
+    table: torch.Tensor  # [P,12] winner table of the permuted scene
+    lo: torch.Tensor     # [T,3] sphere-tile boxes (no gradient)
+    hi: torch.Tensor
+    use_sky: bool
+
+
+def fused_tables(scene: Scene) -> FusedTables:
+    """The per-trace constants of the fused route (JAX ``_fused_tables``,
+    spheres): the scene Morton-permuted, its winner table and tile boxes.
+    Autograd carries the table's cotangent back through the permutation
+    to the scene."""
+    sc = permute_spheres(scene, morton_perm(scene))
+    return FusedTables(scene_table(sc), *tile_bounds(sc), scene.use_sky)
+
+
+def _sweep(tb: FusedTables, st, max_bounces: int, cull_secondary: bool,
+           record: bool):
+    """The bounces of one sample through K4: the primary bounce culled by
+    ``cull_mask``, the later ones unculled or, with cull_secondary, by the
+    octant mask. -> (final state, rays_cast [R] int64, winner ids: the
+    list of [R] int16, one a bounce, when record)."""
+    rays = torch.zeros(st.shape[1], dtype=torch.int64, device=st.device)
+    idxs = []
+    for b in range(max_bounces):
+        rays += st[12] > 0.5
+        mask = None
+        if b == 0:
+            mask = cull_mask(*ray_block_bounds(st), tb.lo, tb.hi)
+        elif cull_secondary:
+            mask = _octant_mask(st, tb.lo, tb.hi, BLOCK_R)
+        st, idx = bounce_fwd(st, tb.table, b, mask, use_sky=tb.use_sky)
+        if record:
+            idxs.append(idx.to(torch.int16))
+    return st, rays, idxs
+
+
+def trace_rays_fused(scene: Scene, origins, directions, stream_base,
+                     max_bounces: int, cull_secondary: bool = False):
+    """Forward-only per-sample trace, a drop-in for
+    ``models/path_tracer.trace_rays`` -> (color [R,3], rays_cast [R]).
+    rays_cast adds the alive lanes at the top of each bounce (reference
+    main.cpp:390). The scene is Morton-permuted and the primary bounce
+    culled; ``cull_secondary`` culls bounces 1.. by the octant mask. Every
+    cull is bit-identical."""
+    with torch.no_grad():
+        st, rays, _ = _sweep(fused_tables(scene),
+                             init_state(origins, directions, stream_base),
+                             max_bounces, cull_secondary, record=False)
+    return st[9:12].T, rays
+
+
+class FusedSample(torch.autograd.Function):
+    """One sample of the per-sample fused route with its hand-written
+    backward (the JAX custom VJP of ``make_fused_sample``).
+
+    Differentiable inputs: the permuted [P,12] table and the camera's
+    position and look_at; autograd carries the table's cotangent on
+    through ``permute_spheres`` and ``payload_tables``. Forward: raygen,
+    then K4 a bounce; it saves only the [B,R] int16 winner stack.
+    Backward: raygen again under autograd, K5 replays the B-1 later input
+    states, K6 sweeps back from the last bounce, d_table summed over the
+    bounces; the ray cotangents go back through raygen to the camera."""
+
+    @staticmethod
+    def forward(ctx, table, position, look_at, pixel, cfg):
+        (width, height, seed, max_bounces, s, cull_secondary, lo, hi,
+         use_sky) = cfg
+        o, d, base = camera_rays(Camera(position, look_at), width, height,
+                                 pixel, s, seed)
+        tb = FusedTables(table, lo, hi, use_sky)
+        st, rays, idxs = _sweep(tb, init_state(o, d, base), max_bounces,
+                                cull_secondary, record=True)
+        stack = (torch.stack(idxs) if idxs else
+                 torch.empty((0, pixel.shape[0]), dtype=torch.int16,
+                             device=pixel.device))
+        ctx.save_for_backward(table, position, look_at, pixel, stack)
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(rays)
+        return st[9:12].T.contiguous(), rays
+
+    @staticmethod
+    def backward(ctx, d_color, _):
+        width, height, seed, max_bounces, s = ctx.cfg[:5]
+        use_sky = ctx.cfg[-1]
+        table, position, look_at, pixel, stack = ctx.saved_tensors
+        with torch.enable_grad():
+            cam = Camera(position.detach().requires_grad_(),
+                         look_at.detach().requires_grad_())
+            o, d, base = camera_rays(cam, width, height, pixel, s, seed)
+        states = [init_state(o.detach(), d.detach(), base)]
+        idxs = [stack[b].to(torch.int32) for b in range(max_bounces)]
+        for b in range(max_bounces - 1):
+            states.append(bounce_replay(states[b], table, idxs[b], b,
+                                        use_sky=use_sky))
+        d_st = torch.zeros_like(states[0])
+        d_st[9:12] = d_color.T
+        d_table = torch.zeros_like(table)
+        for b in reversed(range(max_bounces)):
+            _, d_tab = bounce_bwd(states.pop(), table, idxs[b], b, d_st,
+                                  use_sky=use_sky)
+            d_table += d_tab
+        d_pos, d_look = torch.autograd.grad(
+            (o, d), (cam.position, cam.look_at), (d_st[0:3].T, d_st[3:6].T))
+        return d_table, d_pos, d_look, None, None
+
+
+@functools.lru_cache(maxsize=None)
+def make_fused_sample(width: int, height: int, seed: int, max_bounces: int,
+                      cull_secondary: bool = False):
+    """Differentiable per-sample trace: (scene, camera, pixel, s,
+    tables=None) -> (color [R,3], rays_cast [R] int64) of sample s for the
+    pixel set [R]. ``tables``: ``fused_tables(scene)``, to share between
+    the calls of one pass.
+
+    Where nothing asks for a gradient this runs the forward alone.
+    Otherwise ``FusedSample``, which keeps 2 B per lane and bounce for
+    its backward."""
+
+    def sample(scene: Scene, camera: Camera, pixel, s: int, tables=None):
+        tb = fused_tables(scene) if tables is None else tables
+        if tb.table.shape[0] >= 2 ** 15:
+            raise ValueError("winner records are i16: at most 32767 spheres")
+        leaves = (tb.table, camera.position, camera.look_at)
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in leaves)):
+            with torch.no_grad():
+                st, rays, _ = _sweep(
+                    tb, init_state(*camera_rays(camera, width, height, pixel,
+                                                s, seed)),
+                    max_bounces, cull_secondary, record=False)
+            return st[9:12].T, rays
+        cfg = (width, height, seed, max_bounces, int(s), cull_secondary,
+               tb.lo, tb.hi, tb.use_sky)
+        return FusedSample.apply(*leaves, pixel, cfg)
+
+    return sample

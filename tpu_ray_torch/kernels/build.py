@@ -48,6 +48,16 @@ SIGNATURES = {
     # max_bounces, width, height, film_w, film_h, d_table, d_cam, stream
     "trt_regen_bwd": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _F, _F, _P, _P, _P],
+    # state, out, r, table, n, bounce, mask, n_tiles, block_n, use_sky,
+    # idx_out, stream
+    "trt_bounce_fwd": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P],
+    # state, out, r, table, idx, bounce, use_sky, stream
+    "trt_bounce_replay": [_P, _P, _I, _P, _P, _I, _I, _P],
+    # state, idx, table, n, d_state, r, bounce, use_sky, part, d_table,
+    # stream
+    "trt_bounce_bwd": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P],
+    # r -> rows of trt_bounce_bwd's partials (returns a count, not an error)
+    "trt_bounce_bwd_parts": [_I],
 }
 
 _lock = threading.Lock()

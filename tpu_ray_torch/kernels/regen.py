@@ -36,10 +36,11 @@ t % seg == 0 [ceil(steps/seg),24,R], and each lane's count of alive steps
 t_end [R] i32. A lane that dies stays dead, so entries at t >= t_end are
 never written by the kernel and never read.
 
-The search is exact (the JAX ``exact_argmin=True`` semantics). The JAX
-package's Morton permutation of the spheres (``permute_scene``) is a TPU
-tile-locality trick and is not ported, so d_table comes out in scene
-order.
+The search is exact (the JAX ``exact_argmin=True`` semantics). This route
+does not apply the JAX package's Morton permutation of the spheres
+(``permute_scene``; the per-sample route, ``kernels/bounce_step.py``,
+does, for its cull tiles), so d_table comes out in scene order and an
+exact tie in t goes to the lower scene index.
 """
 from __future__ import annotations
 

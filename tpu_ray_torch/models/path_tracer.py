@@ -8,14 +8,17 @@ reference's counter: +1 per bounce-loop iteration entered per pixel sample
 (main.cpp:390).
 
 Backends: "torch" searches with the plain ``ops/intersect.nearest_hit``,
-"cuda" with the K1 kernel inside the same bounce loop, and "fused" with
-regen runs the K2 persistent-wavefront kernel.
+"cuda" with the K1 kernel inside the same bounce loop; "fused" with regen
+runs the K2 persistent-wavefront kernel, and without it the per-sample
+fused route (one sample at a time through the K4 bounce kernel,
+``kernels/bounce_step.make_fused_sample``).
 
 ``render_pixels``/``render_pass`` are differentiable w.r.t. the scene and
 camera tensors: "torch" and "cuda" through autograd of the eager bounce
 loop (the search carries no history; the payload recompute carries the
 gradient), "fused" through ``kernels/regen.RegenTrace`` (K2 recording
-forward, K3 backward).
+forward, K3 backward) or, without regen, ``bounce_step.FusedSample``
+(K4 forward, K5 replay and K6 backward).
 """
 from __future__ import annotations
 
@@ -23,11 +26,13 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tpu_ray_torch.config import RenderConfig
 from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera, default_camera
 from tpu_ray_torch.core.scene import Scene, make_scene
+from tpu_ray_torch.kernels.bounce_step import fused_tables, make_fused_sample
 from tpu_ray_torch.kernels.regen import make_regen_trace
 from tpu_ray_torch.kernels.sphere_intersect import sphere_nearest_hit
 from tpu_ray_torch.ops.accumulate import AccumState, accumulate
@@ -43,15 +48,11 @@ SearchFn = Callable[..., Hit]
 _SEARCH = {"torch": nearest_hit, "cuda": sphere_nearest_hit}
 
 
-def _check_route(backend: str, shading: str, regen: bool) -> None:
+def _check_route(shading: str) -> None:
     if shading != "path":
         raise NotImplementedError(
             f"shading={shading!r}: the flat and Lambert estimators are not "
-            "ported yet (ROADMAP.md queue A, item 3)")
-    if backend == "fused" and not regen:
-        raise NotImplementedError(
-            "backend='fused' without regen (the per-sample bounce_fwd "
-            "route) is not ported yet (ROADMAP.md queue A, item 1)")
+            "ported yet (ROADMAP.md queue A, item 4)")
 
 
 def tile_order(width: int, height: int, tile: int = 32):
@@ -120,15 +121,22 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
                   height: int, spp: int, sample_start: int, seed: int = 0,
                   max_bounces: int = 5, backend: str = "torch",
                   ray_chunk: Optional[int] = None, shading: str = "path",
-                  regen: bool = False):
+                  regen: bool = False, remat: bool = False,
+                  cull_secondary: bool = False):
     """``spp`` jittered samples for a flat pixel subset [R] ->
-    (color_sum [R,3] summed over spp, rays_cast int). Differentiable."""
-    _check_route(backend, shading, regen)
+    (color_sum [R,3] summed over spp, rays_cast int). Differentiable.
+
+    remat=True (backends "torch"/"cuda") recomputes each sample's trace in
+    the backward instead of keeping its activations
+    (``torch.utils.checkpoint``); "fused" ignores it, since its backward
+    keeps only the winner records. cull_secondary (fused without regen)
+    culls bounces 1.. by the octant mask, bit-identically."""
+    _check_route(shading)
     n = pixel.shape[0]
     chunk = n if ray_chunk is None else ray_chunk
     if n % chunk:
         raise ValueError("ray_chunk must divide the pixel count")
-    if backend == "fused":
+    if backend == "fused" and regen:
         # each slab runs its own wavefront to its own slowest lane (and,
         # under autograd, records and reverses its own trace)
         trace = make_regen_trace(width, height, seed, max_bounces, spp)
@@ -137,20 +145,41 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
         return (torch.cat([c for c, _ in parts]),
                 sum(r for _, r in parts))
 
+    color_sum = torch.zeros((n, 3), dtype=torch.float32, device=pixel.device)
+    if backend == "fused":
+        sample = make_fused_sample(width, height, seed, max_bounces,
+                                   cull_secondary=cull_secondary)
+        tb = fused_tables(scene)
+        rays = torch.zeros((), dtype=torch.int64, device=pixel.device)
+        for s in range(sample_start, sample_start + spp):
+            parts = [sample(scene, camera, pixel[k:k + chunk], s, tb)
+                     for k in range(0, n, chunk)]
+            color_sum = color_sum + torch.cat([c for c, _ in parts])
+            rays = rays + sum(rc.sum() for _, rc in parts)
+        return color_sum, int(rays)
+
     search = _SEARCH[backend]
     tables = payload_tables(scene)
-    color_sum = torch.zeros((n, 3), dtype=torch.float32, device=pixel.device)
-    rays = 0
-    for s in range(sample_start, sample_start + spp):
+
+    def one_sample(s):
         o, d, base = camera_rays(camera, width, height, pixel, s, seed)
-        colors = []
+        colors, rays = [], 0
         for k in range(0, n, chunk):
             c, rc = trace_rays(scene, o[k:k + chunk], d[k:k + chunk],
                                base[k:k + chunk], max_bounces, search,
                                tables)
             colors.append(c)
             rays += int(rc.sum())
-        color_sum = color_sum + torch.cat(colors)
+        return torch.cat(colors), rays
+
+    rays = 0
+    for s in range(sample_start, sample_start + spp):
+        if remat and torch.is_grad_enabled():
+            c, rc = checkpoint(one_sample, s, use_reentrant=False)
+        else:
+            c, rc = one_sample(s)
+        color_sum = color_sum + c
+        rays += rc
     return color_sum, rays
 
 
@@ -158,7 +187,7 @@ def render_pass(scene: Scene, camera: Camera, *, width: int, height: int,
                 spp: int, sample_start: int = 0, seed: int = 0,
                 max_bounces: int = 5, backend: str = "torch",
                 ray_chunk: Optional[int] = None, shading: str = "path",
-                regen: bool = False):
+                regen: bool = False, cull_secondary: bool = False):
     """One progressive pass: ``spp`` jittered samples for every pixel ->
     (image_sum [H,W,3] linear radiance summed over spp, rays_cast int).
     Runs on the scene's device."""
@@ -172,7 +201,8 @@ def render_pass(scene: Scene, camera: Camera, *, width: int, height: int,
     color_sum, rays = render_pixels(
         scene, camera, pixel, width=width, height=height, spp=spp,
         sample_start=sample_start, seed=seed, max_bounces=max_bounces,
-        backend=backend, ray_chunk=ray_chunk, shading=shading, regen=regen)
+        backend=backend, ray_chunk=ray_chunk, shading=shading, regen=regen,
+        cull_secondary=cull_secondary)
     if fused:
         return untile_image(color_sum, width, height, inv), rays
     return color_sum.reshape(height, width, 3), rays
@@ -184,7 +214,7 @@ class PathTracer:
 
     def __init__(self, config: RenderConfig, scene: Scene | None = None,
                  device="cuda"):
-        _check_route(config.backend, config.shading, config.regen)
+        _check_route(config.shading)
         self.config = config
         self.scene = (scene if scene is not None
                       else make_scene(config.scene, device=device))
@@ -201,7 +231,8 @@ class PathTracer:
             self.scene, camera or self.camera, width=cfg.width,
             height=cfg.height, spp=cfg.spp, sample_start=state.samples,
             seed=cfg.seed, max_bounces=cfg.max_bounces, backend=cfg.backend,
-            ray_chunk=cfg.ray_chunk, shading=cfg.shading, regen=cfg.regen)
+            ray_chunk=cfg.ray_chunk, shading=cfg.shading, regen=cfg.regen,
+            cull_secondary=cfg.cull_secondary)
         return accumulate(state, img_sum, cfg.spp), rays
 
     def srgb_image(self, state: AccumState):

@@ -29,9 +29,11 @@ class Hit(NamedTuple):
 
 
 @torch.no_grad()
-def nearest_hit(center, radius, origin, direction) -> Hit:
+def nearest_hit(center, radius, origin, direction, allowed=None) -> Hit:
     """Brute-force nearest hit over all spheres; the lowest index wins a
     tie in t. center [N,3], radius [N], origin/direction [R,3] -> Hit.
+    allowed: optional [R,N] bool, False where the search skips a sphere
+    (a culled tile of the fused route).
 
     The search carries no autograd history (``stop_gradient`` in the JAX
     package): the winner is a discrete choice, and its [R,N] intermediates
@@ -50,7 +52,10 @@ def nearest_hit(center, radius, origin, direction) -> Hit:
     x = safe_sqrt(r2 - dsq)
     t_near = t_proj - x
     t = torch.where(t_near < _EPS, t_proj + x, t_near)
-    tvals = torch.where(hit & (t > _EPS), t, _MAX)
+    ok = hit & (t > _EPS)
+    if allowed is not None:
+        ok = ok & allowed
+    tvals = torch.where(ok, t, _MAX)
     tmin, idx = torch.min(tvals, dim=1)
     return Hit(t=tmin, idx=idx.to(torch.int32))
 
