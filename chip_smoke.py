@@ -25,8 +25,17 @@ must give the regen route's image bit for bit), three forward+backward
 steps as a user differentiates it, one more of each under torch.profiler
 for the kernels' device times and the device's idle share (the kernels'
 bounds are counted from the same samples outside those calls), and the
-route's gradients against the regen route's at 320x180. Prints each
-phase's wall seconds, a
+route's gradients against the regen route's at 320x180. Then the triangle
+scenes: K7 (the triangle search of backend cuda) against its plain version
+on trimesh's primary rays and backend cuda's trimesh render against
+backend torch's; the triangle main path, trimesh (10,242 triangles) at
+1920x1080, 2 spp on fused + regen as the CLI drives it (two calls; K2's
+triangle mode at the path's own state, 1 lane in 32 bit for bit against
+its plain version), forward and backward as a user differentiates it
+(three calls; K2-record, and K3's triangle branch at the path's own
+records against its plain version on 1 lane in 32, two K3 launches
+bit-equal), and its gradients against backend cuda autograd at 320x180.
+Prints each phase's wall seconds, a
 JSON line of main-path numbers, one JSON line of per-kernel numbers and,
 last, one JSON line with the device. Any failed check raises, so the exit
 code is nonzero; without a CUDA device, or without the tpu_ray_torch
@@ -50,12 +59,20 @@ PEAK_BYTES = 3.35e12      # bytes/s
 # one ray-sphere test of csrc/common.cuh trt_nearest_sphere: 3 sub (m),
 # 5 (t_proj), 6 (projection), 5 (dsq), 1 (r^2)
 FLOPS_PER_PAIR = 20
+# one full ray-triangle test of csrc/common.cuh trt_tri_hit: 9 (pvec), 5
+# (det), 1 (1/det), 3 (tvec), 6 (u), 9 (qvec), 6 (v), 6 (t), 1 (u + v);
+# the kernel leaves a pair after the det or the u test, so it does fewer
+# on the pairs that fail them
+FLOPS_PER_TRI = 46
+TRI_BYTES = 36            # v0, e1, e2 of one triangle in the search table
 STATE_BYTES = 24 * 4      # one lane of the regen state
 SPHERE_BYTES = 48         # center, radius, albedo, emissive, specular, ior
 
 SEED = 0
 CHECK_W, CHECK_H, CHECK_SPP = 320, 180, 4
 MAIN_W, MAIN_H, MAIN_SPP, MAX_BOUNCES = 1920, 1080, 64, 5
+# the triangle main path: BASELINE.md config 4 and its gradient row
+TRI_SPP = 2
 SLICE_STRIDE = 32         # plain K2 runs on every 32nd lane of the main state
 # fp32 operations of one alive lane-step of K3, counted from
 # csrc/regen_step.cuh trt_step_tail (replay, ~107 on a diffuse hit) and
@@ -182,25 +199,26 @@ def main() -> int:
     from tpu_ray_torch.grad import image_mse, make_train_step, render_mean
     from tpu_ray_torch.kernels import build
     from tpu_ray_torch.kernels.bounce_step import (
-        BLOCK_N, BLOCK_R, FusedTables, bounce_bwd, bounce_bwd_plain,
-        bounce_cull_mask, bounce_cull_mask_octant, bounce_fwd,
-        bounce_fwd_plain, bounce_replay, bounce_replay_plain, fused_tables,
-        init_state, make_fused_sample, morton_perm, permute_spheres,
-        tile_bounds)
+        BLOCK_N, BLOCK_R, bounce_bwd, bounce_bwd_plain, bounce_cull_mask,
+        bounce_cull_mask_octant, bounce_fwd, bounce_fwd_plain, bounce_replay,
+        bounce_replay_plain, fused_tables, init_state, morton_perm,
+        permute_spheres, tri_morton_perm)
     from tpu_ray_torch.kernels.regen import (
         SEG_MAX, regen_bwd, regen_bwd_plain, regen_record, regen_steps,
-        regen_steps_plain, wave_init)
+        regen_steps_plain, regen_tables, wave_init)
     from tpu_ray_torch.kernels.sphere_intersect import (nearest_hit_plain,
                                                         sphere_nearest_hit)
+    from tpu_ray_torch.kernels.tri_intersect import (tri_hit_plain,
+                                                     tri_nearest_hit)
     from tpu_ray_torch.models.path_tracer import (render_pass, tile_order,
                                                   untile_image)
     from tpu_ray_torch.ops.accumulate import accumulate
-    from tpu_ray_torch.ops.intersect import payload_tables
+    from tpu_ray_torch.ops.intersect_tri import tri_search_table
     from tpu_ray_torch.ops.raygen import camera_rays
     from tpu_ray_torch.utils.png import write_png
 
     counted = (sphere_nearest_hit, regen_steps, regen_record, regen_bwd,
-               bounce_fwd, bounce_replay, bounce_bwd)
+               bounce_fwd, bounce_replay, bounce_bwd, tri_nearest_hit)
 
     def reset_counts():
         for fn in counted:
@@ -231,7 +249,10 @@ def main() -> int:
     phase("build", t0)
 
     scene = make_scene("rtweekend", device=dev)
-    table = payload_tables(scene)
+    # the regen route's table: the Morton-permuted scene's, as the route
+    # builds it (its records and d_table are in permuted order)
+    table, _, _ = regen_tables(scene)
+    sperm = morton_perm(scene)
     # the bounds count the spheres of nonzero radius: padding never hits
     n_real = int((scene.radius > 0).sum())
     cam = default_camera(scene)
@@ -537,10 +558,10 @@ def main() -> int:
     phase("k2_record_check", t0)
 
     # 10. K3 at the main path's own records: the main loss's cotangent of
-    # the colour total, the whole launch timed; 1 lane in 32 held against
-    # the plain version (d_state exactly; d_table and d_cam, summed with
-    # f32 atomics in a varying order, within 1e-4 of each group's max of
-    # the plain version's f64 sum)
+    # the colour total, the whole launch timed and repeated (the two
+    # bit-equal: K3 sums in a fixed order); 1 lane in 32 held against the
+    # plain version (d_state exactly; d_table and d_cam within 1e-4 of
+    # each group's max of the plain version's f64 sum)
     t0 = time.perf_counter()
     col = st_k[16:19].T.contiguous().requires_grad_()
     image_mse(untile_image(col, MAIN_W, MAIN_H, inv)
@@ -549,10 +570,15 @@ def main() -> int:
     d_out[16:19] = col.grad.T
     (d_st, d_tab, d_cam), k3_ms = timed(torch, lambda: regen_bwd(
         recs, d_out, c13, table, **kwm))
+    again = regen_bwd(recs, d_out, c13, table, **kwm)
+    require(all(bits_equal(torch, a, b) for a, b in zip((d_st, d_tab, d_cam),
+                                                         again)),
+            "K3: two launches on the main path's records differ")
+    del again
     scene_cols = dict(center=slice(0, 3), radius=3, albedo=slice(4, 7),
                       emissive=slice(7, 10), specular=10, ior=11)
     for k, c in scene_cols.items():
-        want = main_grads[k]
+        want = main_grads[k][sperm]
         err = (d_tab[:, c] - want).abs().max().item()
         require(err <= 1e-4 * want.abs().max().item(),
                 f"K3 d_table[{k}] differs from the fwd+bwd path's by {err}")
@@ -600,7 +626,8 @@ def main() -> int:
         ms_same_lanes=k3_ms_slice,
         stash_bytes=2 * 48 * int(t_end_l.sum()))
     print(f"K3 at the main path: {k3_ms:.3f} ms (bound {k3_bound:.3f} ms "
-          f"by {k3_by}); d_table equal to the fwd+bwd path's within 1e-4; "
+          f"by {k3_by}); two launches bit-equal; d_table equal to the "
+          f"fwd+bwd path's within 1e-4; "
           f"1 lane in {SLICE_STRIDE}: d_state equal to plain (bit-equal "
           f"{st_bits}), d_table and "
           f"d_cam within 1e-4 of each group's max (max |d| {k3_err}), "
@@ -836,31 +863,16 @@ def main() -> int:
             f"per-sample rays {rays_s} != fused+regen's {rays}")
     require(bool(torch.isfinite(mean_s).all()) and
             tuple(mean_s.shape) == (MAIN_H, MAIN_W, 3), "per-sample image")
+    # both routes run on the Morton-permuted scene, so an exact tie in t
+    # goes to the same sphere on both: the images must be equal bit for bit
     img_d = (mean_s - mean).abs()
-    img_close = torch.isclose(mean_s, mean, rtol=1e-5, atol=1e-6).all(-1)
-    require(img_close.float().mean().item() >= 0.999,
-            f"per-sample image differs from fused+regen's: max {img_d.max()}")
-    # the same samples with the spheres in scene order (no Morton
-    # permutation): exact ties in t then go to the same sphere as on the
-    # regen route, and the image must be the regen route's bit for bit
-    sample = make_fused_sample(MAIN_W, MAIN_H, SEED, MAX_BOUNCES)
-    unperm = FusedTables(payload_tables(scene), *tile_bounds(scene),
-                         scene.use_sky)
-    with torch.no_grad():
-        sum_u = sum(sample(scene, tracer_s.camera, px_all, k, unperm)[0]
-                    for k in range(MAIN_SPP))
-    mean_u = accumulate(tracer_s.init_state(), untile_image(
-        sum_u, MAIN_W, MAIN_H, inv), MAIN_SPP).mean
-    require(torch.equal(mean_u, mean),
-            "per-sample image without the permutation differs from "
-            "fused+regen's")
+    require(torch.equal(mean_s, mean),
+            f"per-sample image differs from fused+regen's on "
+            f"{int((img_d > 0).any(-1).sum())} pixels, max {img_d.max()}")
     print(f"per-sample forward: rtweekend {MAIN_W}x{MAIN_H} {MAIN_SPP} spp "
           f"fused --no-regen: {rays_s} rays (= fused+regen) in {fwd_secs} s "
           f"= {[rays_s / t for t in fwd_secs]} rays/s on {card}; K4 launches "
-          f"{k4_launches}; image equal to fused+regen's: "
-          f"{torch.equal(mean_s, mean)} ({int((img_d > 0).any(-1).sum())} "
-          f"pixels differ, max |d| {img_d.max().item()}); without the Morton "
-          f"permutation equal", flush=True)
+          f"{k4_launches}; image bit-equal to fused+regen's", flush=True)
     # the work of this pass's K4, K5 and K6 launches on this run's data,
     # counted outside the profiled calls: the route's bounces (the primary
     # culled, the rest not) of every sample again, each launch's alive
@@ -1027,6 +1039,378 @@ def main() -> int:
         plain_lanes=n_sl, ms_same_lanes=slice_ms["bounce_bwd"][0],
         same_lanes="sample 0, 5 bounces",
         k4_ms_in_step=step_tot["bounce_fwd"][0])
+
+    # 16. K7 at its path's inputs: trimesh's primary rays at 320x180 (one
+    # sample: 57,600 rays x 10,368 triangles) bit-equal to the plain
+    # version, and the path itself: backend cuda's render of trimesh (K1
+    # for the sphere, K7 for the triangles, in the eager bounce loop) at
+    # 320x180, 4 spp, bit-equal to backend torch's
+    t0 = time.perf_counter()
+    tscene = make_scene("trimesh", device=dev)
+    tcam = default_camera(tscene)
+    n_tri_real = tscene.tris.n_real
+    n_sph_real = int((tscene.radius > 0).sum())
+    torch.cuda.synchronize()
+    reset_counts()
+    img_c, rays_c = render_pass(tscene, tcam, width=CHECK_W, height=CHECK_H,
+                                spp=CHECK_SPP, backend="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    k7_launches = tri_nearest_hit.launches
+    require(k7_launches > 0 and sphere_nearest_hit.launches > 0,
+            f"backend cuda on trimesh did not launch K1 and K7: {counts()}")
+    require(sum(counts().values()) == k7_launches
+            + sphere_nearest_hit.launches,
+            f"backend cuda on trimesh launched others: {counts()}")
+    img_p, rays_p = render_pass(tscene, tcam, width=CHECK_W, height=CHECK_H,
+                                spp=CHECK_SPP, backend="torch", seed=SEED)
+    require(rays_c == rays_p and torch.equal(img_c, img_p),
+            f"backend cuda trimesh image differs from torch by max "
+            f"{(img_c - img_p).abs().max().item()}")
+    require(bool(torch.isfinite(img_c).all()) and img_c.mean().item() > 0,
+            "backend cuda trimesh image is not finite and non-black")
+    ttab = tri_search_table(tscene.tris)
+    o1, d1, _ = camera_rays(tcam, CHECK_W, CHECK_H, torch.arange(
+        CHECK_W * CHECK_H, device=dev), 0, SEED)
+    hk = tri_nearest_hit(ttab, o1, d1)
+    hp = tri_hit_plain(ttab, o1, d1)
+    torch.cuda.synchronize()
+    require(torch.equal(hk.idx, hp.idx) and bits_equal(torch, hk.t, hp.t),
+            "K7: primary-ray t or idx differ from plain")
+    hit7 = hp.t < 1e29
+    k7_err = (hk.t - hp.t)[hit7].abs().max().item() if hit7.any() else 0.0
+    r7 = o1.shape[0]
+    k7_ms = cuda_ms(torch, lambda: tri_nearest_hit(ttab, o1, d1), 10)
+    k7_plain = cuda_ms(torch, lambda: tri_hit_plain(ttab, o1, d1), 2)
+    k7_bound, k7_by = bound(r7 * n_tri_real * FLOPS_PER_TRI,
+                            r7 * 32 + n_tri_real * TRI_BYTES)
+    kernels["tri_nearest_hit"] = dict(
+        name="tri_nearest_hit", route="cuda",
+        source="tpu_ray_torch/csrc/tri_intersect.cu",
+        replaces="tpu_ray/kernels/tri_intersect.py:389",
+        launches=k7_launches, max_abs_err=k7_err, ms=k7_ms,
+        plain_ms=k7_plain, bound_ms=k7_bound, bound_by=k7_by,
+        library_ms=None,
+        path=f"render backend=cuda trimesh {CHECK_W}x{CHECK_H} "
+             f"{CHECK_SPP} spp",
+        shape=f"{r7} rays x {tscene.tris.n_pad} triangles ({n_tri_real} "
+              f"real), {int(hit7.sum())} hits")
+    print(f"backend cuda, trimesh: {rays_c} rays, K7 launches {k7_launches},"
+          f" image equal to backend torch; K7 at {r7} primary rays "
+          f"bit-equal to plain: {k7_ms:.4f} ms (bound {k7_bound:.4f} ms by "
+          f"{k7_by}) / plain {k7_plain:.4f} ms", flush=True)
+    phase("k7_check", t0)
+
+    # 17. the triangle main path as the CLI drives it (render --scene
+    # trimesh): 1920x1080, 2 spp, fused + regen, two calls
+    t0 = time.perf_counter()
+    cfg_t = RenderConfig(scene="trimesh", width=MAIN_W, height=MAIN_H,
+                         spp=TRI_SPP, max_bounces=MAX_BOUNCES,
+                         backend="fused", seed=SEED, regen=True)
+    tracer_t = PathTracer(cfg_t, scene=tscene, device=dev)
+    tri_secs = []
+    for _ in range(2):
+        state0 = tracer_t.init_state()
+        torch.cuda.synchronize()
+        reset_counts()
+        t_main = time.perf_counter()
+        state_t, rays_t = tracer_t.step(state0)
+        torch.cuda.synchronize()
+        tri_secs.append(time.perf_counter() - t_main)
+        k2t_launches = regen_steps.launches
+        require(k2t_launches > 0, "triangle main path did not launch K2")
+        require(sum(counts().values()) == k2t_launches,
+                f"triangle forward path launched others: {counts()}")
+    mean_t = state_t.mean
+    require(tuple(mean_t.shape) == (MAIN_H, MAIN_W, 3), "trimesh shape")
+    require(bool(torch.isfinite(mean_t).all()), "trimesh image not finite")
+    require(mean_t.mean().item() > 0.01, "trimesh image is black")
+    n_s = TRI_SPP * MAIN_W * MAIN_H
+    require(n_s <= rays_t <= n_s * MAX_BOUNCES,
+            f"trimesh rays {rays_t} out of range")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "trimesh.png")
+        write_png(png, tracer_t.srgb_image(state_t).cpu().numpy())
+        png_bytes = os.path.getsize(png)
+    print(f"triangle main path: trimesh ({n_tri_real} triangles) "
+          f"{MAIN_W}x{MAIN_H} {TRI_SPP} spp fused+regen: {rays_t} rays in "
+          f"{tri_secs} s = {[rays_t / t for t in tri_secs]} rays/s on "
+          f"{card}; K2 launches {k2t_launches}; png {png_bytes} B",
+          flush=True)
+    phase("tri_main_path", t0)
+
+    # 18. K2's triangle mode at the triangle path's own state (launches not
+    # counted): the whole launch, timed, must give the path's image, and
+    # every 32nd lane of it is held bit for bit against the plain version
+    # over all its steps
+    t0 = time.perf_counter()
+    ttable, ttri, tn_tri = regen_tables(tscene)
+    n_sph = ttable.shape[0] - tn_tri
+    tsteps = TRI_SPP * MAX_BOUNCES
+    kwt = dict(use_sky=tscene.use_sky, max_bounces=MAX_BOUNCES, width=MAIN_W,
+               height=MAIN_H)
+    tst0, tc13, tr2 = wave_init(tracer_t.camera, torch.as_tensor(
+        perm, device=dev), TRI_SPP, SEED, 0, MAIN_W, MAIN_H)
+    tst_k = tst0.clone()
+    _, k2t_ms = timed(torch, lambda: regen_steps(tst_k, tc13, ttable, tsteps,
+                                                 tri=ttri, **kwt))
+    require(int(tst_k[22].to(torch.int64).sum()) == rays_t,
+            "K2 triangle launch rays differ from the path's")
+    again = accumulate(tracer_t.init_state(), untile_image(
+        tst_k[16:19].T, MAIN_W, MAIN_H, inv), TRI_SPP)
+    require(torch.equal(again.mean, mean_t),
+            "K2 triangle launch image differs from the path's")
+    tsl_k, tsl_p = tst0[:, cols].contiguous(), tst0[:, cols].contiguous()
+    _, k2t_ms_slice = timed(torch, lambda: regen_steps(
+        tsl_k, tc13, ttable, tsteps, tri=ttri, **kwt))
+    _, k2t_plain = timed(torch, lambda: regen_steps_plain(
+        tsl_p, tc13, ttable, tsteps, tri=ttri, **kwt))
+    require(bits_equal(torch, tsl_k, tst_k[:, cols]),
+            "K2 triangle mode on the lane slice differs from the launch")
+    k2t_err = (tsl_p[16:19] - tsl_k[16:19]).abs().max().item()
+    require(bits_equal(torch, tsl_p, tsl_k),
+            f"K2 triangle mode: slice not bit-equal to plain (image max |d| "
+            f"{k2t_err})")
+    # the bound counts the search alone: every sphere and every triangle
+    # of nonzero size, each cast ray
+    tri_flops = rays_t * (n_sph_real * FLOPS_PER_PAIR
+                          + n_tri_real * FLOPS_PER_TRI)
+    tri_bytes = (2 * STATE_BYTES * tr2 + n_sph_real * SPHERE_BYTES
+                 + n_tri_real * (TRI_BYTES + SPHERE_BYTES) + 52)
+    k2t_bound, k2t_by = bound(tri_flops, tri_bytes)
+    path_t = (f"triangle main: render --scene trimesh fused+regen "
+              f"{MAIN_W}x{MAIN_H} {TRI_SPP} spp")
+    kernels["regen_steps_tri"] = dict(
+        name="regen_steps_tri", route="cuda",
+        source="tpu_ray_torch/csrc/regen.cu",
+        replaces="tpu_ray/kernels/regen.py:812",
+        also_replaces="tpu_ray/kernels/regen.py:868",
+        launches=k2t_launches, max_abs_err=k2t_err, ms=k2t_ms,
+        plain_ms=k2t_plain, bound_ms=k2t_bound, bound_by=k2t_by,
+        library_ms=None, path=path_t,
+        shape=f"{tr2} lanes x {tsteps} steps, {rays_t} rays, "
+              f"{ttable.shape[0]} primitives ({n_sph_real} spheres and "
+              f"{n_tri_real} triangles real)",
+        plain_lanes=tsl_p.shape[1], ms_same_lanes=k2t_ms_slice)
+    print(f"K2 triangle mode at the triangle path: {k2t_ms:.3f} ms (bound "
+          f"{k2t_bound:.3f} ms by {k2t_by}); 1 lane in {SLICE_STRIDE} "
+          f"({tsl_p.shape[1]}) bit-equal to plain, {k2t_ms_slice:.3f} ms "
+          f"kernel / {k2t_plain:.3f} ms plain on those lanes", flush=True)
+    phase("k2_tri_check", t0)
+
+    # 19. the triangle path's forward+backward, as a user differentiates
+    # it: image_mse(render_mean(trainable trimesh, ...), 0).backward()
+    # w.r.t. every sphere leaf, every triangle leaf and the camera, three
+    # calls (BASELINE.md config 4's gradient row)
+    t0 = time.perf_counter()
+    tsc = trainable_scene(tscene)
+    tcm = trainable_camera(tracer_t.camera)
+    tleaves = [tsc.leaf(k) for k in tsc.leaves] + [tcm.position,
+                                                   tcm.look_at]
+
+    def tri_fwd_bwd():
+        for leaf in tleaves:
+            leaf.grad = None
+        img_g, rays_g = render_mean(tsc, tcm, width=MAIN_W, height=MAIN_H,
+                                    spp=TRI_SPP, seed=SEED,
+                                    max_bounces=MAX_BOUNCES, backend="fused",
+                                    regen=True, return_rays=True)
+        image_mse(img_g, target).backward()
+        return img_g.detach(), rays_g
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0_t = torch.cuda.memory_allocated()
+    reset_counts()
+    tri_step_secs = []
+    t_step = time.perf_counter()
+    img_tg, rays_tg = tri_fwd_bwd()
+    torch.cuda.synchronize()
+    tri_step_secs.append(time.perf_counter() - t_step)
+    launches_t = counts()
+    peak_t = torch.cuda.max_memory_allocated() - mem0_t
+    require(launches_t["regen_record"] > 0 and launches_t["regen_bwd"] > 0,
+            f"triangle fwd+bwd did not launch K2-record and K3: {launches_t}")
+    require(sum(launches_t.values()) == launches_t["regen_record"]
+            + launches_t["regen_bwd"],
+            f"triangle fwd+bwd launched other kernels: {launches_t}")
+    require(rays_tg == rays_t, f"triangle fwd+bwd rays {rays_tg} != {rays_t}")
+    require(torch.equal(img_tg, mean_t),
+            "triangle recording forward's image differs from the forward's")
+    tgrads = {k: tsc.leaf(k).grad for k in tsc.leaves}
+    tgrads.update(position=tcm.position.grad, look_at=tcm.look_at.grad)
+    for k, g_ in tgrads.items():
+        require(g_ is not None and bool(torch.isfinite(g_).all()),
+                f"trimesh gradient of {k} missing or not finite")
+    for k in ("tris.v0", "tris.e1", "tris.e2", "tris.albedo", "position"):
+        require(tgrads[k].abs().max().item() > 0,
+                f"trimesh gradient of {k} is zero")
+    tri_grads = {k: g_.clone() for k, g_ in tgrads.items()}
+    for _ in range(2):
+        t_step = time.perf_counter()
+        tri_fwd_bwd()
+        torch.cuda.synchronize()
+        tri_step_secs.append(time.perf_counter() - t_step)
+    print(f"triangle fwd+bwd: trimesh {MAIN_W}x{MAIN_H} {TRI_SPP} spp "
+          f"fused+regen: {rays_tg} rays; step {tri_step_secs} s = "
+          f"{[rays_tg / t for t in tri_step_secs]} rays/s on {card}; "
+          f"launches {launches_t}; peak memory {peak_t} B above the "
+          f"{mem0_t} B held before", flush=True)
+    phase("tri_fwd_bwd", t0)
+
+    # 20. K2-record and K3's triangle branch at the triangle path's own
+    # state and records (launches not counted): K2-record leaves the
+    # forward-only K2's state and, on 1 lane in 32, the plain version's
+    # records; K3 (two launches, bit-equal) at the main loss's cotangent:
+    # its d_table against the path's gradients, and on 1 lane in 32
+    # d_state equal to plain, d_table and d_cam within 1e-4 of each
+    # group's max of the plain f64 sum (sphere and triangle rows apart)
+    t0 = time.perf_counter()
+    seg_t = min(SEG_MAX, tsteps)
+    tst_r = tst0.clone()
+    trecs, k2tr_ms = timed(torch, lambda: regen_record(
+        tst_r, tc13, ttable, tsteps, seg_t, tri=ttri, **kwt))
+    require(bits_equal(torch, tst_r, tst_k),
+            "K2-record triangle state differs from the forward-only K2's")
+    tsl_r, tsl_pr = tst0[:, cols].contiguous(), tst0[:, cols].contiguous()
+    trecs_s, k2tr_ms_slice = timed(torch, lambda: regen_record(
+        tsl_r, tc13, ttable, tsteps, seg_t, tri=ttri, **kwt))
+    (_, trecs_p), k2tr_plain = timed(torch, lambda: regen_steps_plain(
+        tsl_pr, tc13, ttable, tsteps, seg=seg_t, tri=ttri, **kwt))
+    require(bits_equal(torch, tsl_r, tsl_pr),
+            "K2-record triangle slice state not bit-equal to plain")
+    t_end_p = trecs_p.t_end.long()
+    valid = torch.arange(tsteps, device=dev)[:, None] < t_end_p[None, :]
+    require(torch.equal(trecs_s.t_end, trecs_p.t_end)
+            and torch.equal(trecs_s.rec[valid], trecs_p.rec[valid]),
+            "K2-record triangle records differ from plain")
+    require(bool((trecs_p.rec[valid] >= n_sph).any()),
+            "the triangle path recorded no triangle winner")
+    n_chk_t = int(((trecs.t_end.long() + seg_t - 1) // seg_t).sum())
+    k2tr_bound, k2tr_by = bound(
+        tri_flops, tri_bytes + 2 * rays_t + STATE_BYTES * n_chk_t + 4 * tr2)
+    path_tg = (f"triangle main fwd+bwd: render_mean trimesh fused+regen "
+               f"{MAIN_W}x{MAIN_H} {TRI_SPP} spp")
+    kernels["regen_record_tri"] = dict(
+        name="regen_record_tri", route="cuda",
+        source="tpu_ray_torch/csrc/regen.cu",
+        replaces="tpu_ray/kernels/regen.py:812",
+        also_replaces="tpu_ray/kernels/regen.py:868",
+        launches=launches_t["regen_record"], max_abs_err=0.0, ms=k2tr_ms,
+        plain_ms=k2tr_plain, bound_ms=k2tr_bound, bound_by=k2tr_by,
+        library_ms=None, path=path_tg,
+        shape=f"{tr2} lanes x {tsteps} steps, seg {seg_t}, {rays_t} rays",
+        forward_only_ms=k2t_ms, plain_lanes=tsl_pr.shape[1],
+        ms_same_lanes=k2tr_ms_slice)
+
+    tcol = tst_k[16:19].T.contiguous().requires_grad_()
+    image_mse(untile_image(tcol, MAIN_W, MAIN_H, inv)
+              / torch.tensor(float(TRI_SPP), device=dev), target).backward()
+    td_out = torch.zeros_like(tst0)
+    td_out[16:19] = tcol.grad.T
+    (td_st, td_tab, td_cam), k3t_ms = timed(torch, lambda: regen_bwd(
+        trecs, td_out, tc13, ttable, n_tri=tn_tri, **kwt))
+    again = regen_bwd(trecs, td_out, tc13, ttable, n_tri=tn_tri, **kwt)
+    require(all(bits_equal(torch, a, b) for a, b in zip(
+        (td_st, td_tab, td_cam), again)),
+        "K3: two launches on the triangle path's records differ")
+    del again
+    tperm = tri_morton_perm(tscene.tris)
+    sperm_t = morton_perm(tscene)
+    for name, got, want in (
+            ("sphere albedo", td_tab[:n_sph, 4:7],
+             tri_grads["albedo"][sperm_t]),
+            ("triangle albedo", td_tab[n_sph:, 4:7],
+             tri_grads["tris.albedo"][tperm]),
+            ("triangle emissive", td_tab[n_sph:, 7:10],
+             tri_grads["tris.emissive"][tperm])):
+        err = (got - want).abs().max().item()
+        require(err <= 1e-4 * want.abs().max().item(),
+                f"K3 d_table ({name}) differs from the path's by {err}")
+    trecs_sl = type(trecs)(trecs.rec[:, cols].contiguous(),
+                           trecs.chk[:, :, cols].contiguous(),
+                           trecs.t_end[cols].contiguous(), seg_t)
+    td_out_s = td_out[:, cols].contiguous()
+    (k_st, k_tab, k_cam), k3t_ms_slice = timed(torch, lambda: regen_bwd(
+        trecs_sl, td_out_s, tc13, ttable, n_tri=tn_tri, **kwt))
+    (p_st, p_tab, p_cam), k3t_plain = timed(torch, lambda: regen_bwd_plain(
+        trecs_sl, td_out_s, tc13, ttable, n_tri=tn_tri, **kwt))
+    require(torch.equal(k_st, td_st[:, cols]),
+            "K3 triangle slice differs from the whole launch")
+    require(torch.equal(k_st[rows], p_st[rows]),
+            f"K3 triangle d_state differs from plain by "
+            f"{(k_st[rows] - p_st[rows]).abs().max().item()}")
+    k3t_err = 0.0
+    groups = []
+    for part, sl in (("sphere", slice(0, n_sph)), ("triangle",
+                                                   slice(n_sph, None))):
+        for c in (slice(0, 3), slice(3, 4), slice(4, 7), slice(7, 10),
+                  slice(10, 11), slice(11, 12)):
+            groups.append((f"{part} rows, cols {c.start}-{c.stop - 1}",
+                           k_tab[sl, c], p_tab[sl, c]))
+    groups += [(f"cam[{a}:{a + 3}]", k_cam[a:a + 3], p_cam[a:a + 3])
+               for a in (0, 3, 6, 9)]
+    for name, a, b in groups:
+        err = (a - b).abs().max().item()
+        k3t_err = max(k3t_err, err)
+        require(err <= 1e-4 * b.abs().max().item(),
+                f"K3 triangle {name} differs from plain by {err}")
+    t_end_t = trecs.t_end.long()
+    k3t_bound, k3t_by = bound(
+        rays_t * K3_FLOPS_PER_STEP,
+        2 * rays_t + STATE_BYTES * n_chk_t + 4 * tr2 + 15 * 4 * tr2
+        + STATE_BYTES * tr2 + 2 * 48 * (n_sph_real + n_tri_real) + 52)
+    kernels["regen_bwd_tri"] = dict(
+        name="regen_bwd_tri", route="cuda",
+        source="tpu_ray_torch/csrc/regen_bwd.cu",
+        replaces="tpu_ray/kernels/regen.py:967",
+        launches=launches_t["regen_bwd"], max_abs_err=k3t_err, ms=k3t_ms,
+        plain_ms=k3t_plain, bound_ms=k3t_bound, bound_by=k3t_by,
+        library_ms=None, path=path_tg,
+        shape=f"{tr2} lanes, {int(t_end_t.sum())} alive lane-steps, seg "
+              f"{seg_t}, {ttable.shape[0]} table rows",
+        plain_lanes=trecs_sl.t_end.shape[0], ms_same_lanes=k3t_ms_slice,
+        partial_bytes=build.load().trt_regen_bwd_parts(tr2)
+        * ttable.numel() * 4)
+    print(f"K2-record triangle mode: {k2tr_ms:.3f} ms (forward-only "
+          f"{k2t_ms:.3f} ms), state bit-equal to forward-only, 1 lane in "
+          f"{SLICE_STRIDE}: records equal to plain; K3 triangle branch at "
+          f"the triangle path: {k3t_ms:.3f} ms (bound {k3t_bound:.3f} ms by "
+          f"{k3t_by}), two launches bit-equal, d_table equal to the path's "
+          f"within 1e-4; 1 lane in {SLICE_STRIDE}: d_state equal to plain, "
+          f"d_table and d_cam within 1e-4 of each group's max (max |d| "
+          f"{k3t_err}), {k3t_ms_slice:.3f} ms kernel / {k3t_plain:.3f} ms "
+          f"plain", flush=True)
+    phase("k3_tri_check", t0)
+    del trecs, trecs_s, trecs_p, trecs_sl, tst_r
+
+    # 21. the triangle path's gradients against backend cuda autograd
+    # (the eager route: Möller-Trumbore payload, K1 and K7 searches) on
+    # trimesh at 320x180, 4 spp: each group within 3e-3 of its max
+    t0 = time.perf_counter()
+    tsmall = {}
+    for backend in ("fused", "cuda"):
+        s2 = trainable_scene(tscene)
+        c2 = trainable_camera(tcam)
+        img2 = render_mean(s2, c2, width=CHECK_W, height=CHECK_H,
+                           spp=CHECK_SPP, seed=SEED, max_bounces=MAX_BOUNCES,
+                           backend=backend, regen=backend == "fused")
+        image_mse(img2, torch.zeros_like(img2)).backward()
+        tsmall[backend] = {k: s2.leaf(k).grad for k in s2.leaves}
+        tsmall[backend].update(position=c2.position.grad,
+                               look_at=c2.look_at.grad)
+    tri_rel = {}
+    for k, b in tsmall["cuda"].items():
+        a = tsmall["fused"][k]
+        tri_rel[k] = ((a - b).abs().max()
+                      / b.abs().max().clamp_min(1e-12)).item()
+        require(tri_rel[k] < 3e-3 or b.abs().max().item() == 0.0
+                and a.abs().max().item() == 0.0,
+                f"trimesh fused grad {k} differs from cuda by {tri_rel[k]}")
+    print(f"trimesh fused+regen vs backend cuda autograd gradients, "
+          f"{CHECK_W}x{CHECK_H} {CHECK_SPP} spp: max relative per group "
+          f"{tri_rel}", flush=True)
+    phase("tri_grad_check", t0)
+
     phase("total", t_all)
 
     print(json.dumps({"main_path": {
@@ -1042,7 +1426,14 @@ def main() -> int:
             "fwd_bwd_rays_per_s": [rays_sg / t for t in sample_secs],
             "fwd_bwd_peak_bytes": peak_s,
             "device_idle_share": {"forward": fwd_idle,
-                                  "fwd_bwd": step_idle}}}}))
+                                  "fwd_bwd": step_idle}},
+        "trimesh": {
+            "width": MAIN_W, "height": MAIN_H, "spp": TRI_SPP,
+            "triangles": n_tri_real, "rays_cast": rays_t,
+            "seconds": tri_secs, "rays_per_s": [rays_t / t for t in tri_secs],
+            "fwd_bwd_seconds": tri_step_secs,
+            "fwd_bwd_rays_per_s": [rays_tg / t for t in tri_step_secs],
+            "fwd_bwd_peak_bytes": peak_t}}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

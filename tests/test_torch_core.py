@@ -3,6 +3,8 @@
 The counter RNG must be bit-equal (every draw slot), the scene builders
 array-equal, and the camera within 1e-6 (f32 trig and basis math).
 """
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -109,9 +111,25 @@ def test_scene_from_numpy_matches_make_scene(name):
 
 
 def test_unported_scenes_refuse():
-    for name in ("trimesh", "bigmesh", "obj:x.obj", 6):
+    """Triangle scenes build (trimesh, an obj: mesh, index 6); the routes
+    that are not ported refuse them, citing ROADMAP.md: bigmesh (past
+    resident_tables_fit) on every backend, and the per-sample fused route
+    (fused without regen) on any triangle scene."""
+    from tpu_ray_torch.core.camera import default_camera
+    from tpu_ray_torch.models.path_tracer import render_pass
+
+    obj = os.path.join(os.path.dirname(__file__), "fixtures", "ico1.obj")
+    for name in ("trimesh", f"obj:{obj}", 6):
+        assert tscene.make_scene(name, device="cpu").tris is not None
+    big = tscene.make_scene("bigmesh", device="cpu")
+    tri = tscene.make_scene("trimesh", device="cpu")
+    cases = [(big, dict(backend=b, regen=b == "fused"))
+             for b in ("torch", "cuda", "fused")]
+    cases.append((tri, dict(backend="fused", regen=False)))
+    for scene, kw in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tscene.make_scene(name, device="cpu")
+            render_pass(scene, default_camera(scene), width=8, height=8,
+                        spp=1, **kw)
 
 
 @pytest.mark.parametrize("name", SPHERE_SCENES)

@@ -19,9 +19,11 @@ from tpu_ray_torch.kernels.bounce_step import (
     init_state, morton_perm, permute_spheres, scene_table)
 from tpu_ray_torch.kernels.regen import (regen_bwd, regen_bwd_plain,
                                          regen_record, regen_steps,
-                                         regen_steps_plain, wave_init)
+                                         regen_steps_plain, regen_tables,
+                                         wave_init)
 from tpu_ray_torch.kernels.sphere_intersect import (nearest_hit_plain,
                                                     sphere_nearest_hit)
+from tpu_ray_torch.kernels.tri_intersect import tri_hit_plain, tri_nearest_hit
 from tpu_ray_torch.models.path_tracer import tile_order
 from tpu_ray_torch.ops.intersect import payload_tables
 from tpu_ray_torch.ops.raygen import camera_rays
@@ -249,3 +251,141 @@ def test_fused_no_regen_grads_match_torch_route_on_card(cuda_device):
     assert torch.equal(imgs["fused"], imgs["torch"])
     for a, b in zip(grads["fused"], grads["torch"]):
         assert (a - b).abs().max() <= 3e-3 * b.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# triangle scenes: K7, K2's triangle mode, K3's triangle branch
+# ---------------------------------------------------------------------------
+
+def _tri_records(dev, w=64, h=48, name="trimesh", seg=4):
+    """The regen route's tables of the permuted scene, its recorded trace
+    at w x h, 2 spp, and a random colour cotangent."""
+    ts = make_scene(name, device=dev)
+    table, tri, n_tri = regen_tables(ts)
+    perm, _ = tile_order(w, h)
+    st, cam, _ = wave_init(default_camera(ts),
+                           torch.as_tensor(perm, device=dev), 2, 0, 0, w, h)
+    kw = dict(REGEN_KW, width=w, height=h)
+    recs = regen_record(st.clone(), cam, table, 10, seg, tri=tri, **kw)
+    d_out = torch.zeros_like(st)
+    d_out[16:19] = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (3, st.shape[1])).astype(np.float32), device=dev)
+    return table, tri, n_tri, st, cam, kw, recs, d_out
+
+
+@pytest.mark.cuda
+def test_k7_matches_plain_on_card(cuda_device):
+    """K7 bit-equal to nearest_hit_tri on trimesh's primary rays and on
+    random rays from inside the scene."""
+    ts = make_scene("trimesh", device=cuda_device)
+    px = torch.arange(64 * 48, device=cuda_device)
+    o, d, _ = camera_rays(default_camera(ts), 64, 48, px, 0, 0)
+    g = np.random.default_rng(4)
+    o2 = torch.as_tensor(g.uniform(-0.2, 0.2, (4096, 3)).astype(np.float32),
+                         device=cuda_device)
+    d2 = torch.nn.functional.normalize(torch.as_tensor(
+        g.normal(size=(4096, 3)).astype(np.float32), device=cuda_device),
+        dim=1)
+    for oo, dd in ((o, d), (o2, d2)):
+        a = tri_nearest_hit(ts.tris, oo, dd)
+        b = tri_hit_plain(ts.tris, oo, dd)
+        torch.cuda.synchronize()
+        assert torch.equal(a.idx, b.idx) and torch.equal(_bits(a.t),
+                                                         _bits(b.t))
+        assert (a.t < 1e29).any()
+
+
+@pytest.mark.cuda
+def test_k2_triangle_mode_matches_plain_on_card(cuda_device):
+    """K2 over trimesh, forward-only and recording, bit-equal to
+    regen_steps_plain (state, records, checkpoints)."""
+    table, tri, _, st, cam, kw, recs, _ = _tri_records(cuda_device)
+    a, c = st.clone(), st.clone()
+    regen_steps(a, cam, table, 10, tri=tri, **kw)
+    _, ref = regen_steps_plain(c, cam, table, 10, seg=4, tri=tri, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(c))
+    assert torch.equal(recs.t_end, ref.t_end)
+    valid = torch.arange(10, device=cuda_device)[:, None] < \
+        ref.t_end.long()[None, :]
+    assert torch.equal(recs.rec[valid], ref.rec[valid])
+    assert (recs.rec[valid] >= table.shape[0] - tri.shape[0]).any()
+    for s in range(ref.chk.shape[0]):
+        alive = ref.t_end.long() > s * 4
+        assert torch.equal(_bits(recs.chk[s][:, alive]),
+                           _bits(ref.chk[s][:, alive]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["trimesh", "rtweekend"])
+def test_k3_matches_plain_and_repeats_on_card(cuda_device, name):
+    """K3 on the regen route's permuted tables: d_state equal to plain,
+    d_table and d_cam within 1e-4 of each group's max of the plain f64
+    sum, and two launches bit-equal."""
+    table, _, n_tri, _, cam, kw, recs, d_out = _tri_records(cuda_device,
+                                                            name=name)
+    a = regen_bwd(recs, d_out, cam, table, n_tri=n_tri, **kw)
+    a2 = regen_bwd(recs, d_out, cam, table, n_tri=n_tri, **kw)
+    b = regen_bwd_plain(recs, d_out, cam, table, n_tri=n_tri, **kw)
+    torch.cuda.synchronize()
+    rows = list(range(12)) + [16, 17, 18]
+    assert torch.equal(a[0][rows], b[0][rows])
+    for x, x2 in zip(a, a2):
+        assert torch.equal(_bits(x), _bits(x2))
+    for cols in (slice(0, 3), slice(3, 4), slice(4, 7), slice(7, 10),
+                 slice(10, 11), slice(11, 12)):
+        want = b[1][:, cols]
+        assert (a[1][:, cols] - want).abs().max() <= \
+            1e-4 * want.abs().max()
+    for k in range(0, 12, 3):
+        want = b[2][k:k + 3]
+        assert (a[2][k:k + 3] - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_k3_multi_tile_repeats_on_card(cuda_device):
+    """Two K3 launches bit-equal where each block sums several lane tiles
+    (650x350 = 227,500 lanes over the 256 blocks), on rtweekend (the
+    partial row in shared memory) and trimesh (in global memory)."""
+    assert build.load().trt_regen_bwd_parts(650 * 350) == 256
+    for name in ("rtweekend", "trimesh"):
+        table, _, n_tri, _, cam, kw, recs, d_out = _tri_records(
+            cuda_device, 650, 350, name)
+        a = regen_bwd(recs, d_out, cam, table, n_tri=n_tri, **kw)
+        a2 = regen_bwd(recs, d_out, cam, table, n_tri=n_tri, **kw)
+        torch.cuda.synchronize()
+        for x, x2 in zip(a, a2):
+            assert torch.equal(_bits(x), _bits(x2))
+        assert a[1].abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_triangle_routes_on_card(cuda_device):
+    """trimesh on the card: backend cuda (K1 + K7) renders backend
+    torch's image bit for bit; fused+regen gradients against backend cuda
+    autograd within 3e-3 of each group's max, triangle leaves included."""
+    from tpu_ray_torch.core.camera import trainable_camera
+    from tpu_ray_torch.core.scene import trainable_scene
+    from tpu_ray_torch.grad import image_mse, render_mean
+    from tpu_ray_torch.models.path_tracer import render_pass
+
+    base = make_scene("trimesh", device=cuda_device)
+    cam0 = default_camera(base)
+    before = tri_nearest_hit.launches
+    a, ra = render_pass(base, cam0, width=64, height=48, spp=2,
+                        backend="cuda")
+    assert tri_nearest_hit.launches > before
+    b, rb = render_pass(base, cam0, width=64, height=48, spp=2,
+                        backend="torch")
+    assert ra == rb and torch.equal(a, b)
+    grads = {}
+    for backend in ("fused", "cuda"):
+        sc = trainable_scene(base)
+        cam = trainable_camera(cam0)
+        img = render_mean(sc, cam, width=64, height=48, spp=2,
+                          backend=backend, regen=backend == "fused")
+        image_mse(img, torch.zeros_like(img)).backward()
+        grads[backend] = [sc.leaf(k).grad for k in sc.leaves] + [
+            cam.position.grad]
+    for a, b in zip(grads["fused"], grads["cuda"]):
+        assert (a - b).abs().max() <= 3e-3 * b.abs().max().clamp_min(1e-12)

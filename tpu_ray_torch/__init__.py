@@ -1,10 +1,11 @@
 """tpu_ray_torch: the PyTorch / CUDA port of the tpu_ray path tracer.
 
-A progressive Monte-Carlo path tracer over sphere scenes, differentiable
-for inverse rendering (``grad/``). The module layout mirrors the JAX
-package (``tpu_ray/``) file for file; the Pallas kernels of its render and
-its gradient are hand-written CUDA C++ for Hopper (``csrc/``), built with
-nvcc at first use and bound with ctypes (``kernels/build.py``).
+A progressive Monte-Carlo path tracer over sphere and triangle scenes,
+differentiable for inverse rendering (``grad/``). The module layout
+mirrors the JAX package (``tpu_ray/``) file for file; the Pallas kernels
+of its render and its gradient are hand-written CUDA C++ for Hopper
+(``csrc/``), built with nvcc at first use and bound with ctypes
+(``kernels/build.py``).
 
 Entry points take ``device=`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions of every kernel.

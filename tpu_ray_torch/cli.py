@@ -30,7 +30,9 @@ import time
 def _add_common(ap: argparse.ArgumentParser):
     ap.add_argument("--scene", default="rtweekend",
                     help="rgb | randomized | rtweekend (reference scenes "
-                         "0-2) | single | sixteen | sixtyfour")
+                         "0-2) | single | sixteen | sixtyfour | trimesh "
+                         "(spheres + triangles) | obj:PATH (a Wavefront "
+                         "OBJ mesh on a ground quad)")
     ap.add_argument("--width", type=int, default=960)
     ap.add_argument("--height", type=int, default=540)
     ap.add_argument("--spp", type=int, default=1,
@@ -169,15 +171,17 @@ def cmd_fit(args) -> int:
                                     .mean())
         return out
 
-    # the initial gradient of every group, for its Adam eps
+    # the initial gradient of every group, for its Adam eps. As the JAX
+    # fit's _group: a triangle soup's albedo and emissive join the sphere
+    # groups of the same name; its geometry, specular and ior stay frozen
     group_of = {"center": "geom", "radius": "geom", "albedo": "alb",
-                "emissive": "emi", "position": "cam"}
+                "emissive": "emi", "tris.albedo": "alb",
+                "tris.emissive": "emi", "position": "cam"}
     s0 = trainable_scene(perturbed)
     c0 = Camera(position=cam0.position.detach().clone().requires_grad_(),
                 look_at=cam0.look_at)
     image_mse(render_mean(s0, c0, sample_start=0, **kw), target).backward()
-    grads = {k: getattr(s0, k).grad for k in ("center", "radius", "albedo",
-                                              "emissive")}
+    grads = {k: s0.leaf(k).grad for k in s0.leaves if k in group_of}
     grads["position"] = c0.position.grad
 
     def eps(group):
@@ -188,7 +192,10 @@ def cmd_fit(args) -> int:
 
     lr_geom = args.lr * r_scale if args.perturb_geom > 0 else 0.0
     has_emissive = bool((scene.emissive.cpu().numpy()[real] > 0.0).any())
-    groups = {"alb": (args.lr, ["albedo"])}
+
+    def group_leaves(group):
+        return [k for k in scene.leaves if group_of.get(k) == group]
+    groups = {"alb": (args.lr, group_leaves("alb"))}
     if lr_geom > 0:
         groups["geom"] = (lr_geom, ["center", "radius"])
     if fit_camera:
@@ -196,7 +203,7 @@ def cmd_fit(args) -> int:
         # in ~10 steps instead of oscillating across it
         groups["cam"] = (0.01 * r_scale, ["position"])
     if has_emissive:
-        groups["emi"] = (args.lr, ["emissive"])
+        groups["emi"] = (args.lr, group_leaves("emi"))
 
     def optimizer(params):
         return torch.optim.Adam([
@@ -234,8 +241,9 @@ def cmd_scenes(args) -> int:
     from tpu_ray_torch.core.scene import SCENE_BUILDERS, make_scene
     for i, name in enumerate(SCENE_BUILDERS):
         s = make_scene(name, device="cpu")
+        tri = f", {s.tris.n_real} tris" if s.tris is not None else ""
         print(f"{i}: {name:12s} {s.n_real:4d} spheres "
-              f"(padded {s.n_pad}), sky={s.use_sky}")
+              f"(padded {s.n_pad}){tri}, sky={s.use_sky}")
     return 0
 
 

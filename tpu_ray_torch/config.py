@@ -3,12 +3,15 @@
 Backends (the JAX package's names on the left):
 
   jnp            -> "torch"  plain PyTorch bounce loop (the anchor)
-  pallas         -> "cuda"   the CUDA sphere-search kernel inside the
-                             eager bounce loop (kernels/sphere_intersect.py)
+  pallas         -> "cuda"   the CUDA sphere- and triangle-search kernels
+                             inside the eager bounce loop
+                             (kernels/sphere_intersect.py,
+                             kernels/tri_intersect.py)
   fused + regen  -> "fused"  the CUDA persistent-wavefront regen kernel
-                   + regen   (kernels/regen.py), the default route on the card
+                   + regen   (kernels/regen.py), the default route on the
+                             card, for sphere and triangle scenes
   fused          -> "fused"  the per-sample route through the CUDA bounce
-                             kernels (kernels/bounce_step.py)
+                             kernels (kernels/bounce_step.py; sphere scenes)
 """
 from __future__ import annotations
 

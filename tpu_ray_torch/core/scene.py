@@ -1,22 +1,28 @@
-"""Scene system: padded SoA sphere scenes and their procedural builders.
+"""Scene system: padded SoA sphere scenes (with an optional triangle soup)
+and their procedural builders.
 
 Port of ``tpu_ray/core/scene.py``. The builders run on the host in numpy,
 bit-faithful to the reference's PCG-seeded construction; ``Scene`` is a
 dataclass of torch tensors on one device. Padding spheres keep radius 0,
 which can never be hit (``dsq < r*r`` is false for r = 0), so kernels run
 on padded arrays with no edge cases. The 128-sphere padding of the JAX
-package is kept so the arrays compare 1:1.
+package is kept so the arrays compare 1:1. A scene's triangles
+(``core/trimesh.Triangles``) follow the spheres in one primitive id space:
+sphere i has id i, triangle j has id n_pad + j.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from tpu_ray_torch.core.refpcg import RefPcg32
+from tpu_ray_torch.core.trimesh import (TRI_LEAVES, Triangles, icosphere,
+                                        load_obj, merge, pack_triangles,
+                                        quad, triangles_from_numpy)
 
 WORLD_SCALE = np.float32(1.0 / 16.0)  # reference main.cpp:56
 F32_EPS = np.float32(1e-4)            # reference base.h:889
@@ -27,6 +33,8 @@ SPHERE_PAD = 128
 
 # the trainable sphere leaves, in the JAX Scene's names
 SCENE_LEAVES = ("center", "radius", "albedo", "emissive", "specular", "ior")
+# the triangle leaves as scene leaves: "tris.<name>" (the JAX pytree path)
+TRI_SCENE_LEAVES = tuple(f"tris.{k}" for k in TRI_LEAVES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +42,8 @@ class Scene:
     """Padded SoA sphere scene; every array has leading dim n_pad.
 
     center[N,3], radius[N], albedo[N,3], emissive[N,3], specular[N], ior[N]
-    (ior 0 => diffuse/specular, else dielectric), look_at[3]: all f32.
+    (ior 0 => diffuse/specular, else dielectric), look_at[3]: all f32;
+    tris: the triangle soup, or None for a sphere scene.
     """
 
     center: torch.Tensor
@@ -44,6 +53,7 @@ class Scene:
     specular: torch.Tensor
     ior: torch.Tensor
     look_at: torch.Tensor
+    tris: Optional[Triangles] = None
     use_sky: bool = False
     n_real: int = 0
     default_distance: float = 1.0
@@ -57,6 +67,19 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.center.device
+
+    @property
+    def leaves(self) -> tuple:
+        """The names of the scene's trainable leaves: the sphere leaves,
+        then the triangle leaves when the scene has triangles."""
+        return SCENE_LEAVES + (TRI_SCENE_LEAVES if self.tris is not None
+                               else ())
+
+    def leaf(self, name: str) -> torch.Tensor:
+        """The tensor of leaf ``name`` (``"tris.v0"`` etc. for triangles)."""
+        if name.startswith("tris."):
+            return getattr(self.tris, name[5:])
+        return getattr(self, name)
 
 
 class SceneBuilder:
@@ -120,37 +143,55 @@ class SceneBuilder:
 
 
 def scene_from_numpy(d: Dict[str, np.ndarray], device="cuda",
-                     requires_grad: bool = False, **static) -> Scene:
+                     requires_grad: bool = False, tri_n_real=None,
+                     **static) -> Scene:
     """Scene from numpy arrays (the JAX Scene's fields, e.g. ``{k:
-    np.asarray(getattr(jax_scene, k))}``) plus its static fields
+    np.asarray(getattr(jax_scene, k))}``, and, for a triangle scene, its
+    ``tris`` fields under ``"tris.<name>"``) plus its static fields
     (use_sky, n_real, default_distance, default_x_angle,
-    default_y_height). ``requires_grad`` makes the six sphere leaves
+    default_y_height; ``tri_n_real``: the real triangles, all of them when
+    None). ``requires_grad`` makes every sphere and triangle leaf
     trainable."""
     def t(a, grad=False):
         return torch.tensor(np.asarray(a, np.float32), device=device,
                             requires_grad=grad)
+    tris = None
+    if "tris.v0" in d:
+        arrays = {k: d[f"tris.{k}"] for k in TRI_LEAVES}
+        n = len(arrays["v0"]) if tri_n_real is None else tri_n_real
+        tris = triangles_from_numpy(arrays, n, device=device,
+                                    requires_grad=requires_grad)
     return Scene(**{k: t(d[k], requires_grad) for k in SCENE_LEAVES},
-                 look_at=t(d["look_at"]), **static)
+                 look_at=t(d["look_at"]), tris=tris, **static)
 
 
 def scene_to_numpy(scene: Scene, grad: bool = False) -> Dict[str, np.ndarray]:
-    """The sphere leaves (or, with ``grad``, their ``.grad``, zeros where
-    none was accumulated) as numpy arrays under the JAX leaf names."""
+    """The scene's leaves (or, with ``grad``, their ``.grad``, zeros where
+    none was accumulated) as numpy arrays under the JAX leaf names
+    (triangle leaves as ``"tris.<name>"``)."""
     out = {}
-    for k in SCENE_LEAVES:
-        v = getattr(scene, k)
+    for k in scene.leaves:
+        v = scene.leaf(k)
         if grad:
             v = v.grad if v.grad is not None else torch.zeros_like(v)
         out[k] = v.detach().cpu().numpy()
     return out
 
 
-def trainable_scene(scene: Scene, names=SCENE_LEAVES) -> Scene:
-    """A copy of ``scene`` whose leaves in ``names`` are fresh tensors with
-    ``requires_grad`` (the others are detached copies)."""
-    return dataclasses.replace(scene, **{
-        k: getattr(scene, k).detach().clone().requires_grad_(k in names)
-        for k in SCENE_LEAVES})
+def trainable_scene(scene: Scene, names=None) -> Scene:
+    """A copy of ``scene`` whose leaves in ``names`` (default: every leaf,
+    ``Scene.leaves``) are fresh tensors with ``requires_grad`` (the others
+    are detached copies)."""
+    names = scene.leaves if names is None else tuple(names)
+
+    def fresh(k):
+        return scene.leaf(k).detach().clone().requires_grad_(k in names)
+    tris = scene.tris
+    if tris is not None:
+        tris = dataclasses.replace(tris, **{
+            k: fresh(f"tris.{k}") for k in TRI_LEAVES})
+    return dataclasses.replace(
+        scene, tris=tris, **{k: fresh(k) for k in SCENE_LEAVES})
 
 
 def make_rgb_scene(pad_to: int = SPHERE_PAD, device="cuda") -> Scene:
@@ -399,6 +440,47 @@ def make_sixtyfour_scene(pad_to: int = SPHERE_PAD, device="cuda") -> Scene:
     )
 
 
+def make_trimesh_scene(pad_to: int = SPHERE_PAD, subdivisions: int = 4,
+                       device="cuda") -> Scene:
+    """~10k-triangle scene: two icospheres and a ground quad under the sky,
+    plus one glass sphere (mixed primitive types). BASELINE.json config 4.
+    subdivisions=4 -> 2 * 20*4^4 = 10240 mesh triangles + 2 ground =
+    10242."""
+    s = float(WORLD_SCALE)
+    v1, f1 = icosphere(subdivisions)
+    v2, f2 = icosphere(subdivisions)
+    g = 40.0 * s
+    verts, faces, colors = merge([
+        (v1 * (1.5 * s) + np.array([-1.8 * s, 1.5 * s, 0.0], np.float32),
+         f1, (0.8, 0.35, 0.25)),
+        (v2 * (1.2 * s) + np.array([2.0 * s, 1.2 * s, -0.8 * s], np.float32),
+         f2, (0.3, 0.5, 0.85)),
+        (*quad((-g, 0, -g), (-g, 0, g), (g, 0, g), (g, 0, -g)),
+         (0.55, 0.55, 0.55)),
+    ])
+    tris = pack_triangles(verts, faces, colors, device=device)
+
+    b = SceneBuilder()
+    b.add((0.0, 1.0, 2.5), 1.0, (1.0, 1.0, 1.0), ior=1.5)
+    scene = b.build(
+        look_at=np.array([0.0, 1.2 * s, 0.0], np.float32),
+        use_sky=True,
+        default_distance=10.0 * WORLD_SCALE,
+        default_x_angle=PI32 / np.float64(5.0),
+        default_y_height=3.0 * WORLD_SCALE,
+        pad_to=pad_to,
+        device=device,
+    )
+    return dataclasses.replace(scene, tris=tris)
+
+
+def make_bigmesh_scene(pad_to: int = SPHERE_PAD, device="cuda") -> Scene:
+    """~164k-triangle scene (trimesh at subdivisions=6), past
+    ``kernels/bounce_step.resident_tables_fit``: built, but every route
+    refuses it until the streaming search is ported (ROADMAP.md)."""
+    return make_trimesh_scene(pad_to=pad_to, subdivisions=6, device=device)
+
+
 SCENE_BUILDERS: Dict[str, Callable[..., Scene]] = {
     "rgb": make_rgb_scene,                # reference scene 0
     "randomized": make_randomized_scene,  # reference scene 1
@@ -406,19 +488,53 @@ SCENE_BUILDERS: Dict[str, Callable[..., Scene]] = {
     "single": make_single_scene,          # BASELINE config 1
     "sixteen": make_sixteen_scene,        # BASELINE config 2
     "sixtyfour": make_sixtyfour_scene,    # BASELINE config 3
+    "trimesh": make_trimesh_scene,        # BASELINE config 4 (10k tris)
+    "bigmesh": make_bigmesh_scene,        # 164k tris (refused, see above)
 }
 
 _SCENE_BY_INDEX = ["rgb", "randomized", "rtweekend", "single", "sixteen",
                    "sixtyfour", "trimesh"]
-_NOT_PORTED = ("trimesh", "bigmesh")
+
+
+def make_obj_scene(path: str, pad_to: int = SPHERE_PAD,
+                   albedo=(0.6, 0.6, 0.6), device="cuda") -> Scene:
+    """Scene from a Wavefront OBJ file (``--scene obj:PATH``): the mesh is
+    scaled so its longest extent is 2.5 world units, set on a gray ground
+    quad under the sky, and framed by the default orbit camera. Per-face
+    materials are a uniform albedo. A mesh past
+    ``kernels/bounce_step.resident_tables_fit`` builds, but every route
+    refuses it (ROADMAP.md)."""
+    v, f = load_obj(path)
+    lo, hi = v.min(axis=0), v.max(axis=0)
+    span = float(max(np.max(hi - lo), 1e-6))
+    s = float(WORLD_SCALE)
+    v = (v - (lo + hi) * 0.5) * (2.5 * s / span)
+    v[:, 1] -= v[:, 1].min()
+    g = 40.0 * s
+    verts, faces, colors = merge([
+        (v, f, albedo),
+        (*quad((-g, 0, -g), (-g, 0, g), (g, 0, g), (g, 0, -g)),
+         (0.55, 0.55, 0.55)),
+    ])
+    tris = pack_triangles(verts, faces, colors, device=device)
+    b = SceneBuilder()
+    scene = b.build(
+        look_at=np.array([0.0, 1.0 * s, 0.0], np.float32),
+        use_sky=True,
+        default_distance=8.0 * WORLD_SCALE,
+        default_x_angle=PI32 / np.float64(5.0),
+        default_y_height=2.5 * WORLD_SCALE,
+        pad_to=pad_to,
+        device=device,
+    )
+    return dataclasses.replace(scene, tris=tris)
 
 
 def make_scene(name_or_index, pad_to: int = SPHERE_PAD,
                device="cuda") -> Scene:
     if isinstance(name_or_index, int):
         name_or_index = _SCENE_BY_INDEX[name_or_index]
-    if name_or_index in _NOT_PORTED or name_or_index.startswith("obj:"):
-        raise NotImplementedError(
-            f"scene {name_or_index!r}: triangle scenes are not ported yet "
-            "(ROADMAP.md queue A, item 3)")
+    if name_or_index.startswith("obj:"):
+        return make_obj_scene(name_or_index[4:], pad_to=pad_to,
+                              device=device)
     return SCENE_BUILDERS[name_or_index](pad_to=pad_to, device=device)

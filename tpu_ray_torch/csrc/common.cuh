@@ -1,4 +1,4 @@
-// Device functions shared by the sphere-search and regen kernels.
+// Device functions shared by the search, regen and bounce kernels.
 //
 // Built with -fmad=false: every a*b+c below rounds twice, exactly as the
 // plain PyTorch versions (tpu_ray_torch/ops) compute it one op at a time,
@@ -11,6 +11,8 @@
 
 #define TRT_F32_EPS 1e-4f
 #define TRT_F32_MAX 1e30f
+// ops/intersect_tri.py _DET_EPS: |det| at or below it is no hit
+#define TRT_DET_EPS 1e-9f
 
 #define TRT_MIX_SAMPLE 0x85EBCA6Bu
 #define TRT_MIX_BOUNCE 0x632BE59Bu
@@ -90,6 +92,55 @@ __device__ __forceinline__ void trt_nearest_sphere(
   t_out = TRT_F32_MAX;
   idx_out = 0;
   trt_fold_spheres(sph, 0, n, ox, oy, oz, dx, dy, dz, t_out, idx_out);
+}
+
+// ops/intersect_tri.py _mt_slab for one ray and the triangle at w (v0,
+// e1, e2: 9 floats): Möller-Trumbore in the plain version's op order.
+// -> whether it is a hit (|det| > 1e-9, u >= 0, v >= 0, u + v <= 1,
+// t > 1e-4), with its t. A triangle that fails the det or u test returns
+// early; every value it does compute is the plain version's.
+__device__ __forceinline__ bool trt_tri_hit(const float* w, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float& t) {
+  const float v0x = w[0], v0y = w[1], v0z = w[2];
+  const float e1x = w[3], e1y = w[4], e1z = w[5];
+  const float e2x = w[6], e2y = w[7], e2z = w[8];
+  // pvec = d x e2
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  if (!(fabsf(det) > TRT_DET_EPS)) return false;
+  const float inv = 1.0f / det;
+  // tvec = o - v0
+  const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
+  const float u = (tx * px + ty * py + tz * pz) * inv;
+  if (!(u >= 0.0f)) return false;
+  // qvec = tvec x e1
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float v = (dx * qx + dy * qy + dz * qz) * inv;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  return v >= 0.0f && u + v <= 1.0f && t > TRT_F32_EPS;
+}
+
+// ops/intersect_tri.py nearest_hit_tri folded over the triangles [j0, j1)
+// of a [*, 9] v0|e1|e2 table into a running (best, bi), triangle j taking
+// the id id0 + j. Strict < keeps the lowest id on ties when ranges are
+// folded in id order (after the spheres, the rule of merge_payloads).
+__device__ __forceinline__ void trt_fold_tris(
+    const float* __restrict__ tri, int j0, int j1, int id0, float ox,
+    float oy, float oz, float dx, float dy, float dz, float& best,
+    int& bi) {
+  for (int j = j0; j < j1; ++j) {
+    float t;
+    if (trt_tri_hit(tri + 9 * (size_t)j, ox, oy, oz, dx, dy, dz, t) &&
+        t < best) {
+      best = t;
+      bi = id0 + j;
+    }
+  }
 }
 
 // Stage n spheres (center [n,3], radius [n]) into shared memory.

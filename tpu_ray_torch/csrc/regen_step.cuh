@@ -27,6 +27,8 @@ __device__ __forceinline__ TrtCam trt_load_cam(const float* cam13) {
 struct TrtRegenParams {
   int use_sky, max_bounces;
   float width, height, film_w, film_h;
+  // ids at or past n_sph are triangles (n_sph = P for a sphere scene)
+  int n_sph;
 };
 
 // One lane of the [24, R] state (kernels/regen.py module docstring).
@@ -100,7 +102,8 @@ __device__ __forceinline__ void trt_film_vec(const TrtCam& c, float fx,
 }
 
 // The regen step of an alive lane after the search: idx is the winner row
-// of the [P,12] table, -1 on a miss. The shading (trt_shade) with draws
+// of the [P,12] table (a triangle at or past p.n_sph), -1 on a miss. The
+// shading (trt_shade) with draws
 // keyed by the lane's bounce row, the flush of a finished sample, has_more
 // against s_end, regeneration, and rays += 1.
 __device__ __forceinline__ void trt_step_tail(TrtLane& L, const TrtCam& c,
@@ -108,7 +111,8 @@ __device__ __forceinline__ void trt_step_tail(TrtLane& L, const TrtCam& c,
                                               const TrtRegenParams& p) {
   const bool live = idx >= 0;
   trt_shade(L, live ? table + 12 * (size_t)idx : nullptr,
-            (uint32_t)L.b_i * TRT_MIX_BOUNCE, p.use_sky != 0);
+            (uint32_t)L.b_i * TRT_MIX_BOUNCE, p.use_sky != 0,
+            idx >= p.n_sph);
 
   // the sample ends when its ray dies or its bounce budget is spent
   const float b_next = L.b_i + 1.0f;

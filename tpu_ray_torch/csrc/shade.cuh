@@ -13,14 +13,18 @@
 
 // One bounce's shading of an alive lane (shade_plain): w is the winner's
 // row of the [P,12] table (center 0-2, radius 3, albedo 4-6, emissive 7-9,
-// specular 10, ior 11), nullptr on a miss. A miss adds the sky colour when
-// use_sky; a hit adds the emission, multiplies in the albedo and scatters,
-// with the draws keyed by the lane's stream base and bterm (the bounce
-// times TRT_MIX_BOUNCE, core/rng.py slots 0-3). Lane: any struct with the
-// rows ox..cb and base.
+// specular 10, ior 11; a triangle's row holds its normal n = e1 x e2 in
+// 0-2 and k = n . v0 in 3), nullptr on a miss. A miss adds the sky colour
+// when use_sky; a hit adds the emission, multiplies in the albedo and
+// scatters, with the draws keyed by the lane's stream base and bterm (the
+// bounce times TRT_MIX_BOUNCE, core/rng.py slots 0-3). is_tri: the winner
+// is a triangle, hit at t = (k - n . o) / (n . d) (the plane form) with
+// normal n, inside when it meets the backface (n . d > 0). Lane: any
+// struct with the rows ox..cb and base.
 template <class Lane>
 __device__ __forceinline__ void trt_shade(Lane& L, const float* w,
-                                          uint32_t bterm, bool use_sky) {
+                                          uint32_t bterm, bool use_sky,
+                                          bool is_tri = false) {
   const float s_pm1 = 4.656612873077393e-10f;   // 2 * 2^-32
   const float s_01 = 2.3283064365386963e-10f;   // 2^-32
   if (w == nullptr) {
@@ -41,9 +45,18 @@ __device__ __forceinline__ void trt_shade(Lane& L, const float* w,
     const float dsq = qx * qx + qy * qy + qz * qz;
     const float x = trt_safe_sqrt(w[3] * w[3] - dsq);
     const float tn = tp - x;
-    const bool inside = tn < TRT_F32_EPS;
-    const float t = inside ? tp + x : tn;
-    const float ptx = L.dx * t, pty = L.dy * t, ptz = L.dz * t;
+    bool inside = tn < TRT_F32_EPS;
+    float t = inside ? tp + x : tn;
+    float ptx = L.dx * t, pty = L.dy * t, ptz = L.dz * t;
+    float nx = ptx - mx, ny = pty - my, nz = ptz - mz;
+    if (is_tri) {
+      const float nd = L.dx * w[0] + L.dy * w[1] + L.dz * w[2];
+      const float no = L.ox * w[0] + L.oy * w[1] + L.oz * w[2];
+      t = (w[3] - no) / (nd != 0.0f ? nd : 1.0f);
+      inside = nd > 0.0f;
+      nx = w[0]; ny = w[1]; nz = w[2];
+      ptx = L.dx * t; pty = L.dy * t; ptz = L.dz * t;
+    }
     const float nox = L.ox + ptx, noy = L.oy + pty, noz = L.oz + ptz;
 
     L.cr = L.cr + w[7] * L.ar;
@@ -62,7 +75,6 @@ __device__ __forceinline__ void trt_shade(Lane& L, const float* w,
     const float rrefl = trt_draw(L.base, bterm, 3u, s_01, 0.0f);
 
     // ops/shade.py scatter_direction
-    float nx = ptx - mx, ny = pty - my, nz = ptz - mz;
     trt_normalize_eps(nx, ny, nz);
     const float dn2 = 2.0f * (L.dx * nx + L.dy * ny + L.dz * nz);
     const float purex = L.dx - dn2 * nx, purey = L.dy - dn2 * ny,
@@ -142,12 +154,16 @@ __device__ __forceinline__ float trt_sign(float x) {
 // bounce_step.py shade_vjp_plain for one lane. s: the pre-bounce rows
 // (o 0-2, d 3-5, a 6-8); w: the winner's table row (row 0 on a miss,
 // as the plain version gathers; every use is masked); g: cotangent rows
-// 0-11. -> d_s rows 0-8 (rows 9-11 are g's) and d_w [12].
+// 0-11. has_tris: the scene has triangles (the plain version's is_tri is
+// not None), so the triangle branch's selects run on every lane; is_tri:
+// this lane's winner is a triangle. -> d_s rows 0-8 (rows 9-11 are g's)
+// and d_w [12].
 static __device__ void trt_shade_vjp(const float* s, const float* w,
                                      bool live, bool sky, float rd0,
                                      float rd1, float rd2, float rrefl,
                                      bool use_sky, const float* g, float* d_s,
-                                     float* d_w) {
+                                     float* d_w, bool has_tris = false,
+                                     bool is_tri = false) {
   const float o0 = s[0], o1 = s[1], o2 = s[2];
   const float d0 = s[3], d1 = s[4], d2 = s[5];
   const float a0 = s[6], a1 = s[7], a2 = s[8];
@@ -163,13 +179,26 @@ static __device__ void trt_shade_vjp(const float* s, const float* w,
   const float dsq = trt_dot3(p0, p1, p2, p0, p1, p2);
   const float xx = trt_safe_sqrt(r_ * r_ - dsq);
   const float tn = tp - xx;
-  const bool inside = tn < TRT_F32_EPS;
-  const float tt = inside ? tp + xx : tn;
+  bool inside = tn < TRT_F32_EPS;
+  float tt = inside ? tp + xx : tn;
   const bool qpos = xx > 0.0f;
+  float nr0 = d0 * tt - m0, nr1 = d1 * tt - m1, nr2 = d2 * tt - m2;
+  // the plane form on triangle lanes (bounce_step.py _tri_plane)
+  float nd = 0.0f, no = 0.0f, den = 1.0f;
+  if (has_tris) {
+    nd = trt_dot3(d0, d1, d2, w[0], w[1], w[2]);
+    no = trt_dot3(o0, o1, o2, w[0], w[1], w[2]);
+    den = (is_tri && nd != 0.0f) ? nd : 1.0f;
+    const float t_t = (r_ - no) / den;
+    if (is_tri) {
+      tt = t_t;
+      inside = nd > 0.0f;
+      nr0 = w[0]; nr1 = w[1]; nr2 = w[2];
+    }
+  }
   float nx, ny, nz, n_inv;
   bool n_ok;
-  trt_nrm3_fwd(d0 * tt - m0, d1 * tt - m1, d2 * tt - m2, nx, ny, nz, n_inv,
-               n_ok);
+  trt_nrm3_fwd(nr0, nr1, nr2, nx, ny, nz, n_inv, n_ok);
   const float dn = trt_dot3(d0, d1, d2, nx, ny, nz);
   const float dn2 = 2.0f * dn;
   const float pu0 = d0 - dn2 * nx, pu1 = d1 - dn2 * ny, pu2 = d2 - dn2 * nz;
@@ -312,6 +341,31 @@ static __device__ void trt_shade_vjp(const float* s, const float* w,
   d_d1 = d_d1 + g_no1 * tt;
   d_d2 = d_d2 + g_no2 * tt;
   float d_tt = trt_dot3(d0, d1, d2, g_no0, g_no1, g_no2);
+  // triangle lanes: nr = n, tt = (k - n.o) / den
+  float d_wt0 = 0.0f, d_wt1 = 0.0f, d_wt2 = 0.0f, d_rt = 0.0f;
+  if (has_tris) {
+    d_wt0 = is_tri ? d_nr0 : 0.0f;
+    d_wt1 = is_tri ? d_nr1 : 0.0f;
+    d_wt2 = is_tri ? d_nr2 : 0.0f;
+    d_nr0 = is_tri ? 0.0f : d_nr0;
+    d_nr1 = is_tri ? 0.0f : d_nr1;
+    d_nr2 = is_tri ? 0.0f : d_nr2;
+    const float d_tt_t = is_tri ? d_tt : 0.0f;
+    d_tt = is_tri ? 0.0f : d_tt;
+    d_rt = d_tt_t / den;
+    const float d_no = (-d_tt_t) / den;
+    const float d_den = ((-(r_ - no)) / (den * den)) * d_tt_t;
+    const float d_nd = (is_tri && nd != 0.0f) ? d_den : 0.0f;
+    d_o0 = d_o0 + d_no * w[0];
+    d_o1 = d_o1 + d_no * w[1];
+    d_o2 = d_o2 + d_no * w[2];
+    d_d0 = d_d0 + d_nd * w[0];
+    d_d1 = d_d1 + d_nd * w[1];
+    d_d2 = d_d2 + d_nd * w[2];
+    d_wt0 = d_wt0 + d_no * o0 + d_nd * d0;
+    d_wt1 = d_wt1 + d_no * o1 + d_nd * d1;
+    d_wt2 = d_wt2 + d_no * o2 + d_nd * d2;
+  }
   d_d0 = d_d0 + d_nr0 * tt;
   d_d1 = d_d1 + d_nr1 * tt;
   d_d2 = d_d2 + d_nr2 * tt;
@@ -320,7 +374,7 @@ static __device__ void trt_shade_vjp(const float* s, const float* w,
   float d_tp = d_tt;
   const float d_xx = inside ? d_tt : -d_tt;
   const float d_q = qpos ? d_xx / (2.0f * xx) : 0.0f;
-  d_w[3] = (2.0f * r_) * d_q;
+  const float d_rs = (2.0f * r_) * d_q;
   const float d_p0 = (-2.0f * p0) * d_q, d_p1 = (-2.0f * p1) * d_q,
               d_p2 = (-2.0f * p2) * d_q;
   d_m0 = d_m0 + d_p0;
@@ -339,7 +393,13 @@ static __device__ void trt_shade_vjp(const float* s, const float* w,
   d_o0 = d_o0 - d_m0;
   d_o1 = d_o1 - d_m1;
   d_o2 = d_o2 - d_m2;
-  d_w[0] = d_m0; d_w[1] = d_m1; d_w[2] = d_m2;
+  if (has_tris) {
+    d_w[0] = d_wt0 + d_m0; d_w[1] = d_wt1 + d_m1; d_w[2] = d_wt2 + d_m2;
+    d_w[3] = d_rt + d_rs;
+  } else {
+    d_w[0] = d_m0; d_w[1] = d_m1; d_w[2] = d_m2;
+    d_w[3] = d_rs;
+  }
 
   d_s[0] = d_o0; d_s[1] = d_o1; d_s[2] = d_o2;
   d_s[3] = d_d0; d_s[4] = d_d1; d_s[5] = d_d2;

@@ -1,6 +1,7 @@
 """Inverse-rendering training step (port of ``tpu_ray/grad/fit.py``).
 
-Fits scene parameters (sphere geometry + materials) and/or the camera pose
+Fits scene parameters (sphere and triangle geometry + materials) and/or
+the camera pose
 to a target image by gradient descent on the photometric loss: forward
 render, backward through the payload recompute, optimizer step. The
 default optimizer is ``torch.optim.Adam(lr=1e-2)``, standing in for the
@@ -14,7 +15,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from tpu_ray_torch.core.camera import CAMERA_LEAVES, Camera, trainable_camera
-from tpu_ray_torch.core.scene import SCENE_LEAVES, Scene, trainable_scene
+from tpu_ray_torch.core.scene import Scene, trainable_scene
 from tpu_ray_torch.grad.render_grad import image_mse, render_mean
 
 # params (leaf name -> tensor, the trained leaves only) -> optimizer
@@ -41,7 +42,8 @@ def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
            step_fn(state, target) -> (TrainState, loss [] tensor)).
 
     init_fn copies the leaves into fresh tensors (``requires_grad`` on the
-    trained ones: the six scene leaves unless train_scene=False,
+    trained ones: every scene leaf, ``Scene.leaves``, unless
+    train_scene=False,
     ``position`` and ``look_at`` unless train_camera=False) and builds the
     optimizer over the trained leaves, by name. Each step_fn call renders
     spp fresh samples (sample_start advances by spp per step, so the
@@ -55,11 +57,10 @@ def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
         lambda params: torch.optim.Adam(list(params.values()), lr=1e-2))
 
     def init_fn(scene: Scene, camera: Camera) -> TrainState:
-        scene = trainable_scene(scene, SCENE_LEAVES if train_scene else ())
+        scene = trainable_scene(scene, scene.leaves if train_scene else ())
         camera = trainable_camera(camera,
                                   CAMERA_LEAVES if train_camera else ())
-        params = {k: getattr(scene, k) for k in SCENE_LEAVES
-                  if train_scene}
+        params = {k: scene.leaf(k) for k in scene.leaves if train_scene}
         params.update({k: getattr(camera, k) for k in CAMERA_LEAVES
                        if train_camera})
         return TrainState(scene=scene, camera=camera,

@@ -1,13 +1,19 @@
 """The bounce kernels of the per-sample fused route, their plain versions,
 and the shading chain they share with the regen route.
 
-Port of ``tpu_ray/kernels/bounce_step.py`` (spheres; the port has no
-triangles yet):
+Port of ``tpu_ray/kernels/bounce_step.py`` (the per-sample route takes
+sphere scenes; the shading and the scene tables take triangles too):
 
 - ``shade_plain`` / ``shade_vjp_plain`` (JAX ``_shade`` / ``_shade_vjp``):
   one bounce's smooth state update given the winner, and its hand
-  transpose. ``csrc/shade.cuh`` repeats their f32 op sequence, so every
+  transpose, with the triangle branch (the plane form) where the scene has
+  triangles. ``csrc/shade.cuh`` repeats their f32 op sequence, so every
   kernel built on them agrees with its plain version bit for bit.
+- ``prim_table``: the [P,12] winner table over the one primitive id space
+  (spheres, then triangles); ``permute_scene``: the Morton permutation of
+  spheres and triangles that both fused routes apply;
+  ``resident_tables_fit``: the JAX package's residency rule, which both
+  packages route triangle scenes by.
 - K4 ``bounce_fwd`` (``_fwd_kernel``): search + shading of one bounce,
   optionally culled by a (ray block x sphere tile) mask; K5
   ``bounce_replay`` (``_replay_kernel``): the shading from a saved winner;
@@ -24,9 +30,13 @@ origin, 3-5 direction, 6-8 attenuation, 9-11 colour, 12 alive, 13 rng base
 bits, 14-15 passed through: the regen route's sample and bounce, unused
 here) and the gathered winner ``winner`` [>=12,R] (rows 0-2 centre, 3
 radius, 4-6 albedo, 7-9 emissive, 10 specular, 11 ior: the columns of
-``scene_table``). ``shade_plain`` repeats the f32 op sequence of
-``ops/intersect.hit_payload`` + ``ops/shade.scatter_direction``, so the
-routes built on it are bit-equal to the bounce-loop render.
+``scene_table``; a triangle's row holds n = e1 x e2 in the centre slots
+and k = n . v0 in the radius slot, ``prim_table``). For spheres
+``shade_plain`` repeats the f32 op sequence of ``ops/intersect.hit_payload``
++ ``ops/shade.scatter_direction``, so the routes built on it are bit-equal
+to the bounce-loop render; for triangles it recomputes t in the plane form
+t = (k - n . o) / (n . d), as the JAX kernels do, where the bounce loop
+takes the Möller-Trumbore t of ``ops/intersect_tri.tri_payload``.
 ``shade_vjp_plain`` recomputes those primals in the same op order and
 pushes a cotangent back through them. Normalisation is the port's
 ``1 / sqrt`` (``ops/vec.normalize_eps``), not the JAX package's rsqrt.
@@ -42,15 +52,18 @@ import torch
 from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera
 from tpu_ray_torch.core.scene import F32_EPS, F32_MAX, Scene
+from tpu_ray_torch.core.trimesh import Triangles
 from tpu_ray_torch.kernels import build
 from tpu_ray_torch.ops.intersect import nearest_hit
 from tpu_ray_torch.ops.intersect import payload_tables as scene_table
+from tpu_ray_torch.ops.intersect_tri import cross
 from tpu_ray_torch.ops.raygen import camera_rays
 from tpu_ray_torch.ops.vec import safe_sqrt, sqrt_f32
 
 __all__ = ["shade_plain", "shade_vjp_plain", "nrm3_fwd", "nrm3_bwd",
-           "scene_table", "BLOCK_R", "BLOCK_N", "morton_perm",
-           "permute_spheres", "tile_bounds", "ray_block_bounds",
+           "scene_table", "prim_table", "BLOCK_R", "BLOCK_N", "morton_perm",
+           "permute_spheres", "tri_morton_perm", "permute_tris",
+           "permute_scene", "resident_tables_fit", "tile_bounds", "ray_block_bounds",
            "cull_mask", "bounce_cull_mask", "octant_occupancy",
            "bounce_cull_mask_octant", "init_state", "bounce_fwd",
            "bounce_fwd_plain", "bounce_replay", "bounce_replay_plain",
@@ -112,12 +125,26 @@ def _schlick_reflect(ri, cos_t, sin_t, inside, rrefl):
     return (cant | (schlick > rrefl)) & ~inside
 
 
-def shade_plain(st, winner, live, sky, rand, use_sky: bool):
+def _tri_plane(o, d, w, is_tri):
+    """The plane form of a triangle winner (n in w[0:3], k in w[3]) ->
+    (n.d, n.o, den, t = (k - n.o) / den); den is n.d on triangle lanes
+    where it is nonzero, else 1 (JAX guards only n.d = 0; on sphere lanes
+    the value is discarded, and a finite one keeps autograd free of
+    inf * 0)."""
+    nd = _dot3(d[0], d[1], d[2], w[0], w[1], w[2])
+    no = _dot3(o[0], o[1], o[2], w[0], w[1], w[2])
+    den = torch.where(is_tri & (nd != 0.0), nd, 1.0)
+    return nd, no, den, (w[3] - no) / den
+
+
+def shade_plain(st, winner, live, sky, rand, use_sky: bool, is_tri=None):
     """One bounce's smooth state update given the winner (JAX ``_shade``).
 
     st [16,R], winner [>=12,R] (garbage on lanes that are not live: every
     row it feeds is masked), live / sky [R] bool (alive & hit, alive &
-    miss), rand = (r0, r1, r2, r_reflect) [R] each. -> [16,R].
+    miss), rand = (r0, r1, r2, r_reflect) [R] each, is_tri: None for a
+    sphere scene, else [R] bool (the winner is a triangle: t in the plane
+    form, the normal n, inside = backface). -> [16,R].
     Differentiable w.r.t. st and winner under torch.autograd."""
     o, d, a = st[0:3], st[3:6], st[6:9]
     c0, c1, c2 = st[9], st[10], st[11]
@@ -135,6 +162,15 @@ def shade_plain(st, winner, live, sky, rand, use_sky: bool):
     (m0, m1, m2), _, _, _, _, inside, t = _payload(o, d, winner[0:3],
                                                    winner[3])
     pt0, pt1, pt2 = d[0] * t, d[1] * t, d[2] * t
+    nr0, nr1, nr2 = pt0 - m0, pt1 - m1, pt2 - m2
+    if is_tri is not None:
+        nd, _, _, t_t = _tri_plane(o, d, winner, is_tri)
+        t = torch.where(is_tri, t_t, t)
+        inside = torch.where(is_tri, nd > 0.0, inside)
+        nr0 = torch.where(is_tri, winner[0], nr0)
+        nr1 = torch.where(is_tri, winner[1], nr1)
+        nr2 = torch.where(is_tri, winner[2], nr2)
+        pt0, pt1, pt2 = d[0] * t, d[1] * t, d[2] * t
     no0, no1, no2 = o[0] + pt0, o[1] + pt1, o[2] + pt2
 
     c0 = c0 + torch.where(live, em[0] * a[0], 0.0)
@@ -145,7 +181,7 @@ def shade_plain(st, winner, live, sky, rand, use_sky: bool):
     a2 = torch.where(live, a[2] * al[2], a[2])
 
     # ops/shade.scatter_direction
-    nx, ny, nz, _, _ = nrm3_fwd(pt0 - m0, pt1 - m1, pt2 - m2)
+    nx, ny, nz, _, _ = nrm3_fwd(nr0, nr1, nr2)
     dn2 = 2.0 * _dot3(d[0], d[1], d[2], nx, ny, nz)
     pu0, pu1, pu2 = d[0] - dn2 * nx, d[1] - dn2 * ny, d[2] - dn2 * nz
     n20 = torch.where(inside, -nx, nx)
@@ -183,10 +219,12 @@ def shade_plain(st, winner, live, sky, rand, use_sky: bool):
         live.to(st.dtype), st[13], st[14], st[15]])
 
 
-def shade_vjp_plain(st, winner, live, sky, rand, use_sky: bool, g):
-    """Hand transpose of ``shade_plain`` (JAX ``_shade_vjp``, sphere
-    branch): recompute the forward's primals and push the cotangent g
-    [16,R] (rows 12-15 ignored) back -> (d_st [16,R], d_winner [12,R]).
+def shade_vjp_plain(st, winner, live, sky, rand, use_sky: bool, g,
+                    is_tri=None):
+    """Hand transpose of ``shade_plain`` (JAX ``_shade_vjp``, with its
+    triangle branch where is_tri is given): recompute the forward's
+    primals and push the cotangent g [16,R] (rows 12-15 ignored) back ->
+    (d_st [16,R], d_winner [12,R]).
 
     d_st rows 9-11 are g's (colour passes straight through), rows 12-15
     zero. Paths whose only consumer is a boolean (Schlick, sin_t, the
@@ -204,8 +242,15 @@ def shade_vjp_plain(st, winner, live, sky, rand, use_sky: bool, g):
     (m0, m1, m2), tp, (p0, p1, p2), _, xx, inside, tt = _payload(
         st[0:3], st[3:6], winner[0:3], r_)
     qpos = xx > 0.0
-    pt0, pt1, pt2 = d0 * tt, d1 * tt, d2 * tt
-    nx, ny, nz, n_inv, n_ok = nrm3_fwd(pt0 - m0, pt1 - m1, pt2 - m2)
+    nr0, nr1, nr2 = d0 * tt - m0, d1 * tt - m1, d2 * tt - m2
+    if is_tri is not None:
+        nd, no, den, t_t = _tri_plane(st[0:3], st[3:6], winner, is_tri)
+        tt = torch.where(is_tri, t_t, tt)
+        inside = torch.where(is_tri, nd > 0.0, inside)
+        nr0 = torch.where(is_tri, winner[0], nr0)
+        nr1 = torch.where(is_tri, winner[1], nr1)
+        nr2 = torch.where(is_tri, winner[2], nr2)
+    nx, ny, nz, n_inv, n_ok = nrm3_fwd(nr0, nr1, nr2)
     dn = _dot3(d0, d1, d2, nx, ny, nz)
     dn2 = 2.0 * dn
     pu0, pu1, pu2 = d0 - dn2 * nx, d1 - dn2 * ny, d2 - dn2 * nz
@@ -357,6 +402,29 @@ def shade_vjp_plain(st, winner, live, sky, rand, use_sky: bool, g):
     d_d1 = d_d1 + g_no1 * tt
     d_d2 = d_d2 + g_no2 * tt
     d_tt = _dot3(d0, d1, d2, g_no0, g_no1, g_no2)
+    if is_tri is not None:
+        # triangle lanes: nr = n, tt = (k - n.o) / den (the plane form)
+        d_wt0 = torch.where(is_tri, d_nr0, 0.0)
+        d_wt1 = torch.where(is_tri, d_nr1, 0.0)
+        d_wt2 = torch.where(is_tri, d_nr2, 0.0)
+        d_nr0 = torch.where(is_tri, 0.0, d_nr0)
+        d_nr1 = torch.where(is_tri, 0.0, d_nr1)
+        d_nr2 = torch.where(is_tri, 0.0, d_nr2)
+        d_tt_t = torch.where(is_tri, d_tt, 0.0)
+        d_tt = torch.where(is_tri, 0.0, d_tt)
+        d_rt = d_tt_t / den
+        d_no = -d_tt_t / den
+        d_den = -(r_ - no) / (den * den) * d_tt_t
+        d_nd = torch.where(is_tri & (nd != 0.0), d_den, 0.0)
+        d_o0 = d_o0 + d_no * winner[0]
+        d_o1 = d_o1 + d_no * winner[1]
+        d_o2 = d_o2 + d_no * winner[2]
+        d_d0 = d_d0 + d_nd * winner[0]
+        d_d1 = d_d1 + d_nd * winner[1]
+        d_d2 = d_d2 + d_nd * winner[2]
+        d_wt0 = d_wt0 + d_no * o0 + d_nd * d0
+        d_wt1 = d_wt1 + d_no * o1 + d_nd * d1
+        d_wt2 = d_wt2 + d_no * o2 + d_nd * d2
     # nr = d*tt - m
     d_d0 = d_d0 + d_nr0 * tt
     d_d1 = d_d1 + d_nr1 * tt
@@ -389,6 +457,9 @@ def shade_vjp_plain(st, winner, live, sky, rand, use_sky: bool, g):
     d_o0 = d_o0 - d_m0
     d_o1 = d_o1 - d_m1
     d_o2 = d_o2 - d_m2
+    if is_tri is not None:
+        d_m0, d_m1, d_m2 = d_wt0 + d_m0, d_wt1 + d_m1, d_wt2 + d_m2
+        d_r = d_rt + d_r
 
     d_st = torch.stack([d_o0, d_o1, d_o2, d_d0, d_d1, d_d2, d_a0, d_a1,
                         d_a2, g_c0, g_c1, g_c2, zero, zero, zero, zero])
@@ -441,6 +512,73 @@ def permute_spheres(scene: Scene, perm) -> Scene:
         scene, center=scene.center[perm], radius=scene.radius[perm],
         albedo=scene.albedo[perm], emissive=scene.emissive[perm],
         specular=scene.specular[perm], ior=scene.ior[perm])
+
+
+@torch.no_grad()
+def tri_morton_perm(tris: Triangles):
+    """Morton permutation of a triangle soup by centroid -> [M] int64;
+    degenerate padding triangles (e1 = e2 = 0) sort last, ties keep
+    scene order."""
+    valid = (tris.e1 * tris.e1 + tris.e2 * tris.e2).sum(dim=1) > 0.0
+    centroid = tris.v0 + (tris.e1 + tris.e2) * (1.0 / 3.0)
+    return torch.argsort(_morton_codes(centroid, valid), stable=True)
+
+
+def permute_tris(tris: Triangles, perm) -> Triangles:
+    """The soup with its per-triangle arrays reordered by perm (autograd
+    carries cotangents back through the gather)."""
+    return dataclasses.replace(
+        tris, v0=tris.v0[perm], e1=tris.e1[perm], e2=tris.e2[perm],
+        albedo=tris.albedo[perm], emissive=tris.emissive[perm],
+        specular=tris.specular[perm], ior=tris.ior[perm])
+
+
+def permute_scene(scene: Scene) -> Scene:
+    """The scene Morton-permuted, spheres and (when present) triangles, as
+    both fused routes of the JAX package run it (``permute_scene``). An
+    exact tie in t then goes to the lower permuted id."""
+    scene = permute_spheres(scene, morton_perm(scene))
+    if scene.tris is not None:
+        scene = dataclasses.replace(
+            scene, tris=permute_tris(scene.tris, tri_morton_perm(scene.tris)))
+    return scene
+
+
+def prim_table(scene: Scene):
+    """[P,12] winner table over the one primitive id space, P = N + M:
+    the sphere rows (``scene_table``), then a row per triangle [n = e1 x e2
+    (3), k = n . v0, albedo (3), emissive (3), specular, ior], the plane
+    form whose (n, k) sit in the sphere's (centre, radius) slots (JAX
+    ``prim_table``). Differentiable: vertex cotangents flow back through
+    the cross and dot products. Padding triangles get n = 0, k = 0 and are
+    never winners."""
+    sph = scene_table(scene)
+    if scene.tris is None:
+        return sph
+    t = scene.tris
+    n = cross(t.e1, t.e2)
+    k = _dot3(n[:, 0], n[:, 1], n[:, 2], t.v0[:, 0], t.v0[:, 1], t.v0[:, 2])
+    return torch.cat([sph, torch.cat([
+        n, k[:, None], t.albedo, t.emissive, t.specular[:, None],
+        t.ior[:, None]], dim=1)])
+
+
+# the JAX package's residency rule (bounce_step.py resident_tables_fit):
+# its resident search tables in bf16 must fit a 10 MiB VMEM budget and the
+# sphere tile 1024 spheres. The port routes triangle scenes by the same
+# rule, so both packages take and refuse the same scenes.
+_RESIDENT_VMEM_BUDGET = 10 * 1024 * 1024
+_SPH_TILE_MAX = 1024
+
+
+def resident_tables_fit(n_pad: int, m_pad: int) -> bool:
+    """Does a scene of n_pad spheres and m_pad triangles (both padded) take
+    the resident-table routes? trimesh (128, 10368) does; bigmesh does
+    not. False for a scene without triangles, as in the JAX package."""
+    p_pad = n_pad + m_pad
+    return (n_pad <= _SPH_TILE_MAX and m_pad > 0 and
+            (4 * m_pad * 96 + 2 * n_pad * 54 + 48 * p_pad) * 2
+            < _RESIDENT_VMEM_BUDGET)
 
 
 @torch.no_grad()
@@ -746,7 +884,13 @@ def fused_tables(scene: Scene) -> FusedTables:
     """The per-trace constants of the fused route (JAX ``_fused_tables``,
     spheres): the scene Morton-permuted, its winner table and tile boxes.
     Autograd carries the table's cotangent back through the permutation
-    to the scene."""
+    to the scene. A triangle scene is refused: K4-K6 search spheres only
+    (``bounce_fwd_list``, kernel #7, is not ported: ROADMAP.md queue B)."""
+    if scene.tris is not None:
+        raise NotImplementedError(
+            "the per-sample fused route takes sphere scenes only: "
+            "bounce_fwd_list (kernel #7) and the triangle modes of K4-K6 "
+            "are not ported yet (ROADMAP.md queue B)")
     sc = permute_spheres(scene, morton_perm(scene))
     return FusedTables(scene_table(sc), *tile_bounds(sc), scene.use_sky)
 

@@ -38,16 +38,22 @@ _F = ctypes.c_float
 SIGNATURES = {
     # center, radius, n, origin, direction, r, t_out, idx_out, stream
     "trt_sphere_nearest_hit": [_P, _P, _I, _P, _P, _I, _P, _P, _P],
-    # state, r, cam13, table, n, steps, use_sky, max_bounces, width,
-    # height, film_w, film_h, stream
-    "trt_regen_steps": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    # tri, m, origin, direction, r, t_out, idx_out, stream
+    "trt_tri_nearest_hit": [_P, _I, _P, _P, _I, _P, _P, _P],
+    # state, r, cam13, table, n, tri, m, steps, use_sky, max_bounces,
+    # width, height, film_w, film_h, stream
+    "trt_regen_steps": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F,
+                        _F, _P],
     # as trt_regen_steps, then rec, chk, t_end, seg, stream
-    "trt_regen_steps_record": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                               _F, _P, _P, _P, _I, _P],
-    # d_state, r, cam13, table, n, rec, chk, t_end, steps, seg, use_sky,
-    # max_bounces, width, height, film_w, film_h, d_table, d_cam, stream
-    "trt_regen_bwd": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _F, _F, _P, _P, _P],
+    "trt_regen_steps_record": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                               _I, _F, _F, _P, _P, _P, _I, _P],
+    # d_state, r, cam13, table, n, n_tri, rec, chk, t_end, steps, seg,
+    # use_sky, max_bounces, width, height, film_w, film_h, part, part_cam,
+    # d_table, d_cam, stream
+    "trt_regen_bwd": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _F, _F, _P, _P, _P, _P, _P],
+    # r -> rows of trt_regen_bwd's partials (returns a count, not an error)
+    "trt_regen_bwd_parts": [_I],
     # state, out, r, table, n, bounce, mask, n_tiles, block_n, use_sky,
     # idx_out, stream
     "trt_bounce_fwd": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P],

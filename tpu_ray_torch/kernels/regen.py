@@ -10,8 +10,16 @@ total and regenerates the next sample's camera ray in the lane, from the
 counter RNG. ``regen_steps_plain`` is the same step, vectorised over the
 [24, R] state in plain PyTorch; the wrappers take it for CPU tensors only.
 
-K3 replaces ``regen_seg_bwd`` (``_regen_seg_kernel``): the reverse of the
-whole recorded trace. ``regen_bwd_plain`` is its plain version.
+K2 with a triangle search table also replaces ``regen_step(tri_lists=...)``
+(``_regen_list_kernel``, and ``_regen_kernel``'s triangle tiles): after the
+spheres every step folds the triangles in id order, so the winner is the
+lowest id in the one primitive id space (spheres 0..N-1, triangles
+N..N+M-1). The TPU kernel's reachable-tile lists only skip tiles that
+cannot hold the nearest hit; the port sweeps every triangle.
+
+K3 replaces ``regen_seg_bwd`` (``_regen_seg_kernel``, with its triangle
+branch): the reverse of the whole recorded trace. ``regen_bwd_plain`` is
+its plain version.
 ``make_regen_trace`` wraps the two in a ``torch.autograd.Function``
 (the JAX package's custom VJP of the same name).
 
@@ -28,7 +36,10 @@ package:
    22   rays-cast counter (exact f32)
    23   unused
 cam13 [13] f32: position(3), film_center(3), cam_x(3), cam_y(3), s_end.
-table [P,12] f32: the winner table (``ops/intersect.payload_tables``).
+table [P,12] f32: the winner table (``bounce_step.prim_table``: N sphere
+rows, then M triangle rows). tri [M,9] f32: the triangle search table
+(``ops/intersect_tri.tri_search_table``), None for a sphere scene; the
+backward takes only the count n_tri = M.
 
 Records of a recording run (``Records``): the winner id of every step on
 live lanes (-1 on a miss) [steps,R] i16, the state at every step
@@ -36,11 +47,11 @@ t % seg == 0 [ceil(steps/seg),24,R], and each lane's count of alive steps
 t_end [R] i32. A lane that dies stays dead, so entries at t >= t_end are
 never written by the kernel and never read.
 
-The search is exact (the JAX ``exact_argmin=True`` semantics). This route
-does not apply the JAX package's Morton permutation of the spheres
-(``permute_scene``; the per-sample route, ``kernels/bounce_step.py``,
-does, for its cull tiles), so d_table comes out in scene order and an
-exact tie in t goes to the lower scene index.
+The search is exact (the JAX ``exact_argmin=True`` semantics). The route
+runs on the Morton-permuted scene (``bounce_step.permute_scene``), as the
+JAX package's regen entry points do: an exact tie in t goes to the lower
+permuted id, the records and d_table are in permuted order, and autograd
+carries d_table back through the permutation to the scene's leaves.
 """
 from __future__ import annotations
 
@@ -54,17 +65,21 @@ from tpu_ray_torch.core.camera import Camera, film_extent
 from tpu_ray_torch.core.scene import F32_MAX, Scene
 from tpu_ray_torch.kernels import build
 from tpu_ray_torch.kernels.bounce_step import (nrm3_bwd, nrm3_fwd,
+                                               permute_scene, prim_table,
                                                shade_plain, shade_vjp_plain)
-from tpu_ray_torch.ops.intersect import nearest_hit, payload_tables
+from tpu_ray_torch.ops.intersect import nearest_hit
+from tpu_ray_torch.ops.intersect_tri import nearest_hit_tri, tri_search_table
 from tpu_ray_torch.ops.raygen import camera_rays, film_offsets, film_rays
 
 __all__ = ["regen_steps", "regen_steps_plain", "regen_record",
            "regen_bwd", "regen_bwd_plain", "step_tail_plain", "wave_init",
            "cam13", "trace_regen", "make_regen_trace", "RegenTrace",
-           "Records", "SEG_MAX"]
+           "Records", "SEG_MAX", "regen_tables"]
 
 # the longest segment K3 replays (its per-lane stash is sized for it)
 SEG_MAX = 64
+# winner records are i16: the primitive id space must stay below 2^15
+ID_LIMIT = 2 ** 15
 
 
 class Records(NamedTuple):
@@ -134,18 +149,26 @@ def _control(st, idx, cam, max_bounces: int):
     return alive, live, alive & ~hit, finished, has_more, s_next
 
 
+def _is_tri(idx, table, n_tri: int):
+    """Is the winner a triangle (its id past the spheres')? None for a
+    sphere scene, so the shading takes no triangle branch."""
+    return idx >= table.shape[0] - n_tri if n_tri else None
+
+
 def step_tail_plain(st, cam, table, idx, *, use_sky: bool, max_bounces: int,
-                    width: int, height: int):
+                    width: int, height: int, n_tri: int = 0):
     """Everything after the search (JAX ``_step_tail``): shading by the
-    winner idx [R] (-1 = miss), the sample flush and the in-lane
-    regeneration. st [24,R] -> (new state [24,R], record [R]: idx on live
-    lanes, -1 elsewhere). Shared by the forward and the backward's replay,
-    so the replay repeats the forward bit for bit; differentiable w.r.t.
-    st rows 0-11 and 16-18, cam[0:12] and table under torch.autograd."""
+    winner idx [R] (-1 = miss; a triangle when idx >= P - n_tri), the
+    sample flush and the in-lane regeneration. st [24,R] -> (new state
+    [24,R], record [R]: idx on live lanes, -1 elsewhere). Shared by the
+    forward and the backward's replay, so the replay repeats the forward
+    bit for bit; differentiable w.r.t. st rows 0-11 and 16-18, cam[0:12]
+    and table under torch.autograd."""
     alive, live, sky, finished, has_more, s_next = _control(
         st, idx, cam, max_bounces)
     winner = table[idx.clamp(min=0).long()].T
-    sh = shade_plain(st[0:16], winner, live, sky, _draws(st), use_sky)
+    sh = shade_plain(st[0:16], winner, live, sky, _draws(st), use_sky,
+                     _is_tri(idx, table, n_tri))
 
     total = st[16:19] + torch.where(finished, sh[9:12], 0.0)
     color = torch.where(finished, 0.0, sh[9:12])
@@ -166,20 +189,32 @@ def step_tail_plain(st, cam, table, idx, *, use_sky: bool, max_bounces: int,
     return out, torch.where(live, idx, -1)
 
 
-def _search(st, table):
-    """The exact nearest hit of every lane's ray -> winner id, -1 on a
-    miss (no autograd history)."""
-    hit = nearest_hit(table[:, 0:3], table[:, 3], st[0:3].T, st[3:6].T)
-    return torch.where(hit.t < float(F32_MAX), hit.idx.long(), -1)
+def _search(st, table, tri=None):
+    """The exact nearest hit of every lane's ray over the spheres and then
+    the triangles -> winner id in the one id space, -1 on a miss (no
+    autograd history). A triangle wins only with a strictly smaller t, so
+    an exact tie goes to the lower id."""
+    n_sph = table.shape[0] - (0 if tri is None else tri.shape[0])
+    o, d = st[0:3].T, st[3:6].T
+    hit = nearest_hit(table[:n_sph, 0:3], table[:n_sph, 3], o, d)
+    t, idx = hit.t, hit.idx.long()
+    if tri is not None:
+        th = nearest_hit_tri(tri, o, d)
+        wins = th.t < t
+        t = torch.where(wins, th.t, t)
+        idx = torch.where(wins, th.idx.long() + n_sph, idx)
+    return torch.where(t < float(F32_MAX), idx, -1)
 
 
 def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
                       max_bounces: int, width: int, height: int,
-                      seg: int | None = None):
+                      seg: int | None = None, tri=None):
     """``steps`` wavefront steps over the [24, R] state, in place. A dead
     lane only advances its bounce row, so once every lane is dead the
     remaining steps are applied to that row at once. With ``seg``, also
-    records (see module docstring) -> (state, Records); else -> state."""
+    records (see module docstring) -> (state, Records); else -> state.
+    tri: the triangle search table (the last M rows of table are the
+    triangles), None for a sphere scene."""
     r = state.shape[1]
     dev = state.device
     if seg is not None:
@@ -189,7 +224,7 @@ def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
                             device=dev),
             t_end=torch.zeros(r, dtype=torch.int32, device=dev), seg=seg)
     kw = dict(use_sky=use_sky, max_bounces=max_bounces, width=width,
-              height=height)
+              height=height, n_tri=0 if tri is None else tri.shape[0])
     for k in range(steps):
         alive = state[12] > 0.5
         if not bool(alive.any()):
@@ -197,8 +232,8 @@ def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
             break
         if seg is not None and k % seg == 0:
             recs.chk[k // seg] = state
-        new, rec = step_tail_plain(state, cam, table, _search(state, table),
-                                   **kw)
+        new, rec = step_tail_plain(state, cam, table,
+                                   _search(state, table, tri), **kw)
         if seg is not None:
             recs.rec[k] = rec.to(torch.int16)
             recs.t_end.add_(alive.to(torch.int32))
@@ -206,33 +241,47 @@ def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
     return state if seg is None else (state, recs)
 
 
-def _check_regen_args(state, cam, table):
+def _check_regen_args(state, cam, table, n_tri: int = 0):
     dev = state.device
     build.require(state, "state", torch.float32, (24, state.shape[1]), dev)
     build.require(cam, "cam13", torch.float32, (13,), dev)
     build.require(table, "table", torch.float32, (table.shape[0], 12), dev)
+    if not 0 <= n_tri <= table.shape[0]:
+        raise ValueError(f"n_tri {n_tri} outside the table's "
+                         f"{table.shape[0]} rows")
     return dev
 
 
+def _tri_args(tri, table, dev):
+    """(pointer, M) of the triangle search table for the C entry points."""
+    if tri is None:
+        return None, 0
+    build.require(tri, "tri", torch.float32, (tri.shape[0], 9), dev)
+    if tri.shape[0] > table.shape[0]:
+        raise ValueError("the table must hold a row per triangle")
+    return tri.data_ptr(), tri.shape[0]
+
+
 def regen_steps(state, cam, table, steps: int, *, use_sky: bool,
-                max_bounces: int, width: int, height: int):
+                max_bounces: int, width: int, height: int, tri=None):
     """K2: ``steps`` persistent-wavefront steps over the [24, R] f32 state,
     updated in place (search + shade + in-lane regeneration). cam: [13]
-    f32 (``cam13``), table [P,12] f32. CPU tensors take
-    ``regen_steps_plain``."""
+    f32 (``cam13``), table [P,12] f32, tri [M,9] f32 or None (see module
+    docstring). CPU tensors take ``regen_steps_plain``."""
     if not state.is_cuda:
         return regen_steps_plain(state, cam, table, steps, use_sky=use_sky,
                                  max_bounces=max_bounces, width=width,
-                                 height=height)
+                                 height=height, tri=tri)
     dev = _check_regen_args(state, cam, table)
+    tri_ptr, m = _tri_args(tri, table, dev)
     film_w, film_h = film_extent(width, height)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.trt_regen_steps(
             state.data_ptr(), state.shape[1], cam.data_ptr(),
-            table.data_ptr(), table.shape[0], int(steps), int(bool(use_sky)),
-            int(max_bounces), int(width), int(height), float(film_w),
-            float(film_h), build.stream_of(state))
+            table.data_ptr(), table.shape[0], tri_ptr, m, int(steps),
+            int(bool(use_sky)), int(max_bounces), int(width), int(height),
+            float(film_w), float(film_h), build.stream_of(state))
     build.check("trt_regen_steps", err)
     regen_steps.launches += 1
     return state
@@ -242,18 +291,20 @@ regen_steps.launches = 0
 
 
 def regen_record(state, cam, table, steps: int, seg: int, *, use_sky: bool,
-                 max_bounces: int, width: int, height: int) -> Records:
+                 max_bounces: int, width: int, height: int,
+                 tri=None) -> Records:
     """K2 in recording mode: as ``regen_steps``, and also writes the
     winner records, the checkpoints every ``seg`` steps and t_end
     (``Records``). The state advances bit for bit as without recording.
     CPU tensors take ``regen_steps_plain(..., seg=seg)``."""
+    if table.shape[0] >= ID_LIMIT:
+        raise ValueError("winner records are i16: at most 32767 primitives")
     if not state.is_cuda:
         return regen_steps_plain(state, cam, table, steps, use_sky=use_sky,
                                  max_bounces=max_bounces, width=width,
-                                 height=height, seg=seg)[1]
+                                 height=height, seg=seg, tri=tri)[1]
     dev = _check_regen_args(state, cam, table)
-    if table.shape[0] >= 2 ** 15:
-        raise ValueError("winner records are i16: at most 32767 spheres")
+    tri_ptr, m = _tri_args(tri, table, dev)
     r = state.shape[1]
     recs = Records(
         rec=torch.empty((steps, r), dtype=torch.int16, device=dev),
@@ -265,8 +316,9 @@ def regen_record(state, cam, table, steps: int, seg: int, *, use_sky: bool,
     with torch.cuda.device(dev):
         err = lib.trt_regen_steps_record(
             state.data_ptr(), r, cam.data_ptr(), table.data_ptr(),
-            table.shape[0], int(steps), int(bool(use_sky)), int(max_bounces),
-            int(width), int(height), float(film_w), float(film_h),
+            table.shape[0], tri_ptr, m, int(steps), int(bool(use_sky)),
+            int(max_bounces), int(width), int(height), float(film_w),
+            float(film_h),
             recs.rec.data_ptr(), recs.chk.data_ptr(), recs.t_end.data_ptr(),
             int(seg), build.stream_of(state))
     build.check("trt_regen_steps_record", err)
@@ -278,7 +330,8 @@ regen_record.launches = 0
 
 
 def _step_vjp_plain(st, consts, idx, d_st, cam, table, *, use_sky: bool,
-                    max_bounces: int, width: int, height: int):
+                    max_bounces: int, width: int, height: int,
+                    n_tri: int = 0):
     """Transpose of one ``step_tail_plain`` at the pre-step state st
     [>=16,R] (consts: rows 19-21 of the state) -> (d_state before the
     step [24,R], d_winner [12,R], camera-row cotangents [12,R]).
@@ -296,7 +349,7 @@ def _step_vjp_plain(st, consts, idx, d_st, cam, table, *, use_sky: bool,
                      torch.where(finished, g_tot, g_out[9:12]),
                      torch.zeros_like(g_out[0:4])])
     d_st16, d_wn = shade_vjp_plain(st[0:16], winner, live, sky, _draws(st),
-                                   use_sky, g16)
+                                   use_sky, g16, _is_tri(idx, table, n_tri))
 
     # regenerated direction d3 = normalize_eps(fc + fx cam_x + fy cam_y - pos)
     base = rng.sample_base(rng.bits_to_u32(consts[2]), s_next.to(torch.int64))
@@ -315,17 +368,19 @@ def _step_vjp_plain(st, consts, idx, d_st, cam, table, *, use_sky: bool,
 
 
 def regen_bwd_plain(recs: Records, d_out, cam, table, *, use_sky: bool,
-                    max_bounces: int, width: int, height: int):
+                    max_bounces: int, width: int, height: int,
+                    n_tri: int = 0):
     """Reverse of a recorded trace (plain version of K3). For each segment
     from the last to the first: replay from its checkpoint with the
     recorded winners (no search), then sweep back through the step
     transposes. d_out [24,R]: cotangent of the final state (rows 0-11 and
-    16-18 read). -> (d_state at the start [24,R], d_table [P,12],
-    d_cam [12]); d_table and d_cam are summed in f64, then rounded."""
+    16-18 read); n_tri: the triangle rows at the end of table.
+    -> (d_state at the start [24,R], d_table [P,12], d_cam [12]); d_table
+    and d_cam are summed in f64, then rounded."""
     seg = recs.seg
     steps, r = recs.rec.shape
     kw = dict(use_sky=use_sky, max_bounces=max_bounces, width=width,
-              height=height)
+              height=height, n_tri=n_tri)
     d_st = torch.zeros_like(d_out)
     d_st[0:12] = d_out[0:12]
     d_st[16:19] = d_out[16:19]
@@ -356,44 +411,66 @@ def regen_bwd_plain(recs: Records, d_out, cam, table, *, use_sky: bool,
 
 
 def regen_bwd(recs: Records, d_out, cam, table, *, use_sky: bool,
-              max_bounces: int, width: int, height: int):
+              max_bounces: int, width: int, height: int, n_tri: int = 0):
     """K3: the reverse of a recorded trace (``regen_bwd_plain``'s contract)
-    in one launch, one thread per lane. d_table and d_cam are summed with
-    f32 atomics, in an order that varies from run to run. CPU tensors take
-    ``regen_bwd_plain``."""
+    in two launches. d_table and d_cam are summed in f32 per block of
+    lanes in a fixed order, then over the blocks in a second launch, so
+    they are the same from run to run (``csrc/regen_bwd.cu``). CPU tensors
+    take ``regen_bwd_plain``."""
     if not d_out.is_cuda:
         return regen_bwd_plain(recs, d_out, cam, table, use_sky=use_sky,
                                max_bounces=max_bounces, width=width,
-                               height=height)
+                               height=height, n_tri=n_tri)
     steps, r = recs.rec.shape
     n_seg = recs.chk.shape[0]
     if not 1 <= recs.seg <= SEG_MAX:
         raise ValueError(f"seg must lie in [1, {SEG_MAX}], got {recs.seg}")
-    dev = _check_regen_args(d_out, cam, table)
+    if table.shape[0] >= ID_LIMIT:
+        raise ValueError("winner records are i16: at most 32767 primitives")
+    dev = _check_regen_args(d_out, cam, table, n_tri)
     build.require(recs.rec, "rec", torch.int16, (steps, r), dev)
     build.require(recs.chk, "chk", torch.float32, (n_seg, 24, r), dev)
     build.require(recs.t_end, "t_end", torch.int32, (r,), dev)
     if n_seg != -(-steps // recs.seg):
         raise ValueError("chk holds ceil(steps/seg) checkpoints")
-    d_state = d_out.clone()
-    d_table = torch.zeros_like(table)
-    d_cam = torch.zeros(12, dtype=torch.float32, device=dev)
-    film_w, film_h = film_extent(width, height)
     lib = build.load()
+    n = table.shape[0]
+    parts = lib.trt_regen_bwd_parts(r)
+    part = torch.empty((parts, n, 12), dtype=torch.float32, device=dev)
+    part_cam = torch.empty((parts, 12), dtype=torch.float32, device=dev)
+    d_state = d_out.clone()
+    d_table = torch.empty_like(table)
+    d_cam = torch.empty(12, dtype=torch.float32, device=dev)
+    film_w, film_h = film_extent(width, height)
     with torch.cuda.device(dev):
         err = lib.trt_regen_bwd(
-            d_state.data_ptr(), r, cam.data_ptr(), table.data_ptr(),
-            table.shape[0], recs.rec.data_ptr(), recs.chk.data_ptr(),
+            d_state.data_ptr(), r, cam.data_ptr(), table.data_ptr(), n,
+            int(n_tri), recs.rec.data_ptr(), recs.chk.data_ptr(),
             recs.t_end.data_ptr(), int(steps), int(recs.seg),
             int(bool(use_sky)), int(max_bounces), int(width), int(height),
-            float(film_w), float(film_h), d_table.data_ptr(),
-            d_cam.data_ptr(), build.stream_of(d_out))
+            float(film_w), float(film_h), part.data_ptr(),
+            part_cam.data_ptr(), d_table.data_ptr(), d_cam.data_ptr(),
+            build.stream_of(d_out))
     build.check("trt_regen_bwd", err)
     regen_bwd.launches += 1
     return d_state, d_table, d_cam
 
 
 regen_bwd.launches = 0
+
+
+def regen_tables(scene: Scene):
+    """The regen route's tables of the Morton-permuted scene ->
+    (table [P,12], differentiable through the permutation; tri [M,9] or
+    None; n_tri)."""
+    sp = permute_scene(scene)
+    table = prim_table(sp)
+    if table.shape[0] >= ID_LIMIT:
+        raise ValueError(f"{table.shape[0]} primitives: the winner records "
+                         "are i16, at most 32767")
+    if sp.tris is None:
+        return table, None, 0
+    return table, tri_search_table(sp.tris), sp.tris.n_pad
 
 
 def trace_regen(scene: Scene, camera: Camera, pixel, *, width: int,
@@ -404,11 +481,12 @@ def trace_regen(scene: Scene, camera: Camera, pixel, *, width: int,
     spp * max_bounces steps: a sample takes at most max_bounces steps, so
     the cap never cuts a lane. No autograd history."""
     with torch.no_grad():
+        table, tri, _ = regen_tables(scene)
         st, cam, _ = wave_init(camera, pixel, spp, seed, sample_start,
                                width, height)
-        regen_steps(st, cam, payload_tables(scene), spp * max_bounces,
+        regen_steps(st, cam, table, spp * max_bounces,
                     use_sky=scene.use_sky, max_bounces=max_bounces,
-                    width=width, height=height)
+                    width=width, height=height, tri=tri)
     return st[16:19].T, int(st[22].to(torch.int64).sum())
 
 
@@ -416,24 +494,27 @@ class RegenTrace(torch.autograd.Function):
     """The regen trace with its hand-written backward (the JAX custom VJP
     of ``make_regen_trace``).
 
-    Differentiable inputs: the [P,12] winner table, the 12 camera rows
-    (position, film_center, cam_x, cam_y) and sample s0's primary
-    origins/directions [R,3]; autograd carries their cotangents on through
-    ``payload_tables``, ``Camera.basis`` and ``camera_rays``. Forward: K2
-    in recording mode. Backward: K3. The records live in ``ctx`` until the
-    backward has run."""
+    Differentiable inputs: the [P,12] winner table of the permuted scene,
+    the 12 camera rows (position, film_center, cam_x, cam_y) and sample
+    s0's primary origins/directions [R,3]; autograd carries their
+    cotangents on through ``prim_table``, the permutation,
+    ``Camera.basis`` and ``camera_rays``. The triangle search table rides
+    along without a gradient (the search is a discrete choice). Forward:
+    K2 in recording mode. Backward: K3. The records live in ``ctx`` until
+    the backward has run."""
 
     @staticmethod
-    def forward(ctx, table, rows, o0, d0, base0, pixel, cfg):
+    def forward(ctx, table, rows, o0, d0, base0, pixel, tri, cfg):
         width, height, seed, max_bounces, spp, s0, seg, use_sky = cfg
         st = _init_state(o0, d0, base0, pixel, seed, s0, width)
         cam = torch.cat([rows, rows.new_tensor([float(s0 + spp)])])
         table = table.contiguous()
         recs = regen_record(st, cam, table, spp * max_bounces, seg,
                             use_sky=use_sky, max_bounces=max_bounces,
-                            width=width, height=height)
+                            width=width, height=height, tri=tri)
         ctx.save_for_backward(table, cam, recs.rec, recs.chk, recs.t_end)
         ctx.cfg = cfg
+        ctx.n_tri = 0 if tri is None else tri.shape[0]
         rays = st[22].to(torch.int64).sum()
         ctx.mark_non_differentiable(rays)
         return st[16:19].T.contiguous(), rays
@@ -448,9 +529,9 @@ class RegenTrace(torch.autograd.Function):
         d_st, d_tab, d_cam = regen_bwd(
             Records(rec, chk, t_end, seg), d_out, cam, table,
             use_sky=use_sky, max_bounces=max_bounces, width=width,
-            height=height)
+            height=height, n_tri=ctx.n_tri)
         return (d_tab, d_cam[0:12], d_st[0:3].T, d_st[3:6].T, None, None,
-                None)
+                None, None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -470,19 +551,21 @@ def make_regen_trace(width: int, height: int, seed: int, max_bounces: int,
         raise ValueError(f"seg must be at most {SEG_MAX}, got {seg}")
 
     def trace(scene: Scene, camera: Camera, pixel, s0: int = 0):
-        table = payload_tables(scene)
-        leaves = (table, camera.position, camera.look_at)
+        leaves = [scene.leaf(k) for k in scene.leaves] + [camera.position,
+                                                          camera.look_at]
         if not (torch.is_grad_enabled()
                 and any(t.requires_grad for t in leaves)):
             return trace_regen(scene, camera, pixel, width=width,
                                height=height, spp=spp, seed=seed,
                                max_bounces=max_bounces, sample_start=s0)
+        table, tri, _ = regen_tables(scene)
         cam_x, cam_y, _, film_center = camera.basis()
         rows = torch.cat([camera.position, film_center, cam_x, cam_y])
         o, d, base0 = camera_rays(camera, width, height, pixel, s0, seed)
         cfg = (width, height, seed, max_bounces, spp, int(s0), seg,
                scene.use_sky)
-        color, rays = RegenTrace.apply(table, rows, o, d, base0, pixel, cfg)
+        color, rays = RegenTrace.apply(table, rows, o, d, base0, pixel, tri,
+                                       cfg)
         return color, int(rays)
 
     return trace

@@ -7,11 +7,19 @@ loop together, with an alive mask instead of ``break``. rays_cast is the
 reference's counter: +1 per bounce-loop iteration entered per pixel sample
 (main.cpp:390).
 
-Backends: "torch" searches with the plain ``ops/intersect.nearest_hit``,
-"cuda" with the K1 kernel inside the same bounce loop; "fused" with regen
-runs the K2 persistent-wavefront kernel, and without it the per-sample
-fused route (one sample at a time through the K4 bounce kernel,
-``kernels/bounce_step.make_fused_sample``).
+Backends: "torch" searches with the plain ``ops/intersect.nearest_hit``
+(and ``ops/intersect_tri.nearest_hit_tri`` for a scene's triangles),
+"cuda" with the K1 kernel (and K7 for triangles) inside the same bounce
+loop, the two hits merged into one primitive id space as the JAX probe
+route's ``_with_triangles`` does; "fused" with regen runs the K2
+persistent-wavefront kernel (spheres and triangles), and without it the
+per-sample fused route (one sample at a time through the K4 bounce kernel,
+``kernels/bounce_step.make_fused_sample``; sphere scenes only).
+
+Triangle scenes take these routes only within the JAX package's residency
+rule (``kernels/bounce_step.resident_tables_fit``: trimesh and small
+``obj:`` meshes); past it (bigmesh) every route refuses, as does the
+per-sample route on any triangle scene (ROADMAP.md queue B).
 
 ``render_pixels``/``render_pass`` are differentiable w.r.t. the scene and
 camera tensors: "torch" and "cuda" through autograd of the eager bounce
@@ -32,20 +40,28 @@ from tpu_ray_torch.config import RenderConfig
 from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera, default_camera
 from tpu_ray_torch.core.scene import Scene, make_scene
-from tpu_ray_torch.kernels.bounce_step import fused_tables, make_fused_sample
+from tpu_ray_torch.kernels.bounce_step import (fused_tables,
+                                               make_fused_sample,
+                                               resident_tables_fit)
 from tpu_ray_torch.kernels.regen import make_regen_trace
 from tpu_ray_torch.kernels.sphere_intersect import sphere_nearest_hit
+from tpu_ray_torch.kernels.tri_intersect import tri_nearest_hit
 from tpu_ray_torch.ops.accumulate import AccumState, accumulate
 from tpu_ray_torch.ops.intersect import (Hit, hit_payload, nearest_hit,
                                          payload_tables)
+from tpu_ray_torch.ops.intersect_tri import (merge_payloads, nearest_hit_tri,
+                                             tri_payload, tri_payload_tables,
+                                             tri_search_table)
 from tpu_ray_torch.ops.raygen import camera_rays
 from tpu_ray_torch.ops.shade import scatter_direction, sky_color
 from tpu_ray_torch.ops.tonemap import linear_to_srgb, pack_rgba8
 
 # search(center, radius, origins, directions) -> Hit
 SearchFn = Callable[..., Hit]
+# tri_search(tri_search_table, origins, directions) -> Hit
 
 _SEARCH = {"torch": nearest_hit, "cuda": sphere_nearest_hit}
+_TRI_SEARCH = {"torch": nearest_hit_tri, "cuda": tri_nearest_hit}
 
 
 def _check_route(shading: str) -> None:
@@ -53,6 +69,23 @@ def _check_route(shading: str) -> None:
         raise NotImplementedError(
             f"shading={shading!r}: the flat and Lambert estimators are not "
             "ported yet (ROADMAP.md queue A, item 4)")
+
+
+def _check_tris(scene: Scene, backend: str, regen: bool) -> None:
+    """Refuse the triangle routes that are not ported (none falls back)."""
+    if scene.tris is None:
+        return
+    if not resident_tables_fit(scene.n_pad, scene.tris.n_pad):
+        raise NotImplementedError(
+            f"{scene.tris.n_pad} padded triangles are past "
+            "resident_tables_fit: the streaming triangle search "
+            "(nearest_hit_tri_stream, kernel #11) and the sorted-bounce "
+            "wavefront are not ported yet (ROADMAP.md queue B)")
+    if backend == "fused" and not regen:
+        raise NotImplementedError(
+            "backend 'fused' without regen on a triangle scene: "
+            "bounce_fwd_list (kernel #7) and the triangle modes of K4-K6 "
+            "are not ported yet (ROADMAP.md queue B); use the regen route")
 
 
 def tile_order(width: int, height: int, tile: int = 32):
@@ -77,11 +110,18 @@ def untile_image(color_sum, width: int, height: int, inv):
 
 def trace_rays(scene: Scene, origins, directions, stream_base,
                max_bounces: int, search: SearchFn = nearest_hit,
-               tables=None):
+               tables=None, tri_search=nearest_hit_tri, tri_tables=None):
     """Trace a flat ray wavefront to completion (reference main.cpp:388-482
-    with alive-masking) -> (color [R,3] linear radiance, rays_cast [R])."""
+    with alive-masking) -> (color [R,3] linear radiance, rays_cast [R]).
+    A scene's triangles are searched by tri_search and their payload
+    merged with the spheres' (a sphere wins a tie in t)."""
     if tables is None:
         tables = payload_tables(scene)
+    tri_tab = None
+    if scene.tris is not None:
+        tri_tab = tri_search_table(scene.tris)
+        if tri_tables is None:
+            tri_tables = tri_payload_tables(scene.tris)
     n = origins.shape[0]
     dev = origins.device
     origin, direction = origins, directions
@@ -96,6 +136,11 @@ def trace_rays(scene: Scene, origins, directions, stream_base,
         p = hit_payload(scene, origin, direction,
                         search(scene.center, scene.radius, origin,
                                direction), tables)
+        if tri_tab is not None:
+            tp = tri_payload(scene.tris, origin, direction,
+                             tri_search(tri_tab, origin, direction),
+                             tri_tables)
+            p = merge_payloads(p, tp, scene.n_pad)
         # miss: optional sky emission, then the ray dies (main.cpp:433-440)
         if scene.use_sky:
             sky_mask = (alive & ~p.hit)[..., None]
@@ -132,6 +177,7 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
     keeps only the winner records. cull_secondary (fused without regen)
     culls bounces 1.. by the octant mask, bit-identically."""
     _check_route(shading)
+    _check_tris(scene, backend, regen)
     n = pixel.shape[0]
     chunk = n if ray_chunk is None else ray_chunk
     if n % chunk:
@@ -158,8 +204,10 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
             rays = rays + sum(rc.sum() for _, rc in parts)
         return color_sum, int(rays)
 
-    search = _SEARCH[backend]
+    search, tri_search = _SEARCH[backend], _TRI_SEARCH[backend]
     tables = payload_tables(scene)
+    tri_tables = (None if scene.tris is None
+                  else tri_payload_tables(scene.tris))
 
     def one_sample(s):
         o, d, base = camera_rays(camera, width, height, pixel, s, seed)
@@ -167,7 +215,7 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
         for k in range(0, n, chunk):
             c, rc = trace_rays(scene, o[k:k + chunk], d[k:k + chunk],
                                base[k:k + chunk], max_bounces, search,
-                               tables)
+                               tables, tri_search, tri_tables)
             colors.append(c)
             rays += int(rc.sum())
         return torch.cat(colors), rays
