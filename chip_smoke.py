@@ -59,11 +59,11 @@ PEAK_BYTES = 3.35e12      # bytes/s
 # one ray-sphere test of csrc/common.cuh trt_nearest_sphere: 3 sub (m),
 # 5 (t_proj), 6 (projection), 5 (dsq), 1 (r^2)
 FLOPS_PER_PAIR = 20
-# one full ray-triangle test of csrc/common.cuh trt_tri_hit: 9 (pvec), 5
-# (det), 1 (1/det), 3 (tvec), 6 (u), 9 (qvec), 6 (v), 6 (t), 1 (u + v);
-# the kernel leaves a pair after the det or the u test, so it does fewer
-# on the pairs that fail them
-FLOPS_PER_TRI = 46
+# one ray-triangle test of csrc/common.cuh trt_tri_hit, by the stage at
+# which the pair leaves it: 9 (pvec) + 5 (det) for a pair that fails the
+# det test; + 1 (1/det) + 3 (tvec) + 6 (u) for one that fails the u test;
+# + 9 (qvec) + 6 (v) + 6 (t) + 1 (u + v) for one that goes through
+MT_FLOPS_DET, MT_FLOPS_U, MT_FLOPS_WHOLE = 14, 24, 46
 TRI_BYTES = 36            # v0, e1, e2 of one triangle in the search table
 STATE_BYTES = 24 * 4      # one lane of the regen state
 SPHERE_BYTES = 48         # center, radius, albedo, emissive, specular, ior
@@ -129,6 +129,39 @@ def bound(flops: float, nbytes: float):
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+def mt_work(torch, tab, origin, direction):
+    """fp32 operations trt_tri_hit must spend on every pair of these rays
+    [R,3] and the triangles of nonzero size in the search table tab [M,9],
+    each pair charged by the stage at which it leaves the test ->
+    (flops, {stage: share of the pairs}). Repeats the op order of
+    ops/intersect_tri.py _mt_slab, so each pair leaves where the kernel's
+    does."""
+    real = tab[(tab[:, 3:9] != 0).any(dim=1)]
+    v0x, v0y, v0z = (real[None, :, k] for k in range(3))
+    e1x, e1y, e1z = (real[None, :, k] for k in range(3, 6))
+    e2x, e2y, e2z = (real[None, :, k] for k in range(6, 9))
+    n_ok = n_whole = 0
+    step = max(1, (1 << 23) // max(real.shape[0], 1))
+    for k in range(0, origin.shape[0], step):
+        ox, oy, oz = (origin[k:k + step, j:j + 1] for j in range(3))
+        dx, dy, dz = (direction[k:k + step, j:j + 1] for j in range(3))
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        ok = torch.abs(det) > 1e-9
+        inv = torch.ones_like(det) / torch.where(ok, det, 1.0)
+        u = ((ox - v0x) * px + (oy - v0y) * py + (oz - v0z) * pz) * inv
+        n_ok += int(ok.sum())
+        n_whole += int((ok & (u >= 0.0)).sum())
+    pairs = origin.shape[0] * real.shape[0]
+    flops = ((pairs - n_ok) * MT_FLOPS_DET + (n_ok - n_whole) * MT_FLOPS_U
+             + n_whole * MT_FLOPS_WHOLE)
+    shares = dict(det=(pairs - n_ok) / pairs, u=(n_ok - n_whole) / pairs,
+                  whole=n_whole / pairs) if pairs else {}
+    return flops, shares
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -1081,8 +1114,8 @@ def main() -> int:
     r7 = o1.shape[0]
     k7_ms = cuda_ms(torch, lambda: tri_nearest_hit(ttab, o1, d1), 10)
     k7_plain = cuda_ms(torch, lambda: tri_hit_plain(ttab, o1, d1), 2)
-    k7_bound, k7_by = bound(r7 * n_tri_real * FLOPS_PER_TRI,
-                            r7 * 32 + n_tri_real * TRI_BYTES)
+    k7_flops, k7_exits = mt_work(torch, ttab, o1, d1)
+    k7_bound, k7_by = bound(k7_flops, r7 * 32 + n_tri_real * TRI_BYTES)
     kernels["tri_nearest_hit"] = dict(
         name="tri_nearest_hit", route="cuda",
         source="tpu_ray_torch/csrc/tri_intersect.cu",
@@ -1093,11 +1126,13 @@ def main() -> int:
         path=f"render backend=cuda trimesh {CHECK_W}x{CHECK_H} "
              f"{CHECK_SPP} spp",
         shape=f"{r7} rays x {tscene.tris.n_pad} triangles ({n_tri_real} "
-              f"real), {int(hit7.sum())} hits")
+              f"real), {int(hit7.sum())} hits",
+        pairs_leaving_at=k7_exits)
     print(f"backend cuda, trimesh: {rays_c} rays, K7 launches {k7_launches},"
           f" image equal to backend torch; K7 at {r7} primary rays "
           f"bit-equal to plain: {k7_ms:.4f} ms (bound {k7_bound:.4f} ms by "
-          f"{k7_by}) / plain {k7_plain:.4f} ms", flush=True)
+          f"{k7_by}; pairs leaving the test at {k7_exits}) / plain "
+          f"{k7_plain:.4f} ms", flush=True)
     phase("k7_check", t0)
 
     # 17. the triangle main path as the CLI drives it (render --scene
@@ -1170,10 +1205,31 @@ def main() -> int:
     require(bits_equal(torch, tsl_p, tsl_k),
             f"K2 triangle mode: slice not bit-equal to plain (image max |d| "
             f"{k2t_err})")
-    # the bound counts the search alone: every sphere and every triangle
-    # of nonzero size, each cast ray
-    tri_flops = rays_t * (n_sph_real * FLOPS_PER_PAIR
-                          + n_tri_real * FLOPS_PER_TRI)
+    # the bound counts the search alone: every sphere of nonzero size, and
+    # every triangle of nonzero size charged by where the pair leaves the
+    # test, each cast ray. The triangle pairs are counted on the lane
+    # slice's own rays, stepped through the plain version one step at a
+    # time (which must end where its one call of all steps did), and
+    # scaled from the slice's rays to the path's
+    cnt_st = tst0[:, cols].contiguous()
+    slice_tri_flops, slice_rays, exits = 0, 0, []
+    for _ in range(tsteps):
+        alive = cnt_st[12] > 0.5
+        if bool(alive.any()):
+            f, sh = mt_work(torch, ttri, cnt_st[0:3, alive].T,
+                            cnt_st[3:6, alive].T)
+            slice_tri_flops += f
+            slice_rays += int(alive.sum())
+            exits.append((int(alive.sum()), sh))
+        regen_steps_plain(cnt_st, tc13, ttable, 1, tri=ttri, **kwt)
+    require(bits_equal(torch, cnt_st, tsl_p)
+            and slice_rays == int(tsl_p[22].to(torch.int64).sum()),
+            "the plain version stepped one step at a time differs")
+    del cnt_st
+    k2t_exits = {k: sum(n * sh[k] for n, sh in exits) / slice_rays
+                 for k in ("det", "u", "whole")}
+    tri_flops = (rays_t * n_sph_real * FLOPS_PER_PAIR
+                 + rays_t * slice_tri_flops / slice_rays)
     tri_bytes = (2 * STATE_BYTES * tr2 + n_sph_real * SPHERE_BYTES
                  + n_tri_real * (TRI_BYTES + SPHERE_BYTES) + 52)
     k2t_bound, k2t_by = bound(tri_flops, tri_bytes)
@@ -1190,9 +1246,11 @@ def main() -> int:
         shape=f"{tr2} lanes x {tsteps} steps, {rays_t} rays, "
               f"{ttable.shape[0]} primitives ({n_sph_real} spheres and "
               f"{n_tri_real} triangles real)",
-        plain_lanes=tsl_p.shape[1], ms_same_lanes=k2t_ms_slice)
+        plain_lanes=tsl_p.shape[1], ms_same_lanes=k2t_ms_slice,
+        pairs_leaving_at=k2t_exits)
     print(f"K2 triangle mode at the triangle path: {k2t_ms:.3f} ms (bound "
-          f"{k2t_bound:.3f} ms by {k2t_by}); 1 lane in {SLICE_STRIDE} "
+          f"{k2t_bound:.3f} ms by {k2t_by}; triangle pairs leaving the test "
+          f"at {k2t_exits}); 1 lane in {SLICE_STRIDE} "
           f"({tsl_p.shape[1]}) bit-equal to plain, {k2t_ms_slice:.3f} ms "
           f"kernel / {k2t_plain:.3f} ms plain on those lanes", flush=True)
     phase("k2_tri_check", t0)

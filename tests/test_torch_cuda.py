@@ -26,6 +26,7 @@ from tpu_ray_torch.kernels.sphere_intersect import (nearest_hit_plain,
 from tpu_ray_torch.kernels.tri_intersect import tri_hit_plain, tri_nearest_hit
 from tpu_ray_torch.models.path_tracer import tile_order
 from tpu_ray_torch.ops.intersect import payload_tables
+from tpu_ray_torch.ops.intersect_tri import tri_search_table
 from tpu_ray_torch.ops.raygen import camera_rays
 
 REGEN_KW = dict(use_sky=True, max_bounces=5)
@@ -286,9 +287,10 @@ def test_k7_matches_plain_on_card(cuda_device):
     d2 = torch.nn.functional.normalize(torch.as_tensor(
         g.normal(size=(4096, 3)).astype(np.float32), device=cuda_device),
         dim=1)
+    tab = tri_search_table(ts.tris)
     for oo, dd in ((o, d), (o2, d2)):
-        a = tri_nearest_hit(ts.tris, oo, dd)
-        b = tri_hit_plain(ts.tris, oo, dd)
+        a = tri_nearest_hit(tab, oo, dd)
+        b = tri_hit_plain(tab, oo, dd)
         torch.cuda.synchronize()
         assert torch.equal(a.idx, b.idx) and torch.equal(_bits(a.t),
                                                          _bits(b.t))

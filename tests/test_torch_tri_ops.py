@@ -71,19 +71,15 @@ def _agree(t_idx, ref):
 def test_nearest_hit_tri_matches_jnp(name):
     js, (o, d) = _rays(name)
     ts = make_scene(_name(name), device="cpu")
-    got = ttri.nearest_hit_tri(ts.tris, torch.as_tensor(o),
-                               torch.as_tensor(d))
+    tab = ttri.tri_search_table(ts.tris)
+    got = ttri.nearest_hit_tri(tab, torch.as_tensor(o), torch.as_tensor(d))
     ref = jtri.nearest_hit_tri_jnp(js.tris, jnp.asarray(o), jnp.asarray(d))
     _agree((got.t, got.idx), (ref.t, ref.idx))
     assert (got.t < 1e29).float().mean() > 0.3
-    # the table form, the K7 wrapper on CPU tensors, and slabs of rays
-    tab = ttri.tri_search_table(ts.tris)
+    # the K7 wrapper on CPU tensors takes the plain version, unlaunched
     before = tri_nearest_hit.launches
-    for h in (ttri.nearest_hit_tri(tab, torch.as_tensor(o),
-                                   torch.as_tensor(d)),
-              tri_nearest_hit(ts.tris, torch.as_tensor(o),
-                              torch.as_tensor(d))):
-        assert torch.equal(h.t, got.t) and torch.equal(h.idx, got.idx)
+    h = tri_nearest_hit(tab, torch.as_tensor(o), torch.as_tensor(d))
+    assert torch.equal(h.t, got.t) and torch.equal(h.idx, got.idx)
     assert tri_nearest_hit.launches == before
 
 
@@ -94,9 +90,10 @@ def test_nearest_hit_tri_slabs_and_ties(monkeypatch):
     _, (o, d) = _rays("objico", 8, 8, 256)
     ts = make_scene(_name("objico"), device="cpu")
     o_t, d_t = torch.as_tensor(o), torch.as_tensor(d)
-    one = ttri.nearest_hit_tri(ts.tris, o_t, d_t)
+    tab = ttri.tri_search_table(ts.tris)
+    one = ttri.nearest_hit_tri(tab, o_t, d_t)
     monkeypatch.setattr(ttri, "_SLAB_ELEMS", 1000)
-    many = ttri.nearest_hit_tri(ts.tris, o_t, d_t)
+    many = ttri.nearest_hit_tri(tab, o_t, d_t)
     assert torch.equal(one.t, many.t) and torch.equal(one.idx, many.idx)
     tab = torch.tensor([[0, 0, 0, 0, 0, 0, 0, 0, 0],
                         [-1, -1, 5, 2, 0, 0, 0, 2, 0],
@@ -111,8 +108,8 @@ def test_nearest_hit_tri_matches_pallas_interpret():
     the 82-triangle objico soup."""
     js, (o, d) = _rays("objico", 16, 12, 512)
     ts = make_scene(_name("objico"), device="cpu")
-    got = ttri.nearest_hit_tri(ts.tris, torch.as_tensor(o),
-                               torch.as_tensor(d))
+    got = ttri.nearest_hit_tri(ttri.tri_search_table(ts.tris),
+                               torch.as_tensor(o), torch.as_tensor(d))
     for exact in (False, True):
         ref = nearest_hit_tri_pallas(js.tris, jnp.asarray(o),
                                      jnp.asarray(d), exact=exact)

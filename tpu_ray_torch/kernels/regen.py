@@ -252,6 +252,13 @@ def _check_regen_args(state, cam, table, n_tri: int = 0):
     return dev
 
 
+def _check_ids(table):
+    """The winner records are i16: the id space must stay below 2^15."""
+    if table.shape[0] >= ID_LIMIT:
+        raise ValueError(f"{table.shape[0]} primitives: the winner records "
+                         f"are i16, at most {ID_LIMIT - 1}")
+
+
 def _tri_args(tri, table, dev):
     """(pointer, M) of the triangle search table for the C entry points."""
     if tri is None:
@@ -297,8 +304,7 @@ def regen_record(state, cam, table, steps: int, seg: int, *, use_sky: bool,
     winner records, the checkpoints every ``seg`` steps and t_end
     (``Records``). The state advances bit for bit as without recording.
     CPU tensors take ``regen_steps_plain(..., seg=seg)``."""
-    if table.shape[0] >= ID_LIMIT:
-        raise ValueError("winner records are i16: at most 32767 primitives")
+    _check_ids(table)
     if not state.is_cuda:
         return regen_steps_plain(state, cam, table, steps, use_sky=use_sky,
                                  max_bounces=max_bounces, width=width,
@@ -425,8 +431,7 @@ def regen_bwd(recs: Records, d_out, cam, table, *, use_sky: bool,
     n_seg = recs.chk.shape[0]
     if not 1 <= recs.seg <= SEG_MAX:
         raise ValueError(f"seg must lie in [1, {SEG_MAX}], got {recs.seg}")
-    if table.shape[0] >= ID_LIMIT:
-        raise ValueError("winner records are i16: at most 32767 primitives")
+    _check_ids(table)
     dev = _check_regen_args(d_out, cam, table, n_tri)
     build.require(recs.rec, "rec", torch.int16, (steps, r), dev)
     build.require(recs.chk, "chk", torch.float32, (n_seg, 24, r), dev)
@@ -465,9 +470,6 @@ def regen_tables(scene: Scene):
     None; n_tri)."""
     sp = permute_scene(scene)
     table = prim_table(sp)
-    if table.shape[0] >= ID_LIMIT:
-        raise ValueError(f"{table.shape[0]} primitives: the winner records "
-                         "are i16, at most 32767")
     if sp.tris is None:
         return table, None, 0
     return table, tri_search_table(sp.tris), sp.tris.n_pad

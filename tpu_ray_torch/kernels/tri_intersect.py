@@ -12,19 +12,17 @@ import torch
 from tpu_ray_torch.kernels import build
 from tpu_ray_torch.ops.intersect import Hit
 from tpu_ray_torch.ops.intersect_tri import nearest_hit_tri as tri_hit_plain
-from tpu_ray_torch.ops.intersect_tri import tri_search_table
 
 __all__ = ["tri_nearest_hit", "tri_hit_plain"]
 
 
-def tri_nearest_hit(tris, origin, direction) -> Hit:
-    """tris: Triangles or its ``tri_search_table`` [M,9]; origin/direction
+def tri_nearest_hit(tab, origin, direction) -> Hit:
+    """tab: the triangles' ``tri_search_table`` [M,9] f32; origin/direction
     [R,3] f32 -> Hit(t [R] f32, idx [R] i32): the exact nearest
     Möller-Trumbore hit, lowest index on ties. Neither output carries
     autograd history (the search is a discrete choice)."""
     if not origin.is_cuda:
-        return tri_hit_plain(tris, origin, direction)
-    tab = tris if isinstance(tris, torch.Tensor) else tri_search_table(tris)
+        return tri_hit_plain(tab, origin, direction)
     m, r = tab.shape[0], origin.shape[0]
     dev = origin.device
     build.require(tab, "tri", torch.float32, (m, 9), dev)

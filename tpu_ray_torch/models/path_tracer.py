@@ -110,16 +110,18 @@ def untile_image(color_sum, width: int, height: int, inv):
 
 def trace_rays(scene: Scene, origins, directions, stream_base,
                max_bounces: int, search: SearchFn = nearest_hit,
-               tables=None, tri_search=nearest_hit_tri, tri_tables=None):
+               tables=None, tri_search=nearest_hit_tri, tri_tab=None,
+               tri_tables=None):
     """Trace a flat ray wavefront to completion (reference main.cpp:388-482
     with alive-masking) -> (color [R,3] linear radiance, rays_cast [R]).
-    A scene's triangles are searched by tri_search and their payload
-    merged with the spheres' (a sphere wins a tie in t)."""
+    A scene's triangles are searched by tri_search over tri_tab (their
+    ``tri_search_table``) and their payload merged with the spheres' (a
+    sphere wins a tie in t)."""
     if tables is None:
         tables = payload_tables(scene)
-    tri_tab = None
     if scene.tris is not None:
-        tri_tab = tri_search_table(scene.tris)
+        if tri_tab is None:
+            tri_tab = tri_search_table(scene.tris)
         if tri_tables is None:
             tri_tables = tri_payload_tables(scene.tris)
     n = origins.shape[0]
@@ -206,8 +208,10 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
 
     search, tri_search = _SEARCH[backend], _TRI_SEARCH[backend]
     tables = payload_tables(scene)
-    tri_tables = (None if scene.tris is None
-                  else tri_payload_tables(scene.tris))
+    tri_tab, tri_tables = None, None
+    if scene.tris is not None:
+        tri_tab = tri_search_table(scene.tris)
+        tri_tables = tri_payload_tables(scene.tris)
 
     def one_sample(s):
         o, d, base = camera_rays(camera, width, height, pixel, s, seed)
@@ -215,7 +219,7 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
         for k in range(0, n, chunk):
             c, rc = trace_rays(scene, o[k:k + chunk], d[k:k + chunk],
                                base[k:k + chunk], max_bounces, search,
-                               tables, tri_search, tri_tables)
+                               tables, tri_search, tri_tab, tri_tables)
             colors.append(c)
             rays += int(rc.sum())
         return torch.cat(colors), rays

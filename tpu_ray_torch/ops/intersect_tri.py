@@ -80,13 +80,12 @@ def _mt_slab(tab, origin, direction):
 
 
 @torch.no_grad()
-def nearest_hit_tri(tris, origin, direction) -> Hit:
+def nearest_hit_tri(tab, origin, direction) -> Hit:
     """Brute-force nearest triangle hit (JAX ``nearest_hit_tri_jnp``).
-    tris: Triangles or its ``tri_search_table`` [M,9]; origin/direction
+    tab: the triangles' ``tri_search_table`` [M,9]; origin/direction
     [R,3] -> Hit(t [R] f32, F32_MAX on a miss; idx [R] i32, the lowest
     index on ties, 0 on a miss). Runs in slabs of rays, so its [R,M]
     temporaries stay bounded."""
-    tab = tris if isinstance(tris, torch.Tensor) else tri_search_table(tris)
     r, m = origin.shape[0], tab.shape[0]
     step = max(1, _SLAB_ELEMS // max(m, 1))
     ts, idxs = [], []
