@@ -34,7 +34,15 @@ triangle mode at the path's own state, 1 lane in 32 bit for bit against
 its plain version), forward and backward as a user differentiates it
 (three calls; K2-record, and K3's triangle branch at the path's own
 records against its plain version on 1 lane in 32, two K3 launches
-bit-equal), and its gradients against backend cuda autograd at 320x180.
+bit-equal), and its gradients (and the per-sample route's) against
+backend cuda autograd at 320x180. Then the per-sample route on trimesh
+at 1920x1080, 2 spp: K8 (bounce_fwd_list) and the triangle modes of K5
+and K6 at the route's own inputs (sample 0: 1 lane in 32 of every
+bounce's state against the plain versions, K6 also on all lanes, two K6
+launches bit-equal), the forward pass as the CLI drives it (two calls;
+its image against the regen route's, the differing pixels counted), the
+list pass rate and K8's bound counted on the pass's own states, three
+forward+backward steps, and one pass and one step under torch.profiler.
 Prints each phase's wall seconds, a
 JSON line of main-path numbers, one JSON line of per-kernel numbers and,
 last, one JSON line with the device. Any failed check raises, so the exit
@@ -131,18 +139,24 @@ def bound(flops: float, nbytes: float):
     return t_bytes * 1e3, "bytes"
 
 
-def mt_work(torch, tab, origin, direction):
+def mt_work(torch, tab, origin, direction, tiles=None):
     """fp32 operations trt_tri_hit must spend on every pair of these rays
     [R,3] and the triangles of nonzero size in the search table tab [M,9],
     each pair charged by the stage at which it leaves the test ->
-    (flops, {stage: share of the pairs}). Repeats the op order of
+    (flops, {stage: share of the pairs}). tiles: optional [R,T] bool, the
+    tiles of M/T triangles each ray's list keeps (the others' pairs are
+    not tested and not counted). Repeats the op order of
     ops/intersect_tri.py _mt_slab, so each pair leaves where the kernel's
     does."""
-    real = tab[(tab[:, 3:9] != 0).any(dim=1)]
+    is_real = (tab[:, 3:9] != 0).any(dim=1)
+    real = tab[is_real]
+    if tiles is not None:
+        tile_of = torch.nonzero(is_real)[:, 0] // (tab.shape[0]
+                                                    // tiles.shape[1])
     v0x, v0y, v0z = (real[None, :, k] for k in range(3))
     e1x, e1y, e1z = (real[None, :, k] for k in range(3, 6))
     e2x, e2y, e2z = (real[None, :, k] for k in range(6, 9))
-    n_ok = n_whole = 0
+    n_ok = n_whole = pairs = 0
     step = max(1, (1 << 23) // max(real.shape[0], 1))
     for k in range(0, origin.shape[0], step):
         ox, oy, oz = (origin[k:k + step, j:j + 1] for j in range(3))
@@ -154,9 +168,15 @@ def mt_work(torch, tab, origin, direction):
         ok = torch.abs(det) > 1e-9
         inv = torch.ones_like(det) / torch.where(ok, det, 1.0)
         u = ((ox - v0x) * px + (oy - v0y) * py + (oz - v0z) * pz) * inv
+        whole = ok & (u >= 0.0)
+        if tiles is None:
+            pairs += ok.numel()
+        else:
+            keep = tiles[k:k + step][:, tile_of]
+            pairs += int(keep.sum())
+            ok, whole = ok & keep, whole & keep
         n_ok += int(ok.sum())
-        n_whole += int((ok & (u >= 0.0)).sum())
-    pairs = origin.shape[0] * real.shape[0]
+        n_whole += int(whole.sum())
     flops = ((pairs - n_ok) * MT_FLOPS_DET + (n_ok - n_whole) * MT_FLOPS_U
              + n_whole * MT_FLOPS_WHOLE)
     shares = dict(det=(pairs - n_ok) / pairs, u=(n_ok - n_whole) / pairs,
@@ -189,6 +209,7 @@ def k4_work(torch, state, table, mask, block_r, block_n):
 # the CUDA kernels of each bounce wrapper, as torch.profiler names them
 # (K6 is two launches: the per-block partials, then their fixed-order sum)
 BOUNCE_KERNELS = {"bounce_fwd": ("bounce_fwd_kernel",),
+                  "bounce_fwd_list": ("bounce_fwd_list_kernel",),
                   "bounce_replay": ("bounce_replay_kernel",),
                   "bounce_bwd": ("bounce_bwd_kernel", "sum_parts_kernel")}
 
@@ -233,9 +254,10 @@ def main() -> int:
     from tpu_ray_torch.kernels import build
     from tpu_ray_torch.kernels.bounce_step import (
         BLOCK_N, BLOCK_R, bounce_bwd, bounce_bwd_plain, bounce_cull_mask,
-        bounce_cull_mask_octant, bounce_fwd, bounce_fwd_plain, bounce_replay,
+        bounce_cull_mask_octant, bounce_fwd, bounce_fwd_list,
+        bounce_fwd_list_plain, bounce_fwd_plain, bounce_replay,
         bounce_replay_plain, fused_tables, init_state, morton_perm,
-        permute_spheres, tri_morton_perm)
+        permute_spheres, tri_block_lists, tri_morton_perm)
     from tpu_ray_torch.kernels.regen import (
         SEG_MAX, regen_bwd, regen_bwd_plain, regen_record, regen_steps,
         regen_steps_plain, regen_tables, wave_init)
@@ -251,7 +273,8 @@ def main() -> int:
     from tpu_ray_torch.utils.png import write_png
 
     counted = (sphere_nearest_hit, regen_steps, regen_record, regen_bwd,
-               bounce_fwd, bounce_replay, bounce_bwd, tri_nearest_hit)
+               bounce_fwd, bounce_replay, bounce_bwd, tri_nearest_hit,
+               bounce_fwd_list)
 
     def reset_counts():
         for fn in counted:
@@ -911,7 +934,8 @@ def main() -> int:
     # culled, the rest not) of every sample again, each launch's alive
     # lanes per block against the real spheres of the tiles it keeps, and
     # the live lanes that K5 (bounces 0..B-2) and K6 (all) shade
-    work = {n: [0.0, 0.0, 0] for n in BOUNCE_KERNELS}   # flops, bytes, n
+    work = {n: [0.0, 0.0, 0] for n in ("bounce_fwd", "bounce_replay",
+                                       "bounce_bwd")}   # flops, bytes, n
     tab_bytes = ftb.table.numel() * 4
     acc_rays = 0
     with torch.no_grad():
@@ -1441,33 +1465,394 @@ def main() -> int:
     phase("k3_tri_check", t0)
     del trecs, trecs_s, trecs_p, trecs_sl, tst_r
 
-    # 21. the triangle path's gradients against backend cuda autograd
-    # (the eager route: Möller-Trumbore payload, K1 and K7 searches) on
-    # trimesh at 320x180, 4 spp: each group within 3e-3 of its max
+    # 21. the triangle routes' gradients, fused+regen's and the
+    # per-sample route's (K8, K5, K6), against backend cuda autograd (the
+    # eager route: Möller-Trumbore payload, K1 and K7 searches) on trimesh
+    # at 320x180, 4 spp: each group within 3e-3 of its max
     t0 = time.perf_counter()
     tsmall = {}
-    for backend in ("fused", "cuda"):
+    for route, backend, regen in (("fused", "fused", True),
+                                  ("sample", "fused", False),
+                                  ("cuda", "cuda", False)):
         s2 = trainable_scene(tscene)
         c2 = trainable_camera(tcam)
         img2 = render_mean(s2, c2, width=CHECK_W, height=CHECK_H,
                            spp=CHECK_SPP, seed=SEED, max_bounces=MAX_BOUNCES,
-                           backend=backend, regen=backend == "fused")
+                           backend=backend, regen=regen)
         image_mse(img2, torch.zeros_like(img2)).backward()
-        tsmall[backend] = {k: s2.leaf(k).grad for k in s2.leaves}
-        tsmall[backend].update(position=c2.position.grad,
-                               look_at=c2.look_at.grad)
-    tri_rel = {}
-    for k, b in tsmall["cuda"].items():
-        a = tsmall["fused"][k]
-        tri_rel[k] = ((a - b).abs().max()
+        tsmall[route] = {k: s2.leaf(k).grad for k in s2.leaves}
+        tsmall[route].update(position=c2.position.grad,
+                             look_at=c2.look_at.grad)
+    tri_rel = {"fused": {}, "sample": {}}
+    for route, rel in tri_rel.items():
+        for k, b in tsmall["cuda"].items():
+            a = tsmall[route][k]
+            rel[k] = ((a - b).abs().max()
                       / b.abs().max().clamp_min(1e-12)).item()
-        require(tri_rel[k] < 3e-3 or b.abs().max().item() == 0.0
-                and a.abs().max().item() == 0.0,
-                f"trimesh fused grad {k} differs from cuda by {tri_rel[k]}")
-    print(f"trimesh fused+regen vs backend cuda autograd gradients, "
-          f"{CHECK_W}x{CHECK_H} {CHECK_SPP} spp: max relative per group "
-          f"{tri_rel}", flush=True)
+            require(rel[k] < 3e-3 or b.abs().max().item() == 0.0
+                    and a.abs().max().item() == 0.0,
+                    f"trimesh {route} grad {k} differs from cuda by "
+                    f"{rel[k]}")
+    print(f"trimesh fused+regen and per-sample vs backend cuda autograd "
+          f"gradients, {CHECK_W}x{CHECK_H} {CHECK_SPP} spp: max relative "
+          f"per group {tri_rel}", flush=True)
     phase("tri_grad_check", t0)
+
+    # 22. K8 and the triangle modes of K5 and K6 at the triangle
+    # per-sample route's own inputs: trimesh's main camera, sample 0 at
+    # full width, bounce after bounce (launches not counted). On 1 lane
+    # in 32 of each bounce's input state K8 is bit-equal to its plain
+    # version (whose lists come from the plain tri_block_lists at 256-lane
+    # blocks), K5 to K8 and to its plain version; at full width K5
+    # replays K8. K6 at the route's own records, the cotangent of
+    # sum(color^2) / 2: at full width two launches bit-equal (P = 10,496:
+    # the accumulator rows in global memory), and on all lanes and on the
+    # slice d_state equal to plain, d_table within 1e-4 of each group's
+    # max (sphere rows and triangle rows apart) of the plain f64 sum
+    t0 = time.perf_counter()
+    ttb = fused_tables(tscene)
+    tkw = dict(n_sph=ttb.n_sph, use_sky=tscene.use_sky)
+    t_groups = [(f"{part} rows, cols {c.start}-{c.stop - 1}", sl_, c)
+                for part, sl_ in (("sphere", slice(0, ttb.n_sph)),
+                                  ("triangle", slice(ttb.n_sph, None)))
+                for c in (slice(0, 3), slice(3, 4), slice(4, 7),
+                          slice(7, 10), slice(10, 11), slice(11, 12))]
+
+    def k6_tri_close(got, want, what):
+        worst = 0.0
+        for name, rows_, c in t_groups:
+            err = (got[rows_, c] - want[rows_, c]).abs().max().item()
+            worst = max(worst, err)
+            require(err <= 1e-4 * want[rows_, c].abs().max().item(),
+                    f"{what}: d_table {name} differs from plain by {err}")
+        return worst
+
+    tslice_ms = {"bounce_fwd_list": [0.0, 0.0], "bounce_replay": [0.0, 0.0],
+                 "bounce_bwd": [0.0, 0.0]}     # kernel, plain
+    st = init_state(*camera_rays(tracer_t.camera, MAIN_W, MAIN_H, px_all, 0,
+                                 SEED))
+    states, idxs = [], []
+    for b in range(MAX_BOUNCES):
+        out_k, idx_k = bounce_fwd_list(st, ttb.table, ttb.tri, ttb.boxes, b,
+                                       **tkw)
+        rep = bounce_replay(st, ttb.table, idx_k, b, **tkw)
+        require(bits_equal(torch, rep, out_k),
+                f"K5 triangle mode, bounce {b}: not K8's state bit for bit")
+        sl = st[:, cols].contiguous()
+        (out_s, idx_s), ms_k = timed(torch, lambda: bounce_fwd_list(
+            sl, ttb.table, ttb.tri, ttb.boxes, b, **tkw))
+        (out_p, idx_p), ms_p = timed(torch, lambda: bounce_fwd_list_plain(
+            sl, ttb.table, ttb.tri, ttb.boxes, b, **tkw))
+        require(torch.equal(idx_s, idx_p) and bits_equal(torch, out_s, out_p),
+                f"K8 bounce {b}: the slice differs from plain on "
+                f"{int((idx_s != idx_p).sum())} winners")
+        rep_s, ms_rk = timed(torch, lambda: bounce_replay(
+            sl, ttb.table, idx_s, b, **tkw))
+        rep_p, ms_rp = timed(torch, lambda: bounce_replay_plain(
+            sl, ttb.table, idx_s, b, **tkw))
+        require(bits_equal(torch, rep_s, out_s)
+                and bits_equal(torch, rep_p, out_s),
+                f"K5 triangle mode, bounce {b}: the slice is not K8's state")
+        tslice_ms["bounce_fwd_list"][0] += ms_k
+        tslice_ms["bounce_fwd_list"][1] += ms_p
+        if b < MAX_BOUNCES - 1:       # the backward replays B-1 bounces
+            tslice_ms["bounce_replay"][0] += ms_rk
+            tslice_ms["bounce_replay"][1] += ms_rp
+        states.append(st)
+        idxs.append(idx_k)
+        st = out_k
+    require(bool((torch.stack(idxs) >= ttb.n_sph).any()),
+            "the per-sample trimesh route found no triangle winner")
+    del out_k, out_s, out_p, rep, rep_s, rep_p
+    d = torch.zeros_like(st)
+    d[9:12] = st[9:12]                # the cotangent of sum(color^2) / 2
+    k6t_err = 0.0
+    for b in reversed(range(MAX_BOUNCES)):
+        d_k, tab_k = bounce_bwd(states[b], ttb.table, idxs[b], b, d.clone(),
+                                **tkw)
+        d_k2, tab_k2 = bounce_bwd(states[b], ttb.table, idxs[b], b,
+                                  d.clone(), **tkw)
+        require(bits_equal(torch, d_k, d_k2) and bits_equal(torch, tab_k,
+                                                            tab_k2),
+                f"K6 triangle mode, bounce {b}: two launches differ")
+        d_p, tab_p = bounce_bwd_plain(states[b], ttb.table, idxs[b], b,
+                                      d.clone(), **tkw)
+        require(torch.equal(d_k, d_p), f"K6 triangle mode full width, "
+                f"bounce {b}: d_state differs from plain by "
+                f"{(d_k - d_p).abs().max().item()}")
+        k6t_err = max(k6t_err, k6_tri_close(
+            tab_k, tab_p, f"K6 triangle mode full width, bounce {b}"))
+        del d_k2, tab_k2, d_p, tab_p
+        st_s = states[b][:, cols].contiguous()
+        i_s = idxs[b][cols].contiguous()
+        d_s = d[:, cols].contiguous()
+        (dk_s, tk_s), ms_k = timed(torch, lambda: bounce_bwd(
+            st_s, ttb.table, i_s, b, d_s.clone(), **tkw))
+        (dp_s, tp_s), ms_p = timed(torch, lambda: bounce_bwd_plain(
+            st_s, ttb.table, i_s, b, d_s.clone(), **tkw))
+        require(torch.equal(dk_s, dp_s) and torch.equal(dk_s, d_k[:, cols]),
+                f"K6 triangle mode, bounce {b}: slice d_state differs")
+        k6t_err = max(k6t_err, k6_tri_close(
+            tk_s, tp_s, f"K6 triangle mode slice, bounce {b}"))
+        tslice_ms["bounce_bwd"][0] += ms_k
+        tslice_ms["bounce_bwd"][1] += ms_p
+        d = d_k
+    k6t_parts = build.load().trt_bounce_bwd_parts(px_all.shape[0])
+    print(f"K8/K5/K6 triangle modes at the per-sample trimesh route's "
+          f"inputs, sample 0: 1 lane in {SLICE_STRIDE} ({sl.shape[1]} "
+          f"lanes) K8 bit-equal to plain, K5 bit-equal to K8 (and at full "
+          f"width); K6 ({k6t_parts} blocks, {ttb.table.shape[0]} table "
+          f"rows) two launches bit-equal, d_state equal to plain on all "
+          f"lanes and the slice, d_table within 1e-4 (max |d| {k6t_err}); "
+          f"kernel / plain ms on the slice {tslice_ms}", flush=True)
+    phase("k8_tri_check", t0)
+    del states, idxs, st, d, d_k, tab_k, dk_s, dp_s
+
+    # 23. the per-sample route on trimesh as the CLI drives it (render
+    # --scene trimesh --backend fused --no-regen), two calls, against the
+    # regen route's image of phase 17: the lists may skip a grazing hit
+    # that the regen route's full sweep folds (Möller-Trumbore acceptance
+    # fuzz), so the differing pixels are counted, at most 20. Then the
+    # pass's own states again, bounce by bounce (launches not counted):
+    # the list pass rate (listed tile folds over live block-steps x T),
+    # K8's device time by CUDA events and its bound (real sphere pairs x
+    # 20 flops, plus the listed triangle pairs charged by where they leave
+    # the test, counted on 1 lane in 32 of each state with its full-width
+    # block's list and scaled by the alive lanes); then one pass under
+    # torch.profiler
+    t0 = time.perf_counter()
+    cfg_ts = RenderConfig(scene="trimesh", width=MAIN_W, height=MAIN_H,
+                          spp=TRI_SPP, max_bounces=MAX_BOUNCES,
+                          backend="fused", seed=SEED, regen=False)
+    tracer_ts = PathTracer(cfg_ts, scene=tscene, device=dev)
+    tfwd_secs = []
+    for _ in range(2):
+        state0 = tracer_ts.init_state()
+        torch.cuda.synchronize()
+        reset_counts()
+        t_main = time.perf_counter()
+        state_ts, rays_ts = tracer_ts.step(state0)
+        torch.cuda.synchronize()
+        tfwd_secs.append(time.perf_counter() - t_main)
+        k8_launches = bounce_fwd_list.launches
+        require(k8_launches == TRI_SPP * MAX_BOUNCES,
+                f"per-sample trimesh forward launched K8 {k8_launches} "
+                f"times")
+        require(sum(counts().values()) == k8_launches,
+                f"per-sample trimesh forward launched others: {counts()}")
+    mean_ts = state_ts.mean
+    require(bool(torch.isfinite(mean_ts).all()) and
+            tuple(mean_ts.shape) == (MAIN_H, MAIN_W, 3), "trimesh per-sample")
+    require(mean_ts.mean().item() > 0.01, "trimesh per-sample image black")
+    tpx = (mean_ts != mean_t).any(-1)
+    n_px = int(tpx.sum())
+    max_px = (mean_ts - mean_t).abs().max().item()
+    require(n_px <= 20, f"per-sample trimesh image differs from the regen "
+            f"route's on {n_px} pixels (max {max_px}), rays {rays_ts} vs "
+            f"{rays_t}")
+    print(f"per-sample forward: trimesh {MAIN_W}x{MAIN_H} {TRI_SPP} spp "
+          f"fused --no-regen: {rays_ts} rays in {tfwd_secs} s = "
+          f"{[rays_ts / t for t in tfwd_secs]} rays/s on {card}; K8 launches "
+          f"{k8_launches}; against fused+regen: rays differ by "
+          f"{rays_ts - rays_t}, {n_px} of {MAIN_W * MAIN_H} pixels differ "
+          f"(max |d| {max_px})", flush=True)
+
+    n_tiles_t = ttb.boxes.shape[0]
+    lanes_sl = torch.arange(0, px_all.shape[0], SLICE_STRIDE, device=dev)
+    tab_bytes_t = ttb.table.numel() * 4
+    folds = live_blocks = alive_all = alive_sl = 0
+    tri_flops_sl, k8_ev_ms = 0, 0.0
+    twork = {n: [0.0, 0.0, 0] for n in ("bounce_fwd_list", "bounce_replay",
+                                        "bounce_bwd")}  # flops, bytes, n
+    with torch.no_grad():
+        for k in range(TRI_SPP):
+            st = init_state(*camera_rays(tracer_ts.camera, MAIN_W, MAIN_H,
+                                         px_all, k, SEED))
+            for b in range(MAX_BOUNCES):
+                alive = st[12] > 0.5
+                cnt, lst = tri_block_lists(ttb.boxes, st, BLOCK_R)
+                reach = torch.zeros_like(lst, dtype=torch.bool)
+                reach.scatter_(1, lst.long(), torch.arange(
+                    n_tiles_t, device=dev)[None, :] < cnt)
+                blk = torch.nn.functional.pad(
+                    alive, (0, -alive.shape[0] % BLOCK_R)).view(
+                        -1, BLOCK_R).any(dim=1)
+                folds += int(cnt[blk].sum())
+                live_blocks += int(blk.sum())
+                a_sl = alive[lanes_sl]
+                f, _ = mt_work(torch, ttb.tri, st[0:3, lanes_sl][:, a_sl].T,
+                               st[3:6, lanes_sl][:, a_sl].T,
+                               reach[lanes_sl[a_sl] // BLOCK_R])
+                tri_flops_sl += f
+                alive_sl += int(a_sl.sum())
+                alive_all += int(alive.sum())
+                (st, idx), ms = timed(torch, lambda: bounce_fwd_list(
+                    st, ttb.table, ttb.tri, ttb.boxes, b, **tkw))
+                k8_ev_ms += ms
+                live = (idx >= 0).double().sum()
+                todo = [("bounce_fwd_list", 0.0,
+                         (2 * BOUNCE_STATE_BYTES + 4) * st.shape[1]
+                         + tab_bytes_t + ttb.tri.numel() * 4
+                         + ttb.boxes.numel() * 4),
+                        ("bounce_bwd", live * K6_FLOPS_PER_LANE,
+                         K6_LANE_BYTES * st.shape[1] + 2 * tab_bytes_t)]
+                if b < MAX_BOUNCES - 1:
+                    todo.append(("bounce_replay", live * K5_FLOPS_PER_LANE,
+                                 (2 * BOUNCE_STATE_BYTES + 4) * st.shape[1]
+                                 + tab_bytes_t))
+                for n, f_, b_ in todo:
+                    twork[n][0] = twork[n][0] + f_
+                    twork[n][1] += b_
+                    twork[n][2] += 1
+    require(alive_all == rays_ts, f"the bounds' bounce loop cast {alive_all} "
+            f"rays, the route {rays_ts}")
+    del st, idx, cnt, lst, reach
+    pass_rate = folds / max(live_blocks * n_tiles_t, 1)
+    k8_flops = (alive_all * n_sph_real * FLOPS_PER_PAIR
+                + tri_flops_sl * alive_all / max(alive_sl, 1))
+    twork["bounce_fwd_list"][0] = k8_flops
+    twork = {n: (int(w[2]),) + bound(float(w[0]), float(w[1]))
+             for n, w in twork.items()}
+    before = counts()
+    (state_p, _), tfwd_prof_secs, by_key, busy = profiled(
+        torch, lambda: tracer_ts.step(tracer_ts.init_state()))
+    require(counts()["bounce_fwd_list"] - before["bounce_fwd_list"]
+            == twork["bounce_fwd_list"][0], "the profiled pass launched K8 "
+            "another number of times than the bounds count")
+    require(torch.equal(state_p.mean, mean_ts), "profiled pass image differs")
+    k8_ms = kernel_ms(by_key, BOUNCE_KERNELS["bounce_fwd_list"])
+    require(k8_ms > 0, "torch.profiler recorded no K8 device time")
+    tfwd_idle = 1.0 - busy / 1e3 / tfwd_prof_secs
+    k8_bound = twork["bounce_fwd_list"][1:]
+    print(f"K8 over the per-sample trimesh pass: {k8_launches} launches, "
+          f"{k8_ev_ms:.3f} ms by CUDA events, {k8_ms:.3f} ms under "
+          f"torch.profiler (bound {k8_bound[0]:.3f} ms by {k8_bound[1]}: "
+          f"{alive_all} alive lane-bounces x {n_sph_real} real spheres, "
+          f"{tri_flops_sl * alive_all / max(alive_sl, 1):.6e} triangle "
+          f"flops); list pass rate {pass_rate:.4f} ({folds} tile folds over "
+          f"{live_blocks} live block-bounces x {n_tiles_t} tiles); "
+          f"profiled pass {tfwd_prof_secs:.3f} s wall, device busy "
+          f"{busy:.3f} ms (idle share {tfwd_idle:.3f})", flush=True)
+    phase("tri_sample_forward", t0)
+
+    # 24. the per-sample route's forward+backward on trimesh, as a user
+    # differentiates it: image_mse(render_mean(..., regen=False), 0)
+    # .backward() w.r.t. every sphere leaf, every triangle leaf and the
+    # camera, three calls; then one more under torch.profiler
+    t0 = time.perf_counter()
+
+    def tri_fwd_bwd_sample():
+        for leaf in tleaves:
+            leaf.grad = None
+        img_g, rays_g = render_mean(tsc, tcm, width=MAIN_W, height=MAIN_H,
+                                    spp=TRI_SPP, seed=SEED,
+                                    max_bounces=MAX_BOUNCES, backend="fused",
+                                    regen=False, return_rays=True)
+        image_mse(img_g, target).backward()
+        return img_g.detach(), rays_g
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0_ts = torch.cuda.memory_allocated()
+    reset_counts()
+    tsample_secs = []
+    t_step = time.perf_counter()
+    img_tsg, rays_tsg = tri_fwd_bwd_sample()
+    torch.cuda.synchronize()
+    tsample_secs.append(time.perf_counter() - t_step)
+    launches_ts = counts()
+    peak_ts = torch.cuda.max_memory_allocated() - mem0_ts
+    require(launches_ts["bounce_fwd_list"] == TRI_SPP * MAX_BOUNCES
+            and launches_ts["bounce_replay"] == TRI_SPP * (MAX_BOUNCES - 1)
+            and launches_ts["bounce_bwd"] == TRI_SPP * MAX_BOUNCES
+            and sum(launches_ts.values()) == TRI_SPP * (3 * MAX_BOUNCES - 1),
+            f"per-sample trimesh fwd+bwd launches {launches_ts}")
+    require(rays_tsg == rays_ts,
+            f"per-sample trimesh fwd+bwd rays {rays_tsg} != {rays_ts}")
+    require(torch.equal(img_tsg, mean_ts),
+            "per-sample trimesh fwd+bwd image differs from its forward's")
+    tsgrads = {k: tsc.leaf(k).grad for k in tsc.leaves}
+    tsgrads.update(position=tcm.position.grad, look_at=tcm.look_at.grad)
+    for k, g_ in tsgrads.items():
+        require(g_ is not None and bool(torch.isfinite(g_).all()),
+                f"per-sample trimesh gradient of {k} missing or not finite")
+    for k in ("tris.v0", "tris.e1", "tris.e2", "tris.albedo", "position"):
+        require(tsgrads[k].abs().max().item() > 0,
+                f"per-sample trimesh gradient of {k} is zero")
+    for _ in range(2):
+        t_step = time.perf_counter()
+        tri_fwd_bwd_sample()
+        torch.cuda.synchronize()
+        tsample_secs.append(time.perf_counter() - t_step)
+    print(f"per-sample fwd+bwd: trimesh {MAIN_W}x{MAIN_H} {TRI_SPP} spp "
+          f"fused --no-regen: {rays_tsg} rays; step {tsample_secs} s = "
+          f"{[rays_tsg / t for t in tsample_secs]} rays/s on {card}; "
+          f"launches {launches_ts}; peak memory {peak_ts} B above the "
+          f"{mem0_ts} B held before", flush=True)
+    before = counts()
+    (img_tp, _), tstep_prof_secs, by_key, busy = profiled(
+        torch, tri_fwd_bwd_sample)
+    require(all(counts()[n] - before[n] == w[0] for n, w in twork.items()),
+            "the profiled trimesh step's launches differ from the bounds'")
+    require(torch.equal(img_tp, mean_ts), "profiled trimesh step differs")
+    tstep_tot = {n: (kernel_ms(by_key, BOUNCE_KERNELS[n]),) + w
+                 for n, w in twork.items()}
+    tstep_idle = 1.0 - busy / 1e3 / tstep_prof_secs
+    require(all(v[0] > 0 for v in tstep_tot.values()),
+            f"torch.profiler recorded no device time: {tstep_tot}")
+    print(f"per-sample trimesh fwd+bwd under torch.profiler: "
+          f"{tstep_prof_secs:.3f} s wall, device busy {busy:.3f} ms (idle "
+          f"share {tstep_idle:.3f}); "
+          + "; ".join(f"{n} {v[0]:.3f} ms over {v[1]} launches (bound "
+                      f"{v[2]:.3f} ms by {v[3]})"
+                      for n, v in tstep_tot.items()), flush=True)
+    phase("tri_sample_fwd_bwd", t0)
+
+    path_ts = (f"triangle per-sample: render --scene trimesh fused "
+               f"--no-regen {MAIN_W}x{MAIN_H} {TRI_SPP} spp")
+    path_tsg = (f"triangle per-sample fwd+bwd: render_mean trimesh fused "
+                f"--no-regen {MAIN_W}x{MAIN_H} {TRI_SPP} spp")
+    k5t_step, k6t_step = tstep_tot["bounce_replay"], tstep_tot["bounce_bwd"]
+    kernels["bounce_fwd_list"] = dict(
+        name="bounce_fwd_list", route="cuda",
+        source="tpu_ray_torch/csrc/bounce.cu",
+        replaces="tpu_ray/kernels/bounce_step.py:1824",
+        launches=k8_launches, max_abs_err=0.0, ms=k8_ms,
+        plain_ms=tslice_ms["bounce_fwd_list"][1], bound_ms=k8_bound[0],
+        bound_by=k8_bound[1], library_ms=None, path=path_ts,
+        shape=f"{TRI_SPP * MAX_BOUNCES} launches of {r2} lanes x "
+              f"{ttb.n_sph} spheres ({n_sph_real} real) and "
+              f"{ttb.tri.shape[0]} triangles ({n_tri_real} real) in "
+              f"{n_tiles_t} tiles; ms and bound: the whole pass",
+        ms_events=k8_ev_ms, list_pass_rate=pass_rate,
+        plain_lanes=sl.shape[1],
+        ms_same_lanes=tslice_ms["bounce_fwd_list"][0],
+        same_lanes="sample 0, 5 bounces")
+    kernels["bounce_replay_tri"] = dict(
+        name="bounce_replay_tri", route="cuda",
+        source="tpu_ray_torch/csrc/bounce.cu",
+        replaces="tpu_ray/kernels/bounce_step.py:1871",
+        launches=launches_ts["bounce_replay"], max_abs_err=0.0,
+        ms=k5t_step[0], plain_ms=tslice_ms["bounce_replay"][1],
+        bound_ms=k5t_step[2], bound_by=k5t_step[3], library_ms=None,
+        path=path_tsg,
+        shape=f"{k5t_step[1]} launches of {r2} lanes; ms and bound: one "
+              f"step", plain_lanes=sl.shape[1],
+        ms_same_lanes=tslice_ms["bounce_replay"][0],
+        same_lanes="sample 0, 4 bounces")
+    kernels["bounce_bwd_tri"] = dict(
+        name="bounce_bwd_tri", route="cuda",
+        source="tpu_ray_torch/csrc/bounce.cu",
+        replaces="tpu_ray/kernels/bounce_step.py:1901",
+        launches=launches_ts["bounce_bwd"], max_abs_err=k6t_err,
+        ms=k6t_step[0], plain_ms=tslice_ms["bounce_bwd"][1],
+        bound_ms=k6t_step[2], bound_by=k6t_step[3], library_ms=None,
+        path=path_tsg,
+        shape=f"{k6t_step[1]} launches of {r2} lanes, {ttb.table.shape[0]} "
+              f"table rows; ms and bound: one step",
+        plain_lanes=sl.shape[1], ms_same_lanes=tslice_ms["bounce_bwd"][0],
+        same_lanes="sample 0, 5 bounces",
+        k8_ms_in_step=tstep_tot["bounce_fwd_list"][0])
 
     phase("total", t_all)
 
@@ -1491,7 +1876,17 @@ def main() -> int:
             "seconds": tri_secs, "rays_per_s": [rays_t / t for t in tri_secs],
             "fwd_bwd_seconds": tri_step_secs,
             "fwd_bwd_rays_per_s": [rays_tg / t for t in tri_step_secs],
-            "fwd_bwd_peak_bytes": peak_t}}}))
+            "fwd_bwd_peak_bytes": peak_t,
+            "per_sample": {
+                "rays_cast": rays_ts, "seconds": tfwd_secs,
+                "rays_per_s": [rays_ts / t for t in tfwd_secs],
+                "pixels_differing_from_regen": n_px,
+                "list_pass_rate": pass_rate,
+                "fwd_bwd_seconds": tsample_secs,
+                "fwd_bwd_rays_per_s": [rays_tsg / t for t in tsample_secs],
+                "fwd_bwd_peak_bytes": peak_ts,
+                "device_idle_share": {"forward": tfwd_idle,
+                                      "fwd_bwd": tstep_idle}}}}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

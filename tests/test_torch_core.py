@@ -113,8 +113,8 @@ def test_scene_from_numpy_matches_make_scene(name):
 def test_unported_scenes_refuse():
     """Triangle scenes build (trimesh, an obj: mesh, index 6); the routes
     that are not ported refuse them, citing ROADMAP.md: bigmesh (past
-    resident_tables_fit) on every backend, and the per-sample fused route
-    (fused without regen) on any triangle scene."""
+    resident_tables_fit) on every backend, the per-sample fused route
+    (fused without regen) included."""
     from tpu_ray_torch.core.camera import default_camera
     from tpu_ray_torch.models.path_tracer import render_pass
 
@@ -122,10 +122,9 @@ def test_unported_scenes_refuse():
     for name in ("trimesh", f"obj:{obj}", 6):
         assert tscene.make_scene(name, device="cpu").tris is not None
     big = tscene.make_scene("bigmesh", device="cpu")
-    tri = tscene.make_scene("trimesh", device="cpu")
     cases = [(big, dict(backend=b, regen=b == "fused"))
              for b in ("torch", "cuda", "fused")]
-    cases.append((tri, dict(backend="fused", regen=False)))
+    cases.append((big, dict(backend="fused", regen=False)))
     for scene, kw in cases:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render_pass(scene, default_camera(scene), width=8, height=8,

@@ -15,8 +15,9 @@ from tpu_ray_torch.core.scene import make_scene
 from tpu_ray_torch.kernels import build
 from tpu_ray_torch.kernels.bounce_step import (
     bounce_bwd, bounce_bwd_plain, bounce_cull_mask, bounce_cull_mask_octant,
-    bounce_fwd, bounce_fwd_plain, bounce_replay, bounce_replay_plain,
-    init_state, morton_perm, permute_spheres, scene_table)
+    bounce_fwd, bounce_fwd_list, bounce_fwd_list_plain, bounce_fwd_plain,
+    bounce_replay, bounce_replay_plain, fused_tables, init_state,
+    morton_perm, permute_spheres, scene_table)
 from tpu_ray_torch.kernels.regen import (regen_bwd, regen_bwd_plain,
                                          regen_record, regen_steps,
                                          regen_steps_plain, regen_tables,
@@ -391,3 +392,121 @@ def test_triangle_routes_on_card(cuda_device):
             cam.position.grad]
     for a, b in zip(grads["fused"], grads["cuda"]):
         assert (a - b).abs().max() <= 3e-3 * b.abs().max().clamp_min(1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the per-sample route on triangle scenes: K8, K5's and K6's triangle modes
+# ---------------------------------------------------------------------------
+
+def _tri_fused_chain(dev, w=64, h=48):
+    """trimesh's per-sample tables, and the per-bounce input states and
+    winners of the plain route from a tile-ordered camera wavefront."""
+    ts = make_scene("trimesh", device=dev)
+    tb = fused_tables(ts)
+    px = torch.as_tensor(tile_order(w, h)[0], device=dev)
+    st = init_state(*camera_rays(default_camera(ts), w, h, px, 0, 0))
+    states, idxs = [], []
+    for b in range(5):
+        states.append(st)
+        st, idx = bounce_fwd_list_plain(st, tb.table, tb.tri, tb.boxes, b,
+                                        n_sph=tb.n_sph, use_sky=True)
+        idxs.append(idx)
+    return tb, states, idxs
+
+
+@pytest.mark.cuda
+def test_k8_and_k5_tri_match_plain_on_card(cuda_device):
+    """K8 bit-equal to its plain version (state and winners, triangle
+    winners among them), and K5's triangle mode replaying K8 bit for bit
+    and equal to its own plain version."""
+    tb, states, idxs = _tri_fused_chain(cuda_device)
+    kw = dict(n_sph=tb.n_sph, use_sky=True)
+    for b, st in enumerate(states):
+        out, idx = bounce_fwd_list(st, tb.table, tb.tri, tb.boxes, b, **kw)
+        want, want_idx = bounce_fwd_list_plain(st, tb.table, tb.tri,
+                                               tb.boxes, b, **kw)
+        rep = bounce_replay(st, tb.table, idx, b, **kw)
+        rep_p = bounce_replay_plain(st, tb.table, idx, b, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, want_idx) and torch.equal(idx, idxs[b])
+        assert torch.equal(_bits(out), _bits(want))
+        assert torch.equal(_bits(rep), _bits(out))
+        assert torch.equal(_bits(rep_p), _bits(out))
+    assert (torch.stack(idxs) >= tb.n_sph).any()
+
+
+def _check_k6_tri(dev, w, h):
+    """K6's triangle mode over the chain's states with random cotangents:
+    d_state equal to the plain version's, d_table within 1e-4 of each
+    group's max of the plain f64 sum (sphere and triangle rows apart),
+    two launches bit-equal at trimesh's P = 10,496."""
+    tb, states, idxs = _tri_fused_chain(dev, w, h)
+    assert tb.table.shape[0] == 10496
+    kw = dict(n_sph=tb.n_sph, use_sky=True)
+    g = np.random.default_rng(5)
+    for b, st in enumerate(states):
+        d_out = torch.as_tensor(g.standard_normal(st.shape).astype(
+            np.float32), device=dev)
+        d_out[12:16] = 0.0
+        a = bounce_bwd(st, tb.table, idxs[b], b, d_out.clone(), **kw)
+        a2 = bounce_bwd(st, tb.table, idxs[b], b, d_out.clone(), **kw)
+        p = bounce_bwd_plain(st, tb.table, idxs[b], b, d_out.clone(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], p[0])
+        assert torch.equal(_bits(a[0]), _bits(a2[0]))
+        assert torch.equal(_bits(a[1]), _bits(a2[1]))
+        for rows in (slice(0, tb.n_sph), slice(tb.n_sph, None)):
+            for cols in (slice(0, 3), slice(3, 4), slice(4, 7),
+                         slice(7, 10), slice(10, 11), slice(11, 12)):
+                want = p[1][rows, cols]
+                err = (a[1][rows, cols] - want).abs().max().item()
+                assert err <= 1e-4 * want.abs().max().item()
+        assert p[1][tb.n_sph:, 0:4].abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_k6_tri_matches_plain_on_card(cuda_device):
+    """One lane tile a block (the accumulator rows in global memory)."""
+    _check_k6_tri(cuda_device, 64, 48)
+
+
+@pytest.mark.cuda
+def test_k6_tri_multi_tile_matches_plain_on_card(cuda_device):
+    """Several lane tiles a block: 650x350 = 227,500 lanes over the 256
+    blocks of the first launch."""
+    _check_k6_tri(cuda_device, 650, 350)
+
+
+@pytest.mark.cuda
+def test_tri_per_sample_route_on_card(cuda_device):
+    """trimesh on the per-sample route (K8, K5, K6): launches K8 every
+    bounce, renders fused+regen's image, and its gradients are within
+    3e-3 of each group's max of backend cuda autograd at 320x180, 2 spp,
+    triangle leaves included."""
+    from tpu_ray_torch.core.camera import trainable_camera
+    from tpu_ray_torch.core.scene import trainable_scene
+    from tpu_ray_torch.grad import image_mse, render_mean
+    from tpu_ray_torch.models.path_tracer import render_pass
+
+    base = make_scene("trimesh", device=cuda_device)
+    cam0 = default_camera(base)
+    kw = dict(width=320, height=180, spp=2)
+    before = bounce_fwd_list.launches
+    a, ra = render_pass(base, cam0, backend="fused", regen=False, **kw)
+    assert bounce_fwd_list.launches - before == 2 * 5
+    b, rb = render_pass(base, cam0, backend="fused", regen=True, **kw)
+    assert ra == rb and torch.equal(a, b)
+    grads = {}
+    for backend, regen in (("fused", False), ("cuda", False)):
+        sc = trainable_scene(base)
+        cam = trainable_camera(cam0)
+        img = render_mean(sc, cam, backend=backend, regen=regen, **kw)
+        image_mse(img, torch.zeros_like(img)).backward()
+        grads[backend] = {k: sc.leaf(k).grad for k in sc.leaves}
+        grads[backend]["position"] = cam.position.grad
+    for k, want in grads["cuda"].items():
+        got = grads["fused"][k]
+        assert (got - want).abs().max() <= \
+            3e-3 * want.abs().max().clamp_min(1e-12), k
+    for k in ("tris.v0", "tris.e1", "tris.e2", "tris.albedo"):
+        assert grads["fused"][k].abs().max() > 0, k

@@ -1,12 +1,14 @@
-// K4, K5, K6: the bounce kernels of the per-sample fused route
+// K4, K8, K5, K6: the bounce kernels of the per-sample fused route
 // (kernels/bounce_step.py make_fused_sample: one sample's raygen, then
 // max_bounces bounces forward, and the reverse sweep in its backward).
 //
 // State [16, r] f32, row-major (row k at st + k * r), unpadded: 0-2
 // origin, 3-5 direction, 6-8 attenuation, 9-11 colour, 12 alive (0/1),
 // 13 rng stream base (u32 bits), 14-15 unused (passed through). Table
-// [n, 12] f32 (ops/intersect.payload_tables of the Morton-permuted scene).
-// The draws of bounce b are keyed by bterm = b * TRT_MIX_BOUNCE.
+// [n, 12] f32 (bounce_step.prim_table of the Morton-permuted scene: n_sph
+// sphere rows, then on a triangle scene a plane-form row per triangle;
+// a winner id at or past n_sph is a triangle). The draws of bounce b are
+// keyed by bterm = b * TRT_MIX_BOUNCE.
 //
 // K4 bounce_fwd replaces tpu_ray/kernels/bounce_step.py::bounce_fwd
 // (_fwd_kernel, pallas_call at :1548): the nearest-hit search, optionally
@@ -27,10 +29,38 @@
 //   kernel's (ray block x tile) grid, bf16x6 search tables, packed
 //   argmin and one-hot MXU gather are not carried over.
 //
+// K8 bounce_fwd_list replaces bounce_fwd_list (_fwd_list_kernel,
+// pallas_call at :1824), with exact_argmin: one bounce of a triangle
+// scene. Each alive lane folds every sphere, then the triangles of the
+// tiles its block can reach, in ascending tile id with strict < (ids
+// offset by n_sph), then shades with the triangle branch on triangle
+// winners. Plain version: bounce_fwd_list_plain.
+//   Bound on the H100: fp32 ALU. Real sphere pairs x 20 flops plus each
+//   listed ray-triangle pair charged by the stage at which it leaves
+//   trt_tri_hit (14, 24 or 46 flops), against 128 B of state a lane.
+//   Design: one thread per lane, 256-lane blocks. The block builds its
+//   own list in the launch: each alive lane slab-tests its ray against
+//   the T inflated tile boxes (staged in shared memory) in the op order
+//   of bounce_step.tri_block_lists, a warp vote ORs the lanes, and thread
+//   0 compacts the reached ids in ascending order: the JAX package's
+//   tri_block_lists at block_r = 256, group 1, with no [B, T] list in
+//   HBM, no second launch and no host sync. The whole block then folds
+//   the same tile, so each listed tile (block_m triangles, 4.6 KB) is
+//   staged into shared memory by all threads and every thread reads the
+//   same triangle at once, a broadcast (as K7). Staging, not reads
+//   through L1, where a warp's 32 lanes each load the same 36 B per
+//   triangle with L1's hit latency in the fold's dependency chain: on an
+//   H100 80GB HBM3 at 700 W, K8 took 213-214 ms a trimesh pass staged
+//   and 227 ms reading through L1 (chip_smoke.py). A block with no alive
+//   lane builds no list and writes its state back with idx -1
+//   (block_alive in the TPU kernel).
+//   The TPU kernel's SMEM list table, list_group, bf16 split tables and
+//   packed argmin are not carried over.
+//
 // K5 bounce_replay replaces bounce_replay (_replay_kernel, pallas_call at
 // :1871): the same shading from a saved winner id, no search. Given K4's
-// ids it gives K4's state bit for bit (same device function). Plain
-// version: bounce_replay_plain.
+// or K8's ids it gives their state bit for bit (same device function).
+// Plain version: bounce_replay_plain.
 //   Bound on the H100: bytes (128 B of state in and out and 4 B of id a
 //   lane; the shading is ~100 flops). Design: one thread per lane.
 //
@@ -47,14 +77,19 @@
 //   Design: one thread per lane; d_table must be the same from run to
 //   run, so no float atomics. Launch 1 gives block k the lane tiles k,
 //   k + grid, ... (a partition fixed by r alone) and sums its lanes'
-//   d_winner into a shared [n,12] accumulator in a fixed order: within a
-//   warp the lanes of one winner (__match_any_sync) are summed by their
+//   d_winner into an [n,12] accumulator in a fixed order: within a warp
+//   the lanes of one winner (__match_any_sync) are summed by their
 //   lowest lane in lane order, then the warps add their sums one warp at
-//   a time. Block k writes its accumulator to partials[k] ([parts, n, 12],
-//   6.3 MB at 256 parts and 512 spheres). Launch 2 sums the partials
-//   over k in order, one thread per entry. The TPU kernel carried d_table
-//   across a sequential grid; Hopper's blocks run in parallel and in no
-//   order.
+//   a time. The accumulator sits in shared memory up to TRT_BWD_SMEM_ROW
+//   (rtweekend: 24.6 KB), and past it (trimesh: 10,496 x 48 B) in block
+//   k's own row of the partials in global memory, zeroed by the block,
+//   which no other block touches (K3's scheme, regen_bwd.cu). Either way
+//   row k of the partials ([parts, n, 12], 129 MB at 256 parts on
+//   trimesh) ends as block k's sum. Launch 2 sums the partials over k in
+//   order, one thread per entry. The TPU kernel carried d_table across a
+//   sequential grid; Hopper's blocks run in parallel and in no order.
+//   On a triangle scene (n_sph < n) the transpose runs its triangle
+//   branch (has_tris) on every lane, as K3 does.
 #include "shade.cuh"
 
 // The ray block: the threads of a K4/K5/K6 block and the row of the cull
@@ -62,6 +97,8 @@
 #define TRT_BOUNCE_THREADS 256
 // The most blocks of K6's first launch (its partials' leading dimension).
 #define TRT_BWD_PARTS 256
+// The largest K6 accumulator kept in shared memory (K3's threshold).
+#define TRT_BWD_SMEM_ROW (96 * 1024)
 
 namespace {
 
@@ -136,9 +173,131 @@ __global__ void bounce_fwd_kernel(const float* __restrict__ st,
   idx_out[i] = idx;
 }
 
+// torch.maximum / torch.minimum: NaN if either is NaN (the slab test's
+// value can be NaN where 0 * inf meets, and the plain version keeps it)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
+}
+
+// bounce_step.py _block_reach for one lane and one tile box (lo.xyz,
+// hi.xyz): does the ray meet the box at some t >= 0? The plain version's
+// op order; 1 / d is a true division.
+__device__ __forceinline__ bool slab_reach(const TrtBounceLane& L,
+                                           const float* box) {
+  const float big = 3.0e38f;
+  const float o[3] = {L.ox, L.oy, L.oz};
+  const float d[3] = {L.dx, L.dy, L.dz};
+  float tl = 0.0f, th = big;
+  for (int k = 0; k < 3; ++k) {
+    const float lo = box[k], hi = box[3 + k];
+    if (d[k] == 0.0f) {
+      const bool inside = o[k] >= lo && o[k] <= hi;
+      tl = nan_max(tl, inside ? -big : big);
+      th = nan_min(th, inside ? big : -big);
+    } else {
+      const float inv = 1.0f / d[k];
+      const float a0 = (lo - o[k]) * inv;
+      const float a1 = (hi - o[k]) * inv;
+      tl = nan_max(tl, nan_min(a0, a1));
+      th = nan_min(th, nan_max(a0, a1));
+    }
+  }
+  return th >= tl && th >= 0.0f;
+}
+
+// tri [m, 9] v0|e1|e2 (ids n_sph + j); boxes [n_tiles, 6], tile t holds
+// triangles [t * block_m, min((t + 1) * block_m, m)). Dynamic shared
+// memory: n_sph spheres (float4), block_m * 9 floats of staged tile,
+// n_tiles * 6 floats of boxes, n_tiles ints of reach flags and of list.
+__global__ void bounce_fwd_list_kernel(const float* __restrict__ st,
+                                       float* __restrict__ out, int r,
+                                       const float* __restrict__ table,
+                                       int n_sph,
+                                       const float* __restrict__ tri, int m,
+                                       const float* __restrict__ boxes,
+                                       int n_tiles, int block_m,
+                                       uint32_t bterm, int use_sky,
+                                       int* __restrict__ idx_out) {
+  extern __shared__ float4 smem4[];
+  float4* sph = smem4;
+  float* tile = reinterpret_cast<float*>(sph + n_sph);
+  float* box = tile + 9 * block_m;
+  int* reach = reinterpret_cast<int*>(box + 6 * n_tiles);
+  int* lst = reach + n_tiles;
+  __shared__ int s_cnt;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < r;
+  TrtBounceLane L = {};
+  if (in) L = load_lane(st, r, i);
+  const bool alive = in && L.alive > 0.5f;
+  int idx = -1;
+  // every branch below on block_alive is taken by the whole block, so
+  // each __syncthreads and warp vote is reached by all its threads
+  if (__syncthreads_or(alive)) {
+    for (int k = threadIdx.x; k < n_sph; k += blockDim.x) {
+      const float* w = table + 12 * (size_t)k;
+      sph[k] = make_float4(w[0], w[1], w[2], w[3]);
+    }
+    for (int k = threadIdx.x; k < 6 * n_tiles; k += blockDim.x) {
+      box[k] = boxes[k];
+    }
+    for (int k = threadIdx.x; k < n_tiles; k += blockDim.x) reach[k] = 0;
+    __syncthreads();
+    // the block's list: tile t is reached if a lane's ray meets its box
+    for (int t = 0; t < n_tiles; ++t) {
+      const bool f = alive && slab_reach(L, box + 6 * t);
+      if (__any_sync(0xffffffffu, f) && (threadIdx.x & 31) == 0) {
+        reach[t] = 1;
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int c = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        if (reach[t]) lst[c++] = t;
+      }
+      s_cnt = c;
+    }
+    __syncthreads();
+    float best = TRT_F32_MAX;
+    int bi = 0;
+    if (alive) {
+      trt_fold_spheres(sph, 0, n_sph, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz,
+                       best, bi);
+    }
+    const int cnt = s_cnt;
+    for (int k = 0; k < cnt; ++k) {
+      const int j0 = lst[k] * block_m;
+      const int nj = min(block_m, m - j0);
+      __syncthreads();     // every thread is done with the previous tile
+      for (int q = threadIdx.x; q < 9 * nj; q += blockDim.x) {
+        tile[q] = tri[(size_t)9 * j0 + q];
+      }
+      __syncthreads();
+      if (alive) {
+        trt_fold_tris(tile, 0, nj, n_sph + j0, L.ox, L.oy, L.oz, L.dx, L.dy,
+                      L.dz, best, bi);
+      }
+    }
+    if (alive && best < TRT_F32_MAX) idx = bi;
+  }
+  if (alive) {
+    trt_shade(L, idx >= 0 ? table + 12 * (size_t)idx : nullptr, bterm,
+              use_sky != 0, idx >= n_sph);
+  }
+  if (!in) return;
+  L.alive = idx >= 0 ? 1.0f : 0.0f;
+  store_lane(out, r, i, L);
+  idx_out[i] = idx;
+}
+
 __global__ void bounce_replay_kernel(const float* __restrict__ st,
                                      float* __restrict__ out, int r,
                                      const float* __restrict__ table,
+                                     int n_sph,
                                      const int* __restrict__ idx_in,
                                      uint32_t bterm, int use_sky) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -148,27 +307,29 @@ __global__ void bounce_replay_kernel(const float* __restrict__ st,
   const bool live = idx >= 0;
   if (live || L.alive > 0.5f) {
     trt_shade(L, live ? table + 12 * (size_t)idx : nullptr, bterm,
-              use_sky != 0);
+              use_sky != 0, idx >= n_sph);
   }
   L.alive = live ? 1.0f : 0.0f;
   store_lane(out, r, i, L);
 }
 
 // dst: d_state_out in, d_state_in out. part: [gridDim.x, n * 12].
-// Dynamic shared memory: the [n, 12] accumulator, then 13 floats a thread
-// of staged d_winner (13, not 12: consecutive threads then start in
-// different banks).
+// Dynamic shared memory: 13 floats a thread of staged d_winner (13, not
+// 12: consecutive threads then start in different banks), then the
+// [n, 12] accumulator when smem_row is set (else it is part's row).
 __global__ void bounce_bwd_kernel(const float* __restrict__ st,
                                   const int* __restrict__ idx_in,
                                   const float* __restrict__ table, int n,
-                                  float* __restrict__ dst, int r,
-                                  uint32_t bterm, int use_sky,
+                                  int n_sph, float* __restrict__ dst, int r,
+                                  uint32_t bterm, int use_sky, int smem_row,
                                   float* __restrict__ part) {
   extern __shared__ float smem[];
-  float* acc = smem;
-  float* sdw = smem + 12 * n;
+  float* sdw = smem;
+  float* acc = smem_row ? smem + 13 * blockDim.x
+                        : part + (size_t)blockIdx.x * 12 * n;
   for (int k = threadIdx.x; k < 12 * n; k += blockDim.x) acc[k] = 0.0f;
   __syncthreads();
+  const bool has_tris = n_sph < n;
   const float s_pm1 = 4.656612873077393e-10f;   // 2 * 2^-32
   const float s_01 = 2.3283064365386963e-10f;   // 2^-32
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -196,7 +357,8 @@ __global__ void bounce_bwd_kernel(const float* __restrict__ st,
         const float rd2 = trt_draw(base, bterm, 2u, s_pm1, -1.0f);
         const float rrefl = trt_draw(base, bterm, 3u, s_01, 0.0f);
         trt_shade_vjp(s, table + 12 * (size_t)(live ? idx : 0), live, sky,
-                      rd0, rd1, rd2, rrefl, use_sky != 0, g, d_s, d_w);
+                      rd0, rd1, rd2, rrefl, use_sky != 0, g, d_s, d_w,
+                      has_tris, idx >= n_sph);
       } else {
         for (int k = 0; k < 9; ++k) d_s[k] = g[k];
       }
@@ -225,8 +387,10 @@ __global__ void bounce_bwd_kernel(const float* __restrict__ st,
       __syncthreads();
     }
   }
-  float* row = part + (size_t)blockIdx.x * 12 * n;
-  for (int k = threadIdx.x; k < 12 * n; k += blockDim.x) row[k] = acc[k];
+  if (smem_row) {
+    float* row = part + (size_t)blockIdx.x * 12 * n;
+    for (int k = threadIdx.x; k < 12 * n; k += blockDim.x) row[k] = acc[k];
+  }
 }
 
 // out[j] = sum over k in order of part[k, j], j < m.
@@ -276,26 +440,58 @@ extern "C" int trt_bounce_fwd(const float* state, float* out, int r,
   return (int)cudaGetLastError();
 }
 
-// state, out [16, r]; table [n, 12]; idx [r] i32 (-1: no hit).
-extern "C" int trt_bounce_replay(const float* state, float* out, int r,
-                                 const float* table, const int* idx,
-                                 int bounce, int use_sky,
-                                 cudaStream_t stream) {
+// state, out [16, r]; table [n, 12] (n_sph sphere rows, then
+// triangles); tri [m, 9] with n_sph + m = n; boxes [n_tiles, 6], tile t
+// holding triangles [t * block_m, (t + 1) * block_m); idx_out [r] i32.
+extern "C" int trt_bounce_fwd_list(const float* state, float* out, int r,
+                                   const float* table, int n_sph,
+                                   const float* tri, int m,
+                                   const float* boxes, int n_tiles,
+                                   int block_m, int bounce, int use_sky,
+                                   int* idx_out, cudaStream_t stream) {
+  if (n_sph < 0 || m < 1 || n_tiles < 1 || block_m < 1 ||
+      (long)n_tiles * block_m < m) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)n_sph * sizeof(float4) +
+                      ((size_t)9 * block_m + 6 * n_tiles) * sizeof(float) +
+                      (size_t)2 * n_tiles * sizeof(int);
+  if (smem > TRT_MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  cudaError_t err = trt_set_smem(bounce_fwd_list_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   if (r == 0) return 0;
-  bounce_replay_kernel<<<blocks_of(r), TRT_BOUNCE_THREADS, 0, stream>>>(
-      state, out, r, table, idx, (uint32_t)bounce * TRT_MIX_BOUNCE, use_sky);
+  bounce_fwd_list_kernel<<<blocks_of(r), TRT_BOUNCE_THREADS, smem, stream>>>(
+      state, out, r, table, n_sph, tri, m, boxes, n_tiles, block_m,
+      (uint32_t)bounce * TRT_MIX_BOUNCE, use_sky, idx_out);
   return (int)cudaGetLastError();
 }
 
-// state [16, r]; idx [r] i32; d_state [16, r] (d_out in, d_state_in out);
-// part [trt_bounce_bwd_parts(r), n, 12] scratch; d_table [n, 12] out.
+// state, out [16, r]; table [n, 12], rows past n_sph triangles; idx [r]
+// i32 (-1: no hit).
+extern "C" int trt_bounce_replay(const float* state, float* out, int r,
+                                 const float* table, int n_sph,
+                                 const int* idx, int bounce, int use_sky,
+                                 cudaStream_t stream) {
+  if (r == 0) return 0;
+  bounce_replay_kernel<<<blocks_of(r), TRT_BOUNCE_THREADS, 0, stream>>>(
+      state, out, r, table, n_sph, idx, (uint32_t)bounce * TRT_MIX_BOUNCE,
+      use_sky);
+  return (int)cudaGetLastError();
+}
+
+// state [16, r]; idx [r] i32; table [n, 12], rows past n_sph triangles;
+// d_state [16, r] (d_out in, d_state_in out); part
+// [trt_bounce_bwd_parts(r), n, 12] scratch; d_table [n, 12] out.
 extern "C" int trt_bounce_bwd(const float* state, const int* idx,
-                              const float* table, int n, float* d_state,
-                              int r, int bounce, int use_sky, float* part,
-                              float* d_table, cudaStream_t stream) {
-  const size_t smem = ((size_t)12 * n + 13 * TRT_BOUNCE_THREADS) *
-                      sizeof(float);
-  if (smem > TRT_MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+                              const float* table, int n, int n_sph,
+                              float* d_state, int r, int bounce, int use_sky,
+                              float* part, float* d_table,
+                              cudaStream_t stream) {
+  if (n_sph < 0 || n_sph > n) return (int)cudaErrorInvalidValue;
+  const size_t row = (size_t)12 * n * sizeof(float);
+  const int smem_row = row <= TRT_BWD_SMEM_ROW;
+  const size_t smem = (size_t)13 * TRT_BOUNCE_THREADS * sizeof(float) +
+                      (smem_row ? row : 0);
   cudaError_t err = trt_set_smem(bounce_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
@@ -304,8 +500,8 @@ extern "C" int trt_bounce_bwd(const float* state, const int* idx,
   if (r > 0) {
     parts = trt_bounce_bwd_parts(r);
     bounce_bwd_kernel<<<parts, TRT_BOUNCE_THREADS, smem, stream>>>(
-        state, idx, table, n, d_state, r, (uint32_t)bounce * TRT_MIX_BOUNCE,
-        use_sky, part);
+        state, idx, table, n, n_sph, d_state, r,
+        (uint32_t)bounce * TRT_MIX_BOUNCE, use_sky, smem_row, part);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

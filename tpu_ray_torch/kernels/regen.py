@@ -62,13 +62,13 @@ import torch
 
 from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera, film_extent
-from tpu_ray_torch.core.scene import F32_MAX, Scene
+from tpu_ray_torch.core.scene import Scene
 from tpu_ray_torch.kernels import build
-from tpu_ray_torch.kernels.bounce_step import (nrm3_bwd, nrm3_fwd,
-                                               permute_scene, prim_table,
-                                               shade_plain, shade_vjp_plain)
-from tpu_ray_torch.ops.intersect import nearest_hit
-from tpu_ray_torch.ops.intersect_tri import nearest_hit_tri, tri_search_table
+from tpu_ray_torch.kernels.bounce_step import (nearest_prim, nrm3_bwd,
+                                               nrm3_fwd, permute_scene,
+                                               prim_table, shade_plain,
+                                               shade_vjp_plain)
+from tpu_ray_torch.ops.intersect_tri import tri_search_table
 from tpu_ray_torch.ops.raygen import camera_rays, film_offsets, film_rays
 
 __all__ = ["regen_steps", "regen_steps_plain", "regen_record",
@@ -189,23 +189,6 @@ def step_tail_plain(st, cam, table, idx, *, use_sky: bool, max_bounces: int,
     return out, torch.where(live, idx, -1)
 
 
-def _search(st, table, tri=None):
-    """The exact nearest hit of every lane's ray over the spheres and then
-    the triangles -> winner id in the one id space, -1 on a miss (no
-    autograd history). A triangle wins only with a strictly smaller t, so
-    an exact tie goes to the lower id."""
-    n_sph = table.shape[0] - (0 if tri is None else tri.shape[0])
-    o, d = st[0:3].T, st[3:6].T
-    hit = nearest_hit(table[:n_sph, 0:3], table[:n_sph, 3], o, d)
-    t, idx = hit.t, hit.idx.long()
-    if tri is not None:
-        th = nearest_hit_tri(tri, o, d)
-        wins = th.t < t
-        t = torch.where(wins, th.t, t)
-        idx = torch.where(wins, th.idx.long() + n_sph, idx)
-    return torch.where(t < float(F32_MAX), idx, -1)
-
-
 def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
                       max_bounces: int, width: int, height: int,
                       seg: int | None = None, tri=None):
@@ -233,7 +216,7 @@ def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
         if seg is not None and k % seg == 0:
             recs.chk[k // seg] = state
         new, rec = step_tail_plain(state, cam, table,
-                                   _search(state, table, tri), **kw)
+                                   nearest_prim(state, table, tri), **kw)
         if seg is not None:
             recs.rec[k] = rec.to(torch.int16)
             recs.t_end.add_(alive.to(torch.int32))

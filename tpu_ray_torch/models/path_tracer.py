@@ -14,19 +14,19 @@ loop, the two hits merged into one primitive id space as the JAX probe
 route's ``_with_triangles`` does; "fused" with regen runs the K2
 persistent-wavefront kernel (spheres and triangles), and without it the
 per-sample fused route (one sample at a time through the K4 bounce kernel,
-``kernels/bounce_step.make_fused_sample``; sphere scenes only).
+or K8 on a triangle scene, ``kernels/bounce_step.make_fused_sample``).
 
 Triangle scenes take these routes only within the JAX package's residency
 rule (``kernels/bounce_step.resident_tables_fit``: trimesh and small
-``obj:`` meshes); past it (bigmesh) every route refuses, as does the
-per-sample route on any triangle scene (ROADMAP.md queue B).
+``obj:`` meshes); past it (bigmesh) every route refuses (ROADMAP.md queue
+B, #11).
 
 ``render_pixels``/``render_pass`` are differentiable w.r.t. the scene and
 camera tensors: "torch" and "cuda" through autograd of the eager bounce
 loop (the search carries no history; the payload recompute carries the
 gradient), "fused" through ``kernels/regen.RegenTrace`` (K2 recording
 forward, K3 backward) or, without regen, ``bounce_step.FusedSample``
-(K4 forward, K5 replay and K6 backward).
+(K4 or K8 forward, K5 replay and K6 backward).
 """
 from __future__ import annotations
 
@@ -71,21 +71,16 @@ def _check_route(shading: str) -> None:
             "ported yet (ROADMAP.md queue A, item 4)")
 
 
-def _check_tris(scene: Scene, backend: str, regen: bool) -> None:
-    """Refuse the triangle routes that are not ported (none falls back)."""
-    if scene.tris is None:
-        return
-    if not resident_tables_fit(scene.n_pad, scene.tris.n_pad):
+def _check_tris(scene: Scene) -> None:
+    """Refuse a triangle scene past the residency rule on every route
+    (none falls back)."""
+    if scene.tris is not None and not resident_tables_fit(
+            scene.n_pad, scene.tris.n_pad):
         raise NotImplementedError(
             f"{scene.tris.n_pad} padded triangles are past "
             "resident_tables_fit: the streaming triangle search "
             "(nearest_hit_tri_stream, kernel #11) and the sorted-bounce "
-            "wavefront are not ported yet (ROADMAP.md queue B)")
-    if backend == "fused" and not regen:
-        raise NotImplementedError(
-            "backend 'fused' without regen on a triangle scene: "
-            "bounce_fwd_list (kernel #7) and the triangle modes of K4-K6 "
-            "are not ported yet (ROADMAP.md queue B); use the regen route")
+            "wavefront are not ported yet (ROADMAP.md queue B, #11)")
 
 
 def tile_order(width: int, height: int, tile: int = 32):
@@ -179,7 +174,7 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
     keeps only the winner records. cull_secondary (fused without regen)
     culls bounces 1.. by the octant mask, bit-identically."""
     _check_route(shading)
-    _check_tris(scene, backend, regen)
+    _check_tris(scene)
     n = pixel.shape[0]
     chunk = n if ray_chunk is None else ray_chunk
     if n % chunk:

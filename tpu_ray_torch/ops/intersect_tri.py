@@ -80,18 +80,24 @@ def _mt_slab(tab, origin, direction):
 
 
 @torch.no_grad()
-def nearest_hit_tri(tab, origin, direction) -> Hit:
+def nearest_hit_tri(tab, origin, direction, tiles=None) -> Hit:
     """Brute-force nearest triangle hit (JAX ``nearest_hit_tri_jnp``).
     tab: the triangles' ``tri_search_table`` [M,9]; origin/direction
     [R,3] -> Hit(t [R] f32, F32_MAX on a miss; idx [R] i32, the lowest
-    index on ties, 0 on a miss). Runs in slabs of rays, so its [R,M]
-    temporaries stay bounded."""
+    index on ties, 0 on a miss). tiles: optional [R,T] bool, False where
+    the search skips one of the T equal tiles of consecutive triangles
+    (a tile the per-sample route's reachable-tile list leaves out). Runs
+    in slabs of rays, so its [R,M] temporaries stay bounded."""
     r, m = origin.shape[0], tab.shape[0]
     step = max(1, _SLAB_ELEMS // max(m, 1))
     ts, idxs = [], []
     for k in range(0, r, step):
-        t, idx = torch.min(_mt_slab(tab, origin[k:k + step],
-                                    direction[k:k + step]), dim=1)
+        t = _mt_slab(tab, origin[k:k + step], direction[k:k + step])
+        if tiles is not None:
+            keep = tiles[k:k + step].repeat_interleave(
+                m // tiles.shape[1], dim=1)
+            t = torch.where(keep, t, _MAX)
+        t, idx = torch.min(t, dim=1)
         ts.append(t)
         idxs.append(idx.to(torch.int32))
     if not ts:
