@@ -43,6 +43,17 @@ launches bit-equal), the forward pass as the CLI drives it (two calls;
 its image against the regen route's, the differing pixels counted), the
 list pass rate and K8's bound counted on the pass's own states, three
 forward+backward steps, and one pass and one step under torch.profiler.
+Then the flat and Lambert+shadow estimators on the fused route (K9,
+csrc/simple_shade.cu), each configuration at its own size: BASELINE.md
+config 2 (sixteen, Lambert, 512x512, 4 spp: K9 bit-equal to its plain
+version on all lanes, two passes as the CLI drives them, three
+forward+backward steps whose gradients must match backend cuda autograd),
+config 1 (single, flat, 256x256, 1 spp: K9 on all lanes, the image equal
+to backend cuda's), trimesh flat at 1920x1080, 4 spp (the block lists on;
+K9 on 1 lane in 32, the image against backend cuda's at 320x180) and
+trilight (Lambert over triangles, 1920x1080, 4 spp: K9 on 1 lane in 32,
+gradients against backend cuda autograd at 320x180), and one profiled
+pass each of config 2 and trimesh flat.
 Prints each phase's wall seconds, a
 JSON line of main-path numbers, one JSON line of per-kernel numbers and,
 last, one JSON line with the device. Any failed check raises, so the exit
@@ -97,6 +108,17 @@ K6_LANE_BYTES = (11 + 12 + 13) * 4 + 4
 # transpose ~237), rounded down
 K5_FLOPS_PER_LANE = 100
 K6_FLOPS_PER_LANE = 370
+
+
+# the estimators' configurations, each at its own size (scene, shading,
+# width, height, spp): BASELINE.md configs 2 and 1, its trimesh flat row,
+# and the JAX suite's mixed sphere + triangle scene for triangle shadows
+EST_CONFIG2 = ("sixteen", "lambert_shadow", 512, 512, 4)
+EST_CONFIG1 = ("single", "flat", 256, 256, 1)
+EST_TRIMESH = ("trimesh", "flat", 1920, 1080, 4)
+EST_TRILIGHT = ("trilight", "lambert_shadow", 1920, 1080, 4)
+# K9's bytes a lane: rows in (x, y, h1), colour sum and rays out
+K9_LANE_BYTES = 12 + 16
 
 
 class CheckFailed(RuntimeError):
@@ -235,6 +257,405 @@ def kernel_ms(by_key, names) -> float:
                if any(n in key for n in names))
 
 
+def estimator_phases(torch, dev, card, reset_counts, counts):
+    """Phases 25-29: the flat and Lambert+shadow estimators on the fused
+    route (K9, kernels/simple_shade.py) at the estimator configurations'
+    own sizes. -> ({kernel key: entry}, {configuration: numbers})."""
+    from tpu_ray_torch import PathTracer, RenderConfig
+    from tpu_ray_torch.core.camera import default_camera, trainable_camera
+    from tpu_ray_torch.core.scene import (make_scene, make_trilight_scene,
+                                          trainable_scene)
+    from tpu_ray_torch.grad import image_mse
+    from tpu_ray_torch.kernels.regen import cam13
+    from tpu_ray_torch.kernels.simple_shade import (lane_rows, simple_tables,
+                                                    simple_trace,
+                                                    simple_trace_plain)
+    from tpu_ray_torch.models.path_tracer import (render_pass,
+                                                  render_pixels, tile_order,
+                                                  untile_image)
+    from tpu_ray_torch.ops.accumulate import accumulate
+    from tpu_ray_torch.ops.shading_modes import scene_light_indices
+
+    kernels, summary = {}, {}
+    k9_names = ("simple_trace_kernel",)
+
+    def setup(cfg):
+        """The scene and K9's inputs of cfg's pass (tile-ordered lanes,
+        samples 0 .. spp - 1), as the route builds them."""
+        name, shading, w, h, spp = cfg
+        sc = (make_trilight_scene(device=dev) if name == "trilight"
+              else make_scene(name, device=dev))
+        lights = scene_light_indices(sc) if shading != "flat" else ()
+        tb = simple_tables(sc, lights)
+        perm, inv = tile_order(w, h)
+        px = torch.as_tensor(perm, device=dev)
+        args = (lane_rows(px, w, SEED), cam13(default_camera(sc), spp),
+                tb["table"], tb["tri"], tb["boxes"], tb["lidx"], tb["ldat"])
+        kw = dict(n_sph=tb["n_sph"], spp=spp, s0=0, width=w, height=h,
+                  use_sky=tb["use_sky"], flat=shading == "flat")
+        return sc, lights, args, kw, inv
+
+    def drive(cfg, sc, calls):
+        """render as the CLI drives it (PathTracer.step of one pass),
+        counts set to 0 before each call -> (tracer, state, rays, secs)."""
+        name, shading, w, h, spp = cfg
+        tracer = PathTracer(RenderConfig(
+            scene=name, width=w, height=h, spp=spp, backend="fused",
+            seed=SEED, shading=shading), scene=sc, device=dev)
+        secs = []
+        for _ in range(calls):
+            state0 = tracer.init_state()
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            state, rays = tracer.step(state0)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            require(counts()["simple_trace"] == 1
+                    and sum(counts().values()) == 1,
+                    f"{name} {shading} pass launched {counts()}")
+        require(tuple(state.mean.shape) == (h, w, 3)
+                and bool(torch.isfinite(state.mean).all())
+                and state.mean.mean().item() > 0.01,
+                f"{name} {shading} image is not finite and non-black")
+        return tracer, state, rays, secs
+
+    def work(args, kw, n_real_sph, lanes=None):
+        """(fp32 operations, bytes) K9 must spend on these inputs, counted
+        on the plain version's own searches of the lanes ``lanes`` (all
+        when None) and scaled to the launch's lanes: every cast ray tests
+        every real sphere (FLOPS_PER_PAIR), and each ray-triangle pair of
+        its listed or swept tiles is charged by where it leaves the test
+        (mt_work); the lanes' bytes in and out and the tables read once.
+        -> also the plain version's output."""
+        folds = []
+        out = simple_trace_plain(*args, **kw, lanes=lanes, folds=folds)
+        r = args[0].shape[1]
+        scale = r / out.shape[1]
+        flops = float(out[3].double().sum()) * n_real_sph * FLOPS_PER_PAIR
+        if args[3] is not None:
+            for o, d, tiles, act in folds:
+                f, _ = mt_work(torch, args[3], o[:, act].T, d[:, act].T,
+                               None if tiles is None else tiles[act])
+                flops += f
+        nbytes = r * K9_LANE_BYTES + sum(
+            t.numel() * 4 for t in args[1:] if t is not None)
+        return flops * scale, nbytes, out, folds
+
+    def grads_of(sc, cam, cfg_g, backend, lights):
+        """image_mse(render_pass(...), 0).backward() w.r.t. every scene
+        leaf and the camera -> (grads, rays, launches, seconds). Backend
+        cuda renders the fused route's tile-ordered pixels (then untiles
+        them), so both sum their rays into each leaf in one order and
+        differ only by the forward values the loss weighs them with."""
+        name, shading, w, h, spp = cfg_g
+        tsc, tcam = trainable_scene(sc), trainable_camera(cam)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        kw = dict(width=w, height=h, spp=spp, seed=SEED, backend=backend,
+                  shading=shading, lights=lights)
+        if backend == "fused":
+            img, rays = render_pass(tsc, tcam, **kw)
+        else:
+            perm, inv = tile_order(w, h)
+            color, rays = render_pixels(
+                tsc, tcam, torch.as_tensor(perm, device=dev),
+                sample_start=0, **kw)
+            img = untile_image(color, w, h, inv)
+        image_mse(img, torch.zeros_like(img)).backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        g = {k: tsc.leaf(k).grad for k in tsc.leaves}
+        g.update(position=tcam.position.grad, look_at=tcam.look_at.grad)
+        for k, v in g.items():
+            require(v is not None and bool(torch.isfinite(v).all()),
+                    f"{name} {backend} gradient of {k} missing or not finite")
+        return g, rays, counts(), secs
+
+    def grad_err(got, want):
+        """each group's max |got - want| over its max |want|"""
+        return {k: ((got[k] - want[k]).abs().max()
+                    / want[k].abs().max().clamp_min(1e-12)).item()
+                for k in want}
+
+    def entry(key, cfg, launches, err, ms, plain_ms, b, **extra):
+        name, shading, w, h, spp = cfg
+        kernels[key] = dict(
+            name=key, route="cuda",
+            source="tpu_ray_torch/csrc/simple_shade.cu",
+            replaces="tpu_ray/kernels/simple_shade.py:496",
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b[0], bound_by=b[1], library_ms=None,
+            path=f"render --scene {name} --backend fused --shading "
+                 f"{shading} {w}x{h} {spp} spp", **extra)
+
+    # 25. BASELINE.md config 2: sixteen, Lambert+shadow (2 lights),
+    # 512x512, 4 spp. K9 against its plain version on all 262,144 lanes
+    # (colour and rays bit-equal; launches not counted), the pass as the
+    # CLI drives it (two calls), three forward+backward steps
+    # (image_mse(render_pass(...), 0).backward() w.r.t. every scene leaf
+    # and the camera: K9 forward, the eager estimator on K1 backward), the
+    # gradients within 1e-5 of each group's max of backend cuda autograd
+    t0 = time.perf_counter()
+    cfg2 = EST_CONFIG2
+    _, _, w2, h2, spp2 = cfg2
+    s16, l16, args2, kw2, inv2 = setup(cfg2)
+    require(l16 == (1, 2), f"sixteen's lights are {l16}")
+    n_real16 = int((s16.radius > 0).sum())
+    out_k2 = simple_trace(*args2, **kw2)
+    flops2, bytes2, out_p2, _ = work(args2, kw2, n_real16)
+    torch.cuda.synchronize()
+    require(bits_equal(torch, out_k2, out_p2),
+            f"K9 (sixteen Lambert) differs from plain by max "
+            f"{(out_k2 - out_p2).abs().max().item()}")
+    k9_ev2 = cuda_ms(torch, lambda: simple_trace(*args2, **kw2), 10)
+    plain2 = cuda_ms(torch, lambda: simple_trace_plain(*args2, **kw2), 2)
+    b2 = bound(flops2, bytes2)
+    tracer2, st2, rays2, secs2 = drive(cfg2, s16, 2)
+    launches2 = counts()["simple_trace"]
+    require(rays2 == int(out_k2[3].double().sum()),
+            f"config 2 pass cast {rays2} rays, K9 {out_k2[3].sum()}")
+    require(torch.equal(st2.mean, accumulate(
+        tracer2.init_state(), untile_image(out_k2[0:3].T, w2, h2, inv2),
+        spp2).mean), "config 2 pass image is not K9's")
+    cam16 = default_camera(s16)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    step_secs2, step_launches2 = [], None
+    for _ in range(3):
+        g_f2, rays_g2, step_launches2, t_s = grads_of(s16, cam16, cfg2,
+                                                      "fused", l16)
+        step_secs2.append(t_s)
+    peak2 = torch.cuda.max_memory_allocated() - mem0
+    n_probe = spp2 * (1 + len(l16))
+    require(step_launches2["simple_trace"] == 1
+            and step_launches2["sphere_nearest_hit"] == n_probe
+            and sum(step_launches2.values()) == 1 + n_probe,
+            f"config 2 fwd+bwd launches {step_launches2}")
+    require(rays_g2 == rays2, "config 2 fwd+bwd rays differ from the pass")
+    g_c2, rays_c2, _, _ = grads_of(s16, cam16, cfg2, "cuda", l16)
+    require(rays_c2 == rays2, f"backend cuda cast {rays_c2} rays, K9 {rays2}")
+    err2 = grad_err(g_f2, g_c2)
+    require(max(err2.values()) <= 1e-5,
+            f"config 2 gradients differ from backend cuda autograd: {err2}")
+    for li in l16:
+        require(g_f2["center"][li].abs().max().item() > 0
+                and g_f2["emissive"][li].abs().max().item() > 0,
+                f"light {li} of sixteen takes no gradient")
+    print(f"estimator config 2: sixteen lambert_shadow {w2}x{h2} {spp2} spp "
+          f"fused: {rays2} rays in {secs2} s = "
+          f"{[rays2 / t for t in secs2]} rays/s on {card}; K9 bit-equal to "
+          f"plain on all lanes, {k9_ev2:.4f} ms by CUDA events (bound "
+          f"{b2[0]:.4f} ms by {b2[1]}) / plain {plain2:.3f} ms; fwd+bwd "
+          f"steps {step_secs2} s, launches {step_launches2}, peak "
+          f"{peak2} B above {mem0} B; gradients against backend cuda "
+          f"autograd within {max(err2.values()):.3e} of each group's max",
+          flush=True)
+    phase("est_config2", t0)
+
+    # 26. BASELINE.md config 1: single, flat, 256x256, 1 spp. K9 against
+    # its plain version on all lanes, the pass as the CLI drives it, and
+    # its image against backend cuda's (K1 in the eager estimator), rays
+    # equal
+    t0 = time.perf_counter()
+    cfg1 = EST_CONFIG1
+    _, _, w1, h1, spp1 = cfg1
+    s1, _, args1, kw1, inv1 = setup(cfg1)
+    out_k1 = simple_trace(*args1, **kw1)
+    flops1, bytes1, out_p1, _ = work(args1, kw1, int((s1.radius > 0).sum()))
+    torch.cuda.synchronize()
+    require(bits_equal(torch, out_k1, out_p1),
+            "K9 (single flat) differs from plain")
+    k9_ev1 = cuda_ms(torch, lambda: simple_trace(*args1, **kw1), 10)
+    plain1 = cuda_ms(torch, lambda: simple_trace_plain(*args1, **kw1), 2)
+    b1 = bound(flops1, bytes1)
+    tracer1, st1, rays1, secs1 = drive(cfg1, s1, 2)
+    launches1 = counts()["simple_trace"]
+    require(rays1 == w1 * h1 * spp1, f"config 1 cast {rays1} rays")
+    img_c1, rays_c1 = render_pass(s1, default_camera(s1), width=w1,
+                                  height=h1, spp=spp1, seed=SEED,
+                                  backend="cuda", shading="flat")
+    img_f1 = untile_image(out_k1[0:3].T, w1, h1, inv1)
+    npx1 = int((img_f1 != img_c1).any(-1).sum())
+    require(rays_c1 == rays1 and npx1 == 0,
+            f"config 1 image differs from backend cuda's on {npx1} pixels")
+    print(f"estimator config 1: single flat {w1}x{h1} {spp1} spp fused: "
+          f"{rays1} rays in {secs1} s on {card}; K9 bit-equal to plain, "
+          f"{k9_ev1:.4f} ms (bound {b1[0]:.4f} ms by {b1[1]}) / plain "
+          f"{plain1:.3f} ms; image equal to backend cuda's", flush=True)
+    phase("est_config1", t0)
+
+    # 27. trimesh flat (BASELINE.md's r5 row): 1920x1080, 4 spp, the block
+    # lists on. The pass as the CLI drives it (two calls; rays exactly
+    # 4 x 1920 x 1080), K9 against its plain version on 1 lane in 32 (each
+    # lane with its full-width block's list), the bound counted on that
+    # slice's own searches, and the image against backend cuda's (K1 +
+    # K7) at 320x180, differing pixels counted (the lists' grazing
+    # acceptance fuzz)
+    t0 = time.perf_counter()
+    cfgt = EST_TRIMESH
+    _, _, wt, ht, sppt = cfgt
+    st_, _, argst, kwt, _ = setup(cfgt)
+    tracert, stt, rayst, secst = drive(cfgt, st_, 2)
+    launchest = counts()["simple_trace"]
+    require(rayst == sppt * wt * ht, f"trimesh flat cast {rayst} rays")
+    rt = argst[0].shape[1]
+    lanes_t = torch.arange(0, rt, SLICE_STRIDE, device=dev)
+    out_kt = simple_trace(*argst, **kwt)
+    flopst, bytest, out_pt, foldst = work(argst, kwt,
+                                          int((st_.radius > 0).sum()),
+                                          lanes_t)
+    torch.cuda.synchronize()
+    require(bits_equal(torch, out_kt[:, lanes_t], out_pt),
+            "K9 (trimesh flat) differs from plain on 1 lane in 32")
+    reach = torch.cat([f[2] for f in foldst]).float().mean().item()
+    _, plaint = timed(torch, lambda: simple_trace_plain(*argst, **kwt,
+                                                        lanes=lanes_t))
+    k9_evt = cuda_ms(torch, lambda: simple_trace(*argst, **kwt), 3)
+    bt = bound(flopst, bytest)
+    # the same launch with every tile swept (no lists): its time, and the
+    # lanes whose output the lists change (a grazing hit outside its
+    # tile's box)
+    swept = argst[:4] + (None,) + argst[5:]
+    out_st = simple_trace(*swept, **kwt)
+    k9_swept = cuda_ms(torch, lambda: simple_trace(*swept, **kwt), 1)
+    n_lanes_fuzz = int((out_st != out_kt).any(0).sum())
+    require(n_lanes_fuzz <= 20, f"K9's lists change {n_lanes_fuzz} lanes of "
+            f"trimesh flat against the full sweep")
+    kwc = dict(width=CHECK_W, height=CHECK_H, spp=sppt, seed=SEED,
+               shading="flat")
+    img_ft, rays_ft = render_pass(st_, default_camera(st_), backend="fused",
+                                  **kwc)
+    img_ct, rays_ct = render_pass(st_, default_camera(st_), backend="cuda",
+                                  **kwc)
+    npxt = int((img_ft != img_ct).any(-1).sum())
+    require(rays_ft == rays_ct and npxt <= 20,
+            f"trimesh flat at {CHECK_W}x{CHECK_H} differs from backend cuda"
+            f" on {npxt} pixels")
+    print(f"estimator trimesh: flat {wt}x{ht} {sppt} spp fused: {rayst} "
+          f"rays in {secst} s = {[rayst / t for t in secst]} rays/s on "
+          f"{card}; K9 bit-equal to plain on 1 lane in 32, {k9_evt:.3f} ms "
+          f"by CUDA events (bound {bt[0]:.3f} ms by {bt[1]}; list pass rate "
+          f"{reach:.4f}; every tile swept {k9_swept:.3f} ms, {n_lanes_fuzz} "
+          f"lanes differ) / plain {plaint:.1f} ms on the slice; "
+          f"{CHECK_W}x{CHECK_H} image against backend cuda: {npxt} pixels "
+          f"differ", flush=True)
+    phase("est_trimesh", t0)
+
+    # 28. trilight (triangle shadows): Lambert+shadow, 1920x1080, 4 spp.
+    # The pass as the CLI drives it, K9 against its plain version on 1
+    # lane in 32, and the gradients at 320x180 within 1e-5 of each group's
+    # max of backend cuda autograd (the fused backward runs the eager
+    # estimator on K1 and K7)
+    t0 = time.perf_counter()
+    cfgl = EST_TRILIGHT
+    _, _, wl, hl, sppl = cfgl
+    sl_, ll, argsl, kwl, _ = setup(cfgl)
+    require(ll == (0,), f"trilight's lights are {ll}")
+    tracerl, stl, raysl, secsl = drive(cfgl, sl_, 1)
+    launchesl = counts()["simple_trace"]
+    out_kl = simple_trace(*argsl, **kwl)
+    lanes_l = torch.arange(0, argsl[0].shape[1], SLICE_STRIDE, device=dev)
+    flopsl, bytesl, out_pl, _ = work(argsl, kwl,
+                                     int((sl_.radius > 0).sum()), lanes_l)
+    torch.cuda.synchronize()
+    require(bits_equal(torch, out_kl[:, lanes_l], out_pl),
+            "K9 (trilight Lambert) differs from plain on 1 lane in 32")
+    require(raysl == int(out_kl[3].double().sum()), "trilight pass rays")
+    _, plainl = timed(torch, lambda: simple_trace_plain(*argsl, **kwl,
+                                                        lanes=lanes_l))
+    k9_evl = cuda_ms(torch, lambda: simple_trace(*argsl, **kwl), 3)
+    bl = bound(flopsl, bytesl)
+    cfgl_g = ("trilight", "lambert_shadow", CHECK_W, CHECK_H, sppl)
+    caml = default_camera(sl_)
+    g_fl, rays_gl, launches_gl, _ = grads_of(sl_, caml, cfgl_g, "fused", ll)
+    n_probel = sppl * (1 + len(ll))
+    require(launches_gl["simple_trace"] == 1
+            and launches_gl["sphere_nearest_hit"] == n_probel
+            and launches_gl["tri_nearest_hit"] == n_probel,
+            f"trilight fwd+bwd launches {launches_gl}")
+    g_cl, rays_cl, _, _ = grads_of(sl_, caml, cfgl_g, "cuda", ll)
+    errl = grad_err(g_fl, g_cl)
+    require(rays_gl == rays_cl and max(errl.values()) <= 1e-5,
+            f"trilight gradients differ from backend cuda autograd: {errl}")
+    for k in ("tris.v0", "tris.albedo", "center", "emissive", "position"):
+        require(g_fl[k].abs().max().item() > 0,
+                f"trilight gradient of {k} is zero")
+    print(f"estimator trilight: lambert_shadow {wl}x{hl} {sppl} spp fused: "
+          f"{raysl} rays in {secsl} s on {card}; K9 bit-equal to plain on 1 "
+          f"lane in 32, {k9_evl:.3f} ms (bound {bl[0]:.3f} ms by {bl[1]}) "
+          f"/ plain {plainl:.1f} ms on the slice; {CHECK_W}x{CHECK_H} "
+          f"fwd+bwd launches {launches_gl}, gradients against backend cuda "
+          f"autograd within {max(errl.values()):.3e} of each group's max",
+          flush=True)
+    phase("est_trilight", t0)
+
+    # 29. one profiled pass each of config 2 and trimesh flat: K9's device
+    # time (torch.profiler) and the device's idle share
+    t0 = time.perf_counter()
+    prof = {}
+    for key, tracer, state in (("config2", tracer2, st2),
+                               ("trimesh", tracert, stt)):
+        before = counts()["simple_trace"]
+        (state_p, _), wall, by_key, busy = profiled(
+            torch, lambda: tracer.step(tracer.init_state()))
+        require(counts()["simple_trace"] - before == 1,
+                f"the profiled {key} pass launched K9 "
+                f"{counts()['simple_trace'] - before} times")
+        require(torch.equal(state_p.mean, state.mean),
+                f"the profiled {key} pass image differs")
+        ms = kernel_ms(by_key, k9_names)
+        require(ms > 0, f"torch.profiler recorded no K9 time ({key})")
+        prof[key] = (ms, wall, busy, 1.0 - busy / 1e3 / wall)
+        print(f"profiled {key} estimator pass: K9 {ms:.4f} ms, wall "
+              f"{wall:.4f} s, device busy {busy:.4f} ms (idle share "
+              f"{prof[key][3]:.3f})", flush=True)
+    phase("est_profiled", t0)
+
+    entry("simple_trace", cfg2, launches2,
+          (out_k2 - out_p2).abs().max().item(), prof["config2"][0], plain2,
+          b2, shape=f"{w2 * h2} lanes x {spp2} samples, 2 lights, "
+          f"{n_real16} real spheres; ms: torch.profiler, one pass",
+          ms_events=k9_ev2, fwd_bwd_launches=step_launches2)
+    entry("simple_trace_flat", cfg1, launches1,
+          (out_k1 - out_p1).abs().max().item(), k9_ev1, plain1, b1,
+          shape=f"{w1 * h1} lanes x {spp1} sample; ms: CUDA events")
+    entry("simple_trace_tri", cfgt, launchest,
+          (out_kt[:, lanes_t] - out_pt).abs().max().item(),
+          prof["trimesh"][0], plaint, bt,
+          shape=f"{rt} lanes x {sppt} samples x {st_.tris.n_real} "
+          f"triangles in {argst[4].shape[0]} tiles; ms: torch.profiler, "
+          f"one pass; plain: 1 lane in 32", ms_events=k9_evt,
+          list_pass_rate=reach, ms_swept=k9_swept,
+          lanes_changed_by_lists=n_lanes_fuzz,
+          plain_lanes=int(out_pt.shape[1]))
+    entry("simple_trace_trilight", cfgl, launchesl,
+          (out_kl[:, lanes_l] - out_pl).abs().max().item(), k9_evl, plainl,
+          bl, shape=f"{argsl[0].shape[1]} lanes x {sppl} samples, 1 light, "
+          f"{sl_.tris.n_real} triangles; ms: CUDA events; plain: 1 lane in "
+          f"32", plain_lanes=int(out_pl.shape[1]),
+          fwd_bwd_launches=launches_gl)
+    summary.update(
+        config2=dict(width=w2, height=h2, spp=spp2, rays_cast=rays2,
+                     seconds=secs2, rays_per_s=[rays2 / t for t in secs2],
+                     fwd_bwd_seconds=step_secs2,
+                     fwd_bwd_rays_per_s=[rays2 / t for t in step_secs2],
+                     fwd_bwd_peak_bytes=peak2, grad_max_rel_err=err2,
+                     device_idle_share=prof["config2"][3]),
+        config1=dict(width=w1, height=h1, spp=spp1, rays_cast=rays1,
+                     seconds=secs1),
+        trimesh_flat=dict(width=wt, height=ht, spp=sppt, rays_cast=rayst,
+                          seconds=secst,
+                          rays_per_s=[rayst / t for t in secst],
+                          list_pass_rate=reach, k9_swept_ms=k9_swept,
+                          pixels_differing_from_cuda=npxt,
+                          device_idle_share=prof["trimesh"][3]),
+        trilight=dict(width=wl, height=hl, spp=sppl, rays_cast=raysl,
+                      seconds=secsl, grad_max_rel_err=errl))
+    return kernels, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -272,9 +693,11 @@ def main() -> int:
     from tpu_ray_torch.ops.raygen import camera_rays
     from tpu_ray_torch.utils.png import write_png
 
+    from tpu_ray_torch.kernels.simple_shade import simple_trace
+
     counted = (sphere_nearest_hit, regen_steps, regen_record, regen_bwd,
                bounce_fwd, bounce_replay, bounce_bwd, tri_nearest_hit,
-               bounce_fwd_list)
+               bounce_fwd_list, simple_trace)
 
     def reset_counts():
         for fn in counted:
@@ -1854,6 +2277,20 @@ def main() -> int:
         same_lanes="sample 0, 5 bounces",
         k8_ms_in_step=tstep_tot["bounce_fwd_list"][0])
 
+    # 25-29. the flat and Lambert+shadow estimators on K9
+    est_kernels, est = estimator_phases(torch, dev, card, reset_counts,
+                                        counts)
+    kernels.update(est_kernels)
+    # K1 and K7 also run in the estimators' backward (the eager estimator)
+    kernels["sphere_nearest_hit"]["launches_estimator_bwd"] = {
+        "sixteen": est_kernels["simple_trace"]["fwd_bwd_launches"][
+            "sphere_nearest_hit"],
+        "trilight": est_kernels["simple_trace_trilight"][
+            "fwd_bwd_launches"]["sphere_nearest_hit"]}
+    kernels["tri_nearest_hit"]["launches_estimator_bwd"] = {
+        "trilight": est_kernels["simple_trace_trilight"][
+            "fwd_bwd_launches"]["tri_nearest_hit"]}
+
     phase("total", t_all)
 
     print(json.dumps({"main_path": {
@@ -1886,7 +2323,8 @@ def main() -> int:
                 "fwd_bwd_rays_per_s": [rays_tsg / t for t in tsample_secs],
                 "fwd_bwd_peak_bytes": peak_ts,
                 "device_idle_share": {"forward": tfwd_idle,
-                                      "fwd_bwd": tstep_idle}}}}}))
+                                      "fwd_bwd": tstep_idle}}},
+        "estimators": est}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -510,3 +510,106 @@ def test_tri_per_sample_route_on_card(cuda_device):
             3e-3 * want.abs().max().clamp_min(1e-12), k
     for k in ("tris.v0", "tris.e1", "tris.e2", "tris.albedo"):
         assert grads["fused"][k].abs().max() > 0, k
+
+
+def _estimator_inputs(name, dev, w, h, lights=None):
+    from tpu_ray_torch.core.scene import make_trilight_scene
+    from tpu_ray_torch.kernels.regen import cam13
+    from tpu_ray_torch.kernels.simple_shade import lane_rows, simple_tables
+    from tpu_ray_torch.ops.shading_modes import scene_light_indices
+    ts = (make_trilight_scene(device=dev) if name == "trilight"
+          else make_scene(name, device=dev))
+    lights = scene_light_indices(ts) if lights is None else lights
+    tb = simple_tables(ts, lights)
+    px = torch.as_tensor(tile_order(w, h)[0], device=dev)
+    return tb, lane_rows(px, w, 0), cam13(default_camera(ts), 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,flat", [("single", True), ("sixteen", False),
+                                       ("trimesh", True),
+                                       ("trilight", False)])
+def test_k9_matches_plain_on_card(cuda_device, name, flat):
+    """K9 against simple_trace_plain bit for bit, flat and Lambert, on
+    spheres and triangles, at 50x30 = 1,500 lanes (not a multiple of the
+    256-lane block), 2 spp from sample 1; on a triangle scene with the
+    block lists and with every tile swept."""
+    from tpu_ray_torch.kernels.simple_shade import (simple_trace,
+                                                    simple_trace_plain)
+    tb, rows, cam = _estimator_inputs(name, cuda_device, 50, 30)
+    kw = dict(n_sph=tb["n_sph"], spp=2, s0=1, width=50, height=30,
+              use_sky=tb["use_sky"], flat=flat)
+    for boxes in ((tb["boxes"], None) if tb["tri"] is not None
+                  else (None,)):
+        args = (rows, cam, tb["table"], tb["tri"], boxes, tb["lidx"],
+                tb["ldat"])
+        before = simple_trace.launches
+        got = simple_trace(*args, **kw)
+        torch.cuda.synchronize()
+        assert simple_trace.launches == before + 1
+        want = simple_trace_plain(*args, **kw)
+        assert torch.equal(got, want), (got - want).abs().max()
+        assert float(got[3].min()) >= 2.0 and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+def test_k9_launch_raises_on_bad_input(cuda_device):
+    """The wrapper refuses a wrong shape or a CPU tensor, and the launch
+    refuses a sphere table past shared memory (no fallback)."""
+    from tpu_ray_torch.kernels.simple_shade import simple_trace
+    tb, rows, cam = _estimator_inputs("sixteen", cuda_device, 16, 16)
+    kw = dict(n_sph=tb["n_sph"], spp=1, s0=0, width=16, height=16,
+              use_sky=False, flat=False)
+    args = (tb["table"], None, None, tb["lidx"], tb["ldat"])
+    with pytest.raises(ValueError):
+        simple_trace(rows[:2].contiguous(), cam, *args, **kw)
+    with pytest.raises(ValueError):
+        simple_trace(rows, cam.cpu(), *args, **kw)
+    big = torch.zeros((20000, 12), device=cuda_device)
+    with pytest.raises(RuntimeError, match="trt_simple_trace"):
+        simple_trace(rows, cam, big, None, None, tb["lidx"], tb["ldat"],
+                     **dict(kw, n_sph=20000))
+
+
+@pytest.mark.cuda
+def test_estimator_routes_on_card(cuda_device):
+    """sixteen, Lambert, 64x48, 2 spp: the fused route launches K9 once a
+    pass and renders backend cuda's image within 1e-5 (rays equal); its
+    gradients (SimpleTrace's backward: the eager estimator on K1) within
+    1e-5 of each group's max of backend cuda autograd, the lights'
+    centre and emissive rows nonzero."""
+    from tpu_ray_torch.core.camera import trainable_camera
+    from tpu_ray_torch.core.scene import trainable_scene
+    from tpu_ray_torch.grad import image_mse
+    from tpu_ray_torch.kernels.simple_shade import simple_trace
+    from tpu_ray_torch.models.path_tracer import render_pass
+    from tpu_ray_torch.ops.shading_modes import scene_light_indices
+
+    base = make_scene("sixteen", device=cuda_device)
+    cam0 = default_camera(base)
+    lights = scene_light_indices(base)
+    kw = dict(width=64, height=48, spp=2, shading="lambert_shadow",
+              lights=lights)
+    before = simple_trace.launches
+    a, ra = render_pass(base, cam0, backend="fused", **kw)
+    assert simple_trace.launches - before == 1
+    b, rb = render_pass(base, cam0, backend="cuda", **kw)
+    assert ra == rb
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    grads = {}
+    for backend in ("fused", "cuda"):
+        sc = trainable_scene(base)
+        cam = trainable_camera(cam0)
+        k1 = sphere_nearest_hit.launches
+        img, _ = render_pass(sc, cam, backend=backend, **kw)
+        image_mse(img, torch.zeros_like(img)).backward()
+        assert sphere_nearest_hit.launches > k1
+        grads[backend] = {k: sc.leaf(k).grad for k in sc.leaves}
+        grads[backend]["position"] = cam.position.grad
+    for k, want in grads["cuda"].items():
+        got = grads["fused"][k]
+        assert (got - want).abs().max() <= \
+            1e-5 * want.abs().max().clamp_min(1e-12), k
+    for li in lights:
+        assert grads["fused"]["center"][li].abs().max() > 0
+        assert grads["fused"]["emissive"][li].abs().max() > 0

@@ -24,8 +24,10 @@ import torch
 from tpu_ray_torch import PathTracer, RenderConfig
 from tpu_ray_torch.core.camera import default_camera
 from tpu_ray_torch.core.scene import make_scene
-from tpu_ray_torch.models.path_tracer import (render_pass, tile_order,
-                                              untile_image)
+from tpu_ray_torch.models.path_tracer import (probe_for, render_pass,
+                                              tile_order, untile_image)
+from tpu_ray_torch.ops.raygen import camera_rays
+from tpu_ray_torch.ops.shading_modes import scene_light_indices
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
@@ -126,9 +128,18 @@ def test_path_tracer_accumulates():
                                 dict(backend="torch",
                                      shading="lambert_shadow")])
 def test_unported_routes_refuse(scenes, kw):
+    """The estimator routes, which refused before they were ported, render
+    at W x H: one ray a pixel, and for Lambert one more for each of rgb's
+    lights on every pixel that hits."""
     s, cam = scenes["rgb"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_pass(s, cam, width=W, height=H, spp=1, **kw)
+    lights = scene_light_indices(s) if kw["shading"] != "flat" else ()
+    img, rays = render_pass(s, cam, width=W, height=H, spp=1, lights=lights,
+                            **kw)
+    assert tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all())
+    o, d, _ = camera_rays(cam, W, H, torch.arange(W * H), 0, 0)
+    hits = int(probe_for(s, "torch")(s, o, d).hit.sum())
+    assert len(scene_light_indices(s)) == 3 and 0 < hits < W * H
+    assert rays == W * H + len(lights) * hits
 
 
 def test_config_rejects_jax_backend_names():
@@ -165,8 +176,9 @@ def test_cli_scenes_and_unported_flags(tmp_path):
     assert p.returncode == 2 and "unrecognized arguments" in p.stderr
     p = _cli("render", "--device", "cpu", "--width", "8", "--height", "8",
              "--shading", "flat", "--out", str(tmp_path / "y.png"))
-    assert p.returncode != 0 and "NotImplementedError" in p.stderr
-    assert not (tmp_path / "y.png").exists()
+    assert p.returncode == 0, p.stderr
+    assert (tmp_path / "y.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert "64 rays" in p.stderr
 
 
 def _port_sources():

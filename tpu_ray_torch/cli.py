@@ -120,7 +120,7 @@ def cmd_fit(args) -> int:
     if args.mesh is not None:
         raise NotImplementedError(
             "--mesh: sharding is not ported yet (ROADMAP.md queue A, "
-            "item 5)")
+            "item 4)")
     scene = make_scene(args.scene, device=args.device)
     camera = default_camera(scene)
     kw = dict(width=args.width, height=args.height, spp=args.spp,

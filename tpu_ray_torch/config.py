@@ -11,7 +11,11 @@ Backends (the JAX package's names on the left):
                    + regen   (kernels/regen.py), the default route on the
                              card, for sphere and triangle scenes
   fused          -> "fused"  the per-sample route through the CUDA bounce
-                             kernels (kernels/bounce_step.py; sphere scenes)
+                             kernels (kernels/bounce_step.py)
+
+shading "flat" and "lambert_shadow" (ops/shading_modes.py) run eagerly on
+"torch" and "cuda", and through the CUDA estimator kernel
+(kernels/simple_shade.py) on "fused".
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import dataclasses
 from typing import Optional
 
 BACKENDS = ("torch", "cuda", "fused")
+SHADINGS = ("path", "flat", "lambert_shadow")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +35,7 @@ class RenderConfig:
     max_bounces: int = 5
     backend: str = "torch"            # 'torch' | 'cuda' | 'fused'
     seed: int = 0
-    shading: str = "path"             # only 'path' is ported so far
+    shading: str = "path"             # 'path' | 'flat' | 'lambert_shadow'
     ray_chunk: Optional[int] = None   # split the ray wavefront to bound memory
     exact_srgb: bool = False          # the reference ships the sqrt curve
     exact_argmin: bool = False        # accepted; the port's search is exact
@@ -43,6 +48,9 @@ class RenderConfig:
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {self.backend!r}")
+        if self.shading not in SHADINGS:
+            raise ValueError(f"shading must be one of {SHADINGS}, "
+                             f"got {self.shading!r}")
         if (self.ray_chunk is not None
                 and (self.width * self.height) % self.ray_chunk):
             raise ValueError("ray_chunk must divide width*height")

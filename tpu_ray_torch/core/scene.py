@@ -530,6 +530,38 @@ def make_obj_scene(path: str, pad_to: int = SPHERE_PAD,
     return dataclasses.replace(scene, tris=tris)
 
 
+def make_trilight_scene(pad_to: int = SPHERE_PAD, device="cuda") -> Scene:
+    """Small mixed scene for the Lambert+shadow estimator on triangles: an
+    emissive sphere (the light) and a diffuse sphere over a resident soup
+    (an icosphere and a ground quad, 82 triangles) that is hit, shaded and
+    casts shadows. The JAX test suite's ``_tri_light_scene``
+    (tests/test_shading_modes.py), built op for op; not one of the named
+    scenes of ``make_scene``."""
+    s = float(WORLD_SCALE)
+    v, f = icosphere(1)
+    g = 20.0 * s
+    verts, faces, colors = merge([
+        (v * (1.2 * s) + np.array([0.0, 1.2 * s, 0.0], np.float32), f,
+         (0.7, 0.4, 0.3)),
+        (*quad((-g, 0, -g), (-g, 0, g), (g, 0, g), (g, 0, -g)),
+         (0.5, 0.5, 0.5)),
+    ])
+    tris = pack_triangles(verts, faces, colors, device=device)
+    b = SceneBuilder()
+    b.add((3.0, 6.0, 2.0), 1.0, (1.0, 1.0, 1.0), emissive=(8.0, 7.5, 7.0))
+    b.add((2.2, 0.8, 0.5), 0.8, (0.3, 0.6, 0.4))
+    scene = b.build(
+        look_at=np.array([0.0, 1.2 * s, 0.0], np.float32),
+        use_sky=True,
+        default_distance=8.0 * WORLD_SCALE,
+        default_x_angle=0.6,
+        default_y_height=3.0 * WORLD_SCALE,
+        pad_to=pad_to,
+        device=device,
+    )
+    return dataclasses.replace(scene, tris=tris)
+
+
 def make_scene(name_or_index, pad_to: int = SPHERE_PAD,
                device="cuda") -> Scene:
     if isinstance(name_or_index, int):

@@ -173,41 +173,6 @@ __global__ void bounce_fwd_kernel(const float* __restrict__ st,
   idx_out[i] = idx;
 }
 
-// torch.maximum / torch.minimum: NaN if either is NaN (the slab test's
-// value can be NaN where 0 * inf meets, and the plain version keeps it)
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
-}
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
-}
-
-// bounce_step.py _block_reach for one lane and one tile box (lo.xyz,
-// hi.xyz): does the ray meet the box at some t >= 0? The plain version's
-// op order; 1 / d is a true division.
-__device__ __forceinline__ bool slab_reach(const TrtBounceLane& L,
-                                           const float* box) {
-  const float big = 3.0e38f;
-  const float o[3] = {L.ox, L.oy, L.oz};
-  const float d[3] = {L.dx, L.dy, L.dz};
-  float tl = 0.0f, th = big;
-  for (int k = 0; k < 3; ++k) {
-    const float lo = box[k], hi = box[3 + k];
-    if (d[k] == 0.0f) {
-      const bool inside = o[k] >= lo && o[k] <= hi;
-      tl = nan_max(tl, inside ? -big : big);
-      th = nan_min(th, inside ? big : -big);
-    } else {
-      const float inv = 1.0f / d[k];
-      const float a0 = (lo - o[k]) * inv;
-      const float a1 = (hi - o[k]) * inv;
-      tl = nan_max(tl, nan_min(a0, a1));
-      th = nan_min(th, nan_max(a0, a1));
-    }
-  }
-  return th >= tl && th >= 0.0f;
-}
-
 // tri [m, 9] v0|e1|e2 (ids n_sph + j); boxes [n_tiles, 6], tile t holds
 // triangles [t * block_m, min((t + 1) * block_m, m)). Dynamic shared
 // memory: n_sph spheres (float4), block_m * 9 floats of staged tile,
@@ -244,44 +209,18 @@ __global__ void bounce_fwd_list_kernel(const float* __restrict__ st,
     for (int k = threadIdx.x; k < 6 * n_tiles; k += blockDim.x) {
       box[k] = boxes[k];
     }
-    for (int k = threadIdx.x; k < n_tiles; k += blockDim.x) reach[k] = 0;
     __syncthreads();
     // the block's list: tile t is reached if a lane's ray meets its box
-    for (int t = 0; t < n_tiles; ++t) {
-      const bool f = alive && slab_reach(L, box + 6 * t);
-      if (__any_sync(0xffffffffu, f) && (threadIdx.x & 31) == 0) {
-        reach[t] = 1;
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int c = 0;
-      for (int t = 0; t < n_tiles; ++t) {
-        if (reach[t]) lst[c++] = t;
-      }
-      s_cnt = c;
-    }
-    __syncthreads();
+    const int cnt = trt_block_list(alive, L.ox, L.oy, L.oz, L.dx, L.dy,
+                                   L.dz, box, n_tiles, reach, lst, &s_cnt);
     float best = TRT_F32_MAX;
     int bi = 0;
     if (alive) {
       trt_fold_spheres(sph, 0, n_sph, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz,
                        best, bi);
     }
-    const int cnt = s_cnt;
-    for (int k = 0; k < cnt; ++k) {
-      const int j0 = lst[k] * block_m;
-      const int nj = min(block_m, m - j0);
-      __syncthreads();     // every thread is done with the previous tile
-      for (int q = threadIdx.x; q < 9 * nj; q += blockDim.x) {
-        tile[q] = tri[(size_t)9 * j0 + q];
-      }
-      __syncthreads();
-      if (alive) {
-        trt_fold_tris(tile, 0, nj, n_sph + j0, L.ox, L.oy, L.oz, L.dx, L.dy,
-                      L.dz, best, bi);
-      }
-    }
+    trt_fold_tiles_staged(tri, m, block_m, lst, cnt, tile, n_sph, alive,
+                          L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, best, bi);
     if (alive && best < TRT_F32_MAX) idx = bi;
   }
   if (alive) {

@@ -143,6 +143,101 @@ __device__ __forceinline__ void trt_fold_tris(
   }
 }
 
+// torch.maximum / torch.minimum: NaN if either is NaN (the slab test's
+// value can be NaN where 0 * inf meets, and the plain version keeps it)
+__device__ __forceinline__ float trt_nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+}
+__device__ __forceinline__ float trt_nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
+}
+
+// kernels/bounce_step.py _block_reach for one ray and one tile box
+// (lo.xyz, hi.xyz): does the ray meet the box at some t >= 0? The plain
+// version's op order; 1 / d is a true division.
+__device__ __forceinline__ bool trt_slab_reach(float ox, float oy, float oz,
+                                               float dx, float dy, float dz,
+                                               const float* box) {
+  const float big = 3.0e38f;
+  const float o[3] = {ox, oy, oz};
+  const float d[3] = {dx, dy, dz};
+  float tl = 0.0f, th = big;
+  for (int k = 0; k < 3; ++k) {
+    const float lo = box[k], hi = box[3 + k];
+    if (d[k] == 0.0f) {
+      const bool inside = o[k] >= lo && o[k] <= hi;
+      tl = trt_nan_max(tl, inside ? -big : big);
+      th = trt_nan_min(th, inside ? big : -big);
+    } else {
+      const float inv = 1.0f / d[k];
+      const float a0 = (lo - o[k]) * inv;
+      const float a1 = (hi - o[k]) * inv;
+      tl = trt_nan_max(tl, trt_nan_min(a0, a1));
+      th = trt_nan_min(th, trt_nan_max(a0, a1));
+    }
+  }
+  return th >= tl && th >= 0.0f;
+}
+
+// The block's list of reachable triangle tiles (kernels/bounce_step.py
+// tri_block_lists at block_r = blockDim.x, group 1): tile t is listed if
+// the ray (o, d) of an active lane meets its box (box [n_tiles, 6] in
+// shared memory), a warp vote ORs the lanes and thread 0 compacts the
+// reached ids into lst in ascending order. -> the count. Every thread of
+// the block calls it (it holds barriers); blockDim.x is a multiple of 32.
+// reach, lst: n_tiles ints of shared memory each; cnt: one shared int.
+__device__ __forceinline__ int trt_block_list(bool active, float ox,
+                                              float oy, float oz, float dx,
+                                              float dy, float dz,
+                                              const float* box, int n_tiles,
+                                              int* reach, int* lst,
+                                              int* cnt) {
+  for (int k = threadIdx.x; k < n_tiles; k += blockDim.x) reach[k] = 0;
+  __syncthreads();
+  for (int t = 0; t < n_tiles; ++t) {
+    const bool f = active && trt_slab_reach(ox, oy, oz, dx, dy, dz,
+                                            box + 6 * t);
+    if (__any_sync(0xffffffffu, f) && (threadIdx.x & 31) == 0) {
+      reach[t] = 1;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int c = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (reach[t]) lst[c++] = t;
+    }
+    *cnt = c;
+  }
+  __syncthreads();
+  return *cnt;
+}
+
+// trt_fold_tris over the tiles lst[0..cnt) in order (the tiles 0..cnt-1
+// when lst is nullptr) of a [m, 9] v0|e1|e2 table, tile t holding
+// triangles [t * block_m, min((t + 1) * block_m, m)) with ids id0 + j.
+// Each tile is staged into shared memory (block_m * 9 floats at tile) by
+// the whole block and every thread reads the same triangle at once, a
+// broadcast. Every thread of the block calls it (it holds barriers);
+// only active lanes fold.
+__device__ __forceinline__ void trt_fold_tiles_staged(
+    const float* __restrict__ tri, int m, int block_m, const int* lst,
+    int cnt, float* tile, int id0, bool active, float ox, float oy,
+    float oz, float dx, float dy, float dz, float& best, int& bi) {
+  for (int k = 0; k < cnt; ++k) {
+    const int j0 = (lst ? lst[k] : k) * block_m;
+    const int nj = min(block_m, m - j0);
+    __syncthreads();     // every thread is done with the previous tile
+    for (int q = threadIdx.x; q < 9 * nj; q += blockDim.x) {
+      tile[q] = tri[(size_t)9 * j0 + q];
+    }
+    __syncthreads();
+    if (active) {
+      trt_fold_tris(tile, 0, nj, id0 + j0, ox, oy, oz, dx, dy, dz, best, bi);
+    }
+  }
+}
+
 // Stage n spheres (center [n,3], radius [n]) into shared memory.
 __device__ __forceinline__ void trt_stage_spheres(
     float4* sph, const float* __restrict__ center,

@@ -68,6 +68,10 @@ SIGNATURES = {
     "trt_bounce_bwd": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     # r -> rows of trt_bounce_bwd's partials (returns a count, not an error)
     "trt_bounce_bwd_parts": [_I],
+    # rows, r, cam13, table, n_sph, tri, m, boxes, n_tiles, lidx, ldat,
+    # n_lights, spp, s0, use_sky, width, height, film_w, film_h, out, stream
+    "trt_simple_trace": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I,
+                         _I, _I, _I, _I, _F, _F, _P, _P],
 }
 
 _lock = threading.Lock()
