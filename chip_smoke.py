@@ -53,7 +53,18 @@ to backend cuda's), trimesh flat at 1920x1080, 4 spp (the block lists on;
 K9 on 1 lane in 32, the image against backend cuda's at 320x180) and
 trilight (Lambert over triangles, 1920x1080, 4 spp: K9 on 1 lane in 32,
 gradients against backend cuda autograd at 320x180), and one profiled
-pass each of config 2 and trimesh flat.
+pass each of config 2 and trimesh flat. Then the route past the
+residency rule: bigmesh (163,842 triangles in 1,281 tiles) at 1920x1080,
+1 spp. K10 (csrc/tri_stream.cu, the listed triangle search) at the pass's
+own primary rays and sorted bounce-1 state, bit for bit against its plain
+version on 1 lane in 32 and against K7 on every alive lane (differing
+lanes counted; none where K7's hit lies inside its tile's box), and its
+bound counted on every bounce's state; the pass as the CLI drives it on
+backend fused, which falls back to the probe route (two calls, one more
+under torch.profiler, its image equal to backend cuda's, and one call at
+ray_chunk=43200); three forward+backward steps with remat="save_hits"
+(no search in the backward; gradients against remat=False's); and the
+fused flat estimator's warning and fallback.
 Prints each phase's wall seconds, a
 JSON line of main-path numbers, one JSON line of per-kernel numbers and,
 last, one JSON line with the device. Any failed check raises, so the exit
@@ -119,6 +130,12 @@ EST_TRIMESH = ("trimesh", "flat", 1920, 1080, 4)
 EST_TRILIGHT = ("trilight", "lambert_shadow", 1920, 1080, 4)
 # K9's bytes a lane: rows in (x, y, h1), colour sum and rays out
 K9_LANE_BYTES = 12 + 16
+# the route past the residency rule: bigmesh at BASELINE.md's size (its
+# forward and forward+backward rows), bench.py's ray chunk for it, and the
+# flat estimator's fallback at the check size
+BIG = ("bigmesh", 1920, 1080, 1)
+BIG_CHUNK = 43200
+BIG_EST = (CHECK_W, CHECK_H)
 
 
 class CheckFailed(RuntimeError):
@@ -656,6 +673,362 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
     return kernels, summary
 
 
+def bigmesh_phases(torch, dev, card, reset_counts, counts):
+    """Phases 30-33: the route past the residency rule on bigmesh (163,842
+    triangles, 1,281 tiles of 128) at 1920x1080, 1 spp: K10 (the listed
+    triangle search, kernels/tri_intersect.tri_nearest_hit_stream) against
+    its plain version and against K7, the pass as the CLI drives it on
+    backend fused (which falls back to the probe route), forward+backward
+    with remat="save_hits", and the flat estimator's fallback.
+    -> ({kernel key: entry}, numbers)."""
+    import warnings
+    from tpu_ray_torch import PathTracer, RenderConfig
+    from tpu_ray_torch.core.camera import default_camera, trainable_camera
+    from tpu_ray_torch.core.scene import make_scene, trainable_scene
+    from tpu_ray_torch.grad import image_mse, render_mean
+    from tpu_ray_torch.kernels.bounce_step import (BLOCK_R, TRI_BLOCK_M,
+                                                   _block_reach, init_state,
+                                                   tri_tile_boxes)
+    from tpu_ray_torch.kernels.tri_intersect import (tri_nearest_hit,
+                                                     tri_nearest_hit_stream,
+                                                     tri_stream_plain)
+    from tpu_ray_torch.models.path_tracer import (past_residency, probe_for,
+                                                  render_pixels, tile_order,
+                                                  trace_rays, untile_image)
+    from tpu_ray_torch.ops.accumulate import accumulate
+    from tpu_ray_torch.ops.intersect_tri import tri_search_table
+    from tpu_ray_torch.ops.raygen import camera_rays
+
+    name, w, h, spp = BIG
+    k10_names = ("tri_stream_kernel",)
+    big = make_scene(name, device=dev)
+    require(past_residency(big), "bigmesh is within the residency rule")
+    cam = default_camera(big)
+    tab, boxes = tri_search_table(big.tris), tri_tile_boxes(big.tris)
+    n_tiles = boxes.shape[0]
+    n_tri_real = big.tris.n_real
+    perm, inv = tile_order(w, h)
+    pixel = torch.as_tensor(perm, device=dev)
+    r = pixel.shape[0]
+
+    # 30. K10 at the main path's own inputs: every bounce's post-sort
+    # (origin, direction, alive) of sample 0 on the route's tile-ordered
+    # lanes, captured by a probe that records them (the pass's own states:
+    # the trace is deterministic). On the primary rays and on bounce 1's
+    # state: K10 bit for bit against its plain version on 1 lane in 32
+    # (each lane searched over its full-launch block's list), against K7
+    # on every alive lane (a lane may differ only where K7's hit lies
+    # outside its tile's inflated box, the grazing acceptance fuzz), two
+    # launches bit-equal. The bound of the pass is counted on 1 lane in 32
+    # of every bounce's state, each pair of its block's listed tiles
+    # charged by where it leaves trt_tri_hit (mt_work), and scaled to the
+    # state's alive lanes.
+    t0 = time.perf_counter()
+    states = []
+    pf = probe_for(big, "cuda")
+
+    def recording(sc, o, d, alive=None, tape=None):
+        states.append((o.clone(), d.clone(), alive.clone()))
+        return pf(sc, o, d, alive, tape)
+
+    with torch.no_grad():
+        o0, d0, base0 = camera_rays(cam, w, h, pixel, 0, SEED)
+        trace_rays(big, o0, d0, base0, MAX_BOUNCES, recording)
+    torch.cuda.synchronize()
+    require(len(states) >= 2, f"bigmesh traced {len(states)} bounces")
+    checks = {}
+    for b in (0, 1):
+        o, d, al = states[b]
+        k = tri_nearest_hit_stream(tab, boxes, o, d, al)
+        k2 = tri_nearest_hit_stream(tab, boxes, o, d, al)
+        lanes = torch.arange(0, r, SLICE_STRIDE, device=dev)
+        p = tri_stream_plain(tab, boxes, o, d, al, lanes=lanes)
+        full = tri_nearest_hit(tab, o, d)
+        torch.cuda.synchronize()
+        require(torch.equal(k.idx, k2.idx) and bits_equal(torch, k.t, k2.t),
+                f"K10 bounce {b}: two launches differ")
+        require(torch.equal(k.idx[lanes], p.idx)
+                and bits_equal(torch, k.t[lanes], p.t),
+                f"K10 bounce {b}: differs from plain on 1 lane in 32")
+        require(bool((k.t[~al] == 1e30).all()),
+                f"K10 bounce {b}: a dead lane hit")
+        diff = al & ((k.idx != full.idx) | (k.t.view(torch.int32)
+                                             != full.t.view(torch.int32)))
+        fh = al & (full.t < 1e29)
+        pt_ = o + d * full.t[:, None]
+        bx = boxes[(full.idx.long() // TRI_BLOCK_M).clamp(max=n_tiles - 1)]
+        inside = fh & ((pt_ >= bx[:, 0:3]) & (pt_ <= bx[:, 3:6])).all(1)
+        n_diff = int(diff.sum())
+        require(not bool((diff & inside).any()),
+                f"K10 bounce {b}: {int((diff & inside).sum())} lanes differ "
+                f"from K7 where K7's hit lies inside its tile's box")
+        ms_k = cuda_ms(torch, lambda: tri_nearest_hit_stream(
+            tab, boxes, o, d, al), 3)
+        ms_7 = cuda_ms(torch, lambda: tri_nearest_hit(tab, o, d), 1)
+        _, ms_p = timed(torch, lambda: tri_stream_plain(tab, boxes, o, d, al,
+                                                        lanes=lanes))
+        checks[b] = dict(alive=int(al.sum()), hits=int((k.t < 1e29).sum()),
+                         lanes_differing_from_k7=n_diff, k10_ms=ms_k,
+                         k7_ms=ms_7, plain_ms=ms_p,
+                         plain_lanes=int(lanes.shape[0]))
+        print(f"K10 check, bigmesh bounce {b} ({w}x{h}, sample 0, "
+              f"{'sorted' if b else 'primary'}): {checks[b]['alive']} alive "
+              f"lanes, {checks[b]['hits']} hits; bit-equal to plain on 1 "
+              f"lane in 32, two launches bit-equal, {n_diff} alive lanes "
+              f"differ from K7 (none with K7's hit inside its tile's box); "
+              f"K10 {ms_k:.3f} ms, K7 {ms_7:.3f} ms (CUDA events), plain "
+              f"{ms_p:.1f} ms on the slice", flush=True)
+    flops = nbytes = 0.0
+    reach_sum = live_blocks = 0
+    listed = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+    per_bounce = []
+    for b, (o, d, al) in enumerate(states):
+        st = init_state(o, d, torch.zeros(r, dtype=torch.int64, device=dev))
+        st[12] = al.float()
+        reach = _block_reach(boxes, st)                       # [B,T]
+        listed |= reach.any(0)
+        live = int(reach.any(1).sum())
+        n_reach = int(reach.sum())
+        reach_sum += n_reach
+        live_blocks += live
+        sl = torch.arange(0, r, SLICE_STRIDE, device=dev)
+        sl = sl[al[sl]]
+        f = 0.0
+        if sl.numel():
+            f, _ = mt_work(torch, tab, o[sl], d[sl], reach[sl // BLOCK_R])
+            f *= float(al.sum()) / sl.numel()
+        flops += f
+        # each lane's ray and alive flag in, its t and idx out
+        nbytes += r * (24 + 1 + 8)
+        ms_b = cuda_ms(torch, lambda: tri_nearest_hit_stream(
+            tab, boxes, o, d, al), 3)
+        per_bounce.append(dict(
+            bounce=b, alive=int(al.sum()), live_blocks=live,
+            tiles_per_live_block=n_reach / max(live, 1), flops=f,
+            bound_ms=bound(f, r * (24 + 1 + 8))[0], k10_ms=ms_b))
+    nbytes += float(listed.sum()) * TRI_BLOCK_M * TRI_BYTES + boxes.numel() * 4
+    k10_bound = bound(flops, nbytes)
+    pass_rate = reach_sum / max(live_blocks * n_tiles, 1)
+    print(f"K10 bound over the pass's {len(states)} bounces: "
+          f"{flops:.6e} flops, {nbytes:.6e} B -> {k10_bound[0]:.3f} ms by "
+          f"{k10_bound[1]}; list pass rate {pass_rate:.4f} ({reach_sum} "
+          f"listed tiles over {live_blocks} live block-bounces x {n_tiles} "
+          f"tiles); per bounce (CUDA events): "
+          + "; ".join(f"{p['bounce']}: {p['alive']} alive, "
+                      f"{p['tiles_per_live_block']:.1f} tiles a live block, "
+                      f"K10 {p['k10_ms']:.3f} ms, bound "
+                      f"{p['bound_ms']:.3f} ms" for p in per_bounce),
+          flush=True)
+    phase("big_stream_check", t0)
+
+    # 31. the main path as the CLI drives it: PathTracer.step on bigmesh,
+    # backend fused (it falls back to the probe route: K1 + K10), two
+    # calls; one more under torch.profiler for K10's device time; its
+    # image equal to backend cuda's over the same tile-ordered lanes; one
+    # call at ray_chunk=43200 (bench.py's chunk for this scene), its
+    # differing pixels counted
+    t0 = time.perf_counter()
+
+    def tracer_of(chunk=None):
+        return PathTracer(RenderConfig(
+            scene=name, width=w, height=h, spp=spp, backend="fused",
+            seed=SEED, max_bounces=MAX_BOUNCES, ray_chunk=chunk), scene=big,
+            device=dev)
+
+    tracer = tracer_of()
+    secs, launches = [], None
+    for _ in range(2):
+        state0 = tracer.init_state()
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        state, rays = tracer.step(state0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        launches = counts()
+        n_b = launches["tri_nearest_hit_stream"]
+        require(1 <= n_b <= MAX_BOUNCES
+                and launches["sphere_nearest_hit"] == n_b
+                and sum(launches.values()) == 2 * n_b,
+                f"bigmesh pass launched {launches}")
+    require(tuple(state.mean.shape) == (h, w, 3)
+            and bool(torch.isfinite(state.mean).all())
+            and state.mean.mean().item() > 0.01,
+            "bigmesh image is not finite and non-black")
+    with torch.no_grad():
+        c_cuda, rays_c = render_pixels(big, cam, pixel, width=w, height=h,
+                                       spp=spp, sample_start=0, seed=SEED,
+                                       max_bounces=MAX_BOUNCES,
+                                       backend="cuda")
+    require(rays_c == rays and torch.equal(state.mean, accumulate(
+        tracer.init_state(), untile_image(c_cuda, w, h, inv), spp).mean),
+        "bigmesh fused pass differs from backend cuda's")
+    before = counts()["tri_nearest_hit_stream"]
+    (state_p, _), prof_wall, by_key, busy = profiled(
+        torch, lambda: tracer.step(tracer.init_state()))
+    require(counts()["tri_nearest_hit_stream"] - before == n_b,
+            "the profiled bigmesh pass launched K10 differently")
+    require(torch.equal(state_p.mean, state.mean),
+            "the profiled bigmesh pass differs")
+    k10_ms = kernel_ms(by_key, k10_names)
+    k1_ms = kernel_ms(by_key, ("sphere_nearest_hit_kernel",))
+    require(k10_ms > 0, "torch.profiler recorded no K10 time")
+    idle = 1.0 - busy / 1e3 / prof_wall
+    tracer_c = tracer_of(BIG_CHUNK)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state_ch, rays_ch = tracer_c.step(tracer_c.init_state())
+    torch.cuda.synchronize()
+    secs_chunk = time.perf_counter() - t
+    _, prof_wall_ch, by_key_ch, busy_ch = profiled(
+        torch, lambda: tracer_c.step(tracer_c.init_state()))
+    k10_ms_ch = kernel_ms(by_key_ch, k10_names)
+    n_px_chunk = int((state_ch.mean != state.mean).any(-1).sum())
+    require(n_px_chunk <= 20,
+            f"bigmesh at ray_chunk={BIG_CHUNK} differs on {n_px_chunk} "
+            f"pixels")
+    print(f"bigmesh main path: render --scene bigmesh --backend fused "
+          f"{w}x{h} {spp} spp (the probe route past the residency rule): "
+          f"{rays} rays in {secs} s = {[rays / t for t in secs]} rays/s on "
+          f"{card}; launches {launches}; image equal to backend cuda's; "
+          f"profiled: {prof_wall:.3f} s wall, K10 {k10_ms:.3f} ms, K1 "
+          f"{k1_ms:.3f} ms, device busy {busy:.3f} ms (idle share "
+          f"{idle:.3f}); at ray_chunk={BIG_CHUNK}: {secs_chunk:.3f} s, "
+          f"{rays_ch} rays, {n_px_chunk} pixels differ; profiled "
+          f"{prof_wall_ch:.3f} s wall, K10 {k10_ms_ch:.3f} ms, device busy "
+          f"{busy_ch:.3f} ms", flush=True)
+    phase("big_main_path", t0)
+
+    # 32. forward+backward as a user differentiates it (bench.py's and
+    # examples/08_big_meshes.py's remat="save_hits"): image_mse(render_mean
+    # (...), 0).backward() w.r.t. every scene leaf and the camera, three
+    # calls; the backward launches no K10 and no K1; the gradients finite,
+    # nonzero and within 3e-3 of each group's max of remat=False's
+    t0 = time.perf_counter()
+
+    def fwd_bwd(remat):
+        sc, cm = trainable_scene(big), trainable_camera(cam)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        img, rays_g = render_mean(sc, cm, width=w, height=h, spp=spp,
+                                  seed=SEED, max_bounces=MAX_BOUNCES,
+                                  backend="fused", remat=remat,
+                                  return_rays=True)
+        fwd = counts()
+        image_mse(img, torch.zeros_like(img)).backward()
+        torch.cuda.synchronize()
+        secs_g = time.perf_counter() - t
+        bwd = {k: v - fwd[k] for k, v in counts().items()}
+        g = {k: sc.leaf(k).grad for k in sc.leaves}
+        g.update(position=cm.position.grad, look_at=cm.look_at.grad)
+        return g, rays_g, fwd, bwd, secs_g
+
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    step_secs = []
+    for _ in range(3):
+        g_s, rays_g, fwd_l, bwd_l, t_s = fwd_bwd("save_hits")
+        step_secs.append(t_s)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    require(rays_g == rays, f"bigmesh fwd+bwd rays {rays_g} != {rays}")
+    require(fwd_l == launches and sum(bwd_l.values()) == 0,
+            f"bigmesh fwd+bwd launches: forward {fwd_l}, backward {bwd_l}")
+    for k, v in g_s.items():
+        require(v is not None and bool(torch.isfinite(v).all()),
+                f"bigmesh gradient of {k} missing or not finite")
+    for k in ("tris.v0", "tris.e1", "tris.e2", "tris.albedo", "position"):
+        require(g_s[k].abs().max().item() > 0,
+                f"bigmesh gradient of {k} is zero")
+    torch.cuda.reset_peak_memory_stats()
+    mem0_f = torch.cuda.memory_allocated()
+    g_f, _, _, bwd_f, secs_f = fwd_bwd(False)
+    peak_f = torch.cuda.max_memory_allocated() - mem0_f
+    err = {k: ((g_s[k] - g_f[k]).abs().max()
+               / g_f[k].abs().max().clamp_min(1e-12)).item() for k in g_f}
+    require(max(err.values()) <= 3e-3,
+            f"bigmesh save_hits gradients differ from remat=False's: {err}")
+    # one more step under torch.profiler: where the step's device time goes
+    (g_p, _, _, bwd_p, _), step_prof_wall, by_key_s, busy_s = profiled(
+        torch, lambda: fwd_bwd("save_hits"))
+    require(sum(bwd_p.values()) == 0, "the profiled step's backward searched")
+    require(all(torch.equal(g_p[k], g_s[k]) for k in g_s),
+            "the profiled bigmesh step's gradients differ")
+    step_k10_ms = kernel_ms(by_key_s, k10_names)
+    step_top = sorted(by_key_s.items(), key=lambda kv: -kv[1])[:5]
+    step_idle = 1.0 - busy_s / 1e3 / step_prof_wall
+    print(f"bigmesh fwd+bwd (remat=save_hits): {rays_g} rays, steps "
+          f"{step_secs} s = {[rays_g / t for t in step_secs]} rays/s on "
+          f"{card}; launches forward {fwd_l}, backward {bwd_l}; peak "
+          f"{peak} B above {mem0} B; remat=False: {secs_f:.3f} s, peak "
+          f"{peak_f} B, backward launches {bwd_f}; gradients within "
+          f"{max(err.values()):.3e} of each group's max of remat=False's; "
+          f"profiled step {step_prof_wall:.3f} s wall, device busy "
+          f"{busy_s:.3f} ms (idle share {step_idle:.3f}), K10 "
+          f"{step_k10_ms:.3f} ms, top device kernels "
+          + "; ".join(f"{k[:80]} {v:.3f} ms" for k, v in step_top),
+          flush=True)
+    phase("big_fwd_bwd", t0)
+
+    # 33. the flat estimator on fused past the rule: it warns and falls
+    # back to the eager estimator, equal to backend cuda's over the same
+    # tile-ordered lanes
+    t0 = time.perf_counter()
+    ew, eh = BIG_EST
+    eperm, einv = tile_order(ew, eh)
+    epx = torch.as_tensor(eperm, device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reset_counts()
+        e_f, er_f = render_pixels(big, cam, epx, width=ew, height=eh, spp=1,
+                                  sample_start=0, seed=SEED,
+                                  backend="fused", shading="flat")
+        est_launches = counts()
+    require(any("streaming" in str(c.message) for c in caught),
+            "the fused flat estimator on bigmesh did not warn")
+    require(est_launches["simple_trace"] == 0
+            and est_launches["tri_nearest_hit_stream"] == 1,
+            f"bigmesh flat launched {est_launches}")
+    e_c, er_c = render_pixels(big, cam, epx, width=ew, height=eh, spp=1,
+                              sample_start=0, seed=SEED, backend="cuda",
+                              shading="flat")
+    require(er_f == er_c == ew * eh and torch.equal(e_f, e_c),
+            "bigmesh flat on fused differs from backend cuda's")
+    print(f"bigmesh flat estimator {ew}x{eh} on fused: warns, falls back "
+          f"(launches {est_launches}), equal to backend cuda's", flush=True)
+    phase("big_estimator", t0)
+
+    kernels = {"tri_nearest_hit_stream": dict(
+        name="tri_nearest_hit_stream", route="cuda",
+        source="tpu_ray_torch/csrc/tri_stream.cu",
+        replaces="tpu_ray/kernels/tri_intersect.py:315",
+        launches=launches["tri_nearest_hit_stream"], max_abs_err=0.0,
+        ms=k10_ms, plain_ms=checks[1]["plain_ms"], bound_ms=k10_bound[0],
+        bound_by=k10_bound[1], library_ms=None,
+        path=f"render --scene bigmesh --backend fused {w}x{h} {spp} spp",
+        shape=f"{launches['tri_nearest_hit_stream']} launches of {r} lanes "
+              f"x {n_tri_real} triangles in {n_tiles} tiles; ms and bound: "
+              f"the whole pass (torch.profiler); plain: bounce 1, 1 lane in "
+              f"32", list_pass_rate=pass_rate, checks=checks,
+        plain_lanes=checks[1]["plain_lanes"],
+        ms_same_lanes=checks[1]["k10_ms"],
+        same_lanes="bounce 1's sorted state, every lane")}
+    summary = dict(
+        width=w, height=h, spp=spp, triangles=n_tri_real, rays_cast=rays,
+        seconds=secs, rays_per_s=[rays / t for t in secs],
+        seconds_ray_chunk_43200=secs_chunk, pixels_differing_chunked=n_px_chunk,
+        k10_ms_ray_chunk_43200=k10_ms_ch,
+        device_idle_share=idle, k10_ms=k10_ms, k1_ms=k1_ms,
+        k10_per_bounce=per_bounce, fwd_bwd_device_idle_share=step_idle,
+        fwd_bwd_top_device_ms=dict(step_top),
+        fwd_bwd_seconds=step_secs,
+        fwd_bwd_rays_per_s=[rays_g / t for t in step_secs],
+        fwd_bwd_peak_bytes=peak, fwd_bwd_remat_false_seconds=secs_f,
+        fwd_bwd_remat_false_peak_bytes=peak_f, grad_max_rel_err=err,
+        list_pass_rate=pass_rate)
+    return kernels, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -694,10 +1067,11 @@ def main() -> int:
     from tpu_ray_torch.utils.png import write_png
 
     from tpu_ray_torch.kernels.simple_shade import simple_trace
+    from tpu_ray_torch.kernels.tri_intersect import tri_nearest_hit_stream
 
     counted = (sphere_nearest_hit, regen_steps, regen_record, regen_bwd,
                bounce_fwd, bounce_replay, bounce_bwd, tri_nearest_hit,
-               bounce_fwd_list, simple_trace)
+               bounce_fwd_list, simple_trace, tri_nearest_hit_stream)
 
     def reset_counts():
         for fn in counted:
@@ -2291,6 +2665,10 @@ def main() -> int:
         "trilight": est_kernels["simple_trace_trilight"][
             "fwd_bwd_launches"]["tri_nearest_hit"]}
 
+    # 30-33. the route past the residency rule: bigmesh on K10
+    big_kernels, big = bigmesh_phases(torch, dev, card, reset_counts, counts)
+    kernels.update(big_kernels)
+
     phase("total", t_all)
 
     print(json.dumps({"main_path": {
@@ -2324,7 +2702,7 @@ def main() -> int:
                 "fwd_bwd_peak_bytes": peak_ts,
                 "device_idle_share": {"forward": tfwd_idle,
                                       "fwd_bwd": tstep_idle}}},
-        "estimators": est}}))
+        "estimators": est, "bigmesh": big}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,10 +111,10 @@ def test_scene_from_numpy_matches_make_scene(name):
 
 
 def test_unported_scenes_refuse():
-    """Triangle scenes build (trimesh, an obj: mesh, index 6); the routes
-    that are not ported refuse them, citing ROADMAP.md: bigmesh (past
-    resident_tables_fit) on every backend, the per-sample fused route
-    (fused without regen) included."""
+    """Triangle scenes build (trimesh, an obj: mesh, index 6), and bigmesh
+    (past resident_tables_fit), which every route once refused, now
+    renders on every backend (the fused routes fall back to the probe
+    route and the streaming search) with the same rays and image."""
     from tpu_ray_torch.core.camera import default_camera
     from tpu_ray_torch.models.path_tracer import render_pass
 
@@ -122,13 +122,17 @@ def test_unported_scenes_refuse():
     for name in ("trimesh", f"obj:{obj}", 6):
         assert tscene.make_scene(name, device="cpu").tris is not None
     big = tscene.make_scene("bigmesh", device="cpu")
-    cases = [(big, dict(backend=b, regen=b == "fused"))
+    cases = [dict(backend=b, regen=b == "fused")
              for b in ("torch", "cuda", "fused")]
-    cases.append((big, dict(backend="fused", regen=False)))
-    for scene, kw in cases:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_pass(scene, default_camera(scene), width=8, height=8,
-                        spp=1, **kw)
+    cases.append(dict(backend="fused", regen=False))
+    out = [render_pass(big, default_camera(big), width=8, height=8, spp=1,
+                       **kw) for kw in cases]
+    img0, rays0 = out[0]
+    assert tuple(img0.shape) == (8, 8, 3) and bool(torch.isfinite(img0).all())
+    assert rays0 >= 64
+    for img, rays in out[1:]:
+        assert rays == rays0
+        assert torch.equal(img, img0)
 
 
 @pytest.mark.parametrize("name", SPHERE_SCENES)

@@ -613,3 +613,103 @@ def test_estimator_routes_on_card(cuda_device):
     for li in lights:
         assert grads["fused"]["center"][li].abs().max() > 0
         assert grads["fused"]["emissive"][li].abs().max() > 0
+
+
+# the route past the residency rule: K10, the listed triangle search
+def _stream_rays(dev, scene, w, h):
+    """The scene's primary rays at w x h, then 4096 random rays from inside
+    the scene, then 512 rays from above it pointing up (no tile is
+    reached: their blocks' lists are empty)."""
+    px = torch.arange(w * h, device=dev)
+    o, d, _ = camera_rays(default_camera(scene), w, h, px, 0, 0)
+    g = np.random.default_rng(5)
+    o2 = torch.as_tensor(g.uniform(-0.2, 0.2, (4096, 3)).astype(np.float32),
+                         device=dev)
+    d2 = torch.nn.functional.normalize(torch.as_tensor(
+        g.normal(size=(4096, 3)).astype(np.float32), device=dev), dim=1)
+    o3 = torch.zeros((512, 3), device=dev)
+    o3[:, 1] = 1e4
+    d3 = torch.zeros((512, 3), device=dev)
+    d3[:, 1] = 1.0
+    return torch.cat([o, o2, o3]), torch.cat([d, d2, d3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["trimesh", "bigmesh"])
+def test_k10_matches_plain_on_card(cuda_device, name):
+    """K10 bit-equal to tri_stream_plain on primary, scattered and
+    upward rays, with every lane alive and with a dead block and dead
+    lanes (which miss); blocks whose list is empty miss; two launches
+    bit-equal; the launch counter counts launches only."""
+    from tpu_ray_torch.kernels.bounce_step import tri_tile_boxes
+    from tpu_ray_torch.kernels.tri_intersect import (tri_nearest_hit_stream,
+                                                     tri_stream_plain)
+    ts = make_scene(name, device=cuda_device)
+    tab, boxes = tri_search_table(ts.tris), tri_tile_boxes(ts.tris)
+    o, d = _stream_rays(cuda_device, ts, 64, 48)
+    alive = torch.ones(o.shape[0], dtype=torch.bool, device=cuda_device)
+    alive[256:512] = False
+    alive[::7] = False
+    for al in (None, alive):
+        n0 = tri_nearest_hit_stream.launches
+        a = tri_nearest_hit_stream(tab, boxes, o, d, al)
+        a2 = tri_nearest_hit_stream(tab, boxes, o, d, al)
+        b = tri_stream_plain(tab, boxes, o, d, al)
+        torch.cuda.synchronize()
+        assert tri_nearest_hit_stream.launches - n0 == 2
+        assert torch.equal(a.idx, b.idx) and torch.equal(_bits(a.t),
+                                                         _bits(b.t))
+        assert torch.equal(a.idx, a2.idx) and torch.equal(_bits(a.t),
+                                                          _bits(a2.t))
+        assert bool((a.t[-512:] == 1e30).all())
+        assert (a.t < 1e29).sum() > 1000
+        if al is not None:
+            assert bool((a.t[~al] == 1e30).all())
+            assert bool((a.idx[~al] == 0).all())
+    # against the full sweep (K7) on the primary rays: at most a grazing
+    # hit outside its tile's box differs
+    full = tri_nearest_hit(tab, o[:64 * 48], d[:64 * 48])
+    k = tri_nearest_hit_stream(tab, boxes, o[:64 * 48], d[:64 * 48])
+    torch.cuda.synchronize()
+    assert int((k.idx != full.idx).sum()) <= 2
+
+
+@pytest.mark.cuda
+def test_stream_route_on_card(cuda_device):
+    """bigmesh at 64x48, 1 spp: backend fused falls back to the probe
+    route (K1 + K10) and renders what backend cuda renders over the same
+    tile-ordered pixels (so the blocks, and their lists, are the same);
+    the fwd+bwd with remat="save_hits" launches K10 in the forward only,
+    and its gradients equal remat=False's."""
+    from tpu_ray_torch.core.camera import trainable_camera
+    from tpu_ray_torch.core.scene import trainable_scene
+    from tpu_ray_torch.grad import image_mse, render_mean
+    from tpu_ray_torch.kernels.tri_intersect import tri_nearest_hit_stream
+    from tpu_ray_torch.models.path_tracer import (render_pass,
+                                                  render_pixels,
+                                                  untile_image)
+
+    big = make_scene("bigmesh", device=cuda_device)
+    cam0 = default_camera(big)
+    kw = dict(width=64, height=48, spp=1)
+    n0 = tri_nearest_hit_stream.launches
+    a, ra = render_pass(big, cam0, backend="fused", **kw)
+    assert tri_nearest_hit_stream.launches > n0
+    perm, inv = tile_order(64, 48)
+    b, rb = render_pixels(big, cam0, torch.as_tensor(perm,
+                                                     device=cuda_device),
+                          sample_start=0, backend="cuda", **kw)
+    assert ra == rb
+    assert torch.equal(a, untile_image(b, 64, 48, inv))
+    grads = {}
+    for remat in (False, "save_hits"):
+        sc, cam = trainable_scene(big), trainable_camera(cam0)
+        img = render_mean(sc, cam, backend="fused", remat=remat, **kw)
+        n1 = tri_nearest_hit_stream.launches
+        image_mse(img, torch.zeros_like(img)).backward()
+        assert tri_nearest_hit_stream.launches == n1
+        grads[remat] = {k: sc.leaf(k).grad for k in sc.leaves}
+    for k, want in grads[False].items():
+        assert torch.isfinite(want).all(), k
+        assert torch.equal(grads["save_hits"][k], want), k
+    assert grads[False]["tris.v0"].abs().max() > 0

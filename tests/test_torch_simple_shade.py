@@ -280,15 +280,27 @@ def test_no_grad_runs_the_kernel_alone():
 
 
 def test_bigmesh_estimators_refuse():
-    """A scene past resident_tables_fit (bigmesh) is refused on every
-    estimator route, citing kernel #11 (no fallback), and by K9's tables
-    themselves."""
+    """Past resident_tables_fit (bigmesh) the fused estimators warn that
+    they fall back to the streaming route, and render what backends torch
+    and cuda render (the eager estimator on the streaming search); K9's
+    tables themselves still refuse such a scene."""
+    import warnings
+
     big = make_scene("bigmesh", device="cpu")
     cam = default_camera(big)
-    for backend in ("torch", "cuda", "fused"):
-        for shading in ("flat", "lambert_shadow"):
-            with pytest.raises(NotImplementedError, match="#11"):
-                render_pass(big, cam, width=8, height=8, spp=1,
-                            backend=backend, shading=shading)
-    with pytest.raises(NotImplementedError, match="#11"):
+    kw = dict(width=8, height=8, spp=1)
+    for shading in ("flat", "lambert_shadow"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            ref, rays = render_pass(big, cam, backend="torch",
+                                    shading=shading, **kw)
+            img_c, rays_c = render_pass(big, cam, backend="cuda",
+                                        shading=shading, **kw)
+        with pytest.warns(UserWarning, match="streaming"):
+            img_f, rays_f = render_pass(big, cam, backend="fused",
+                                        shading=shading, **kw)
+        assert rays == rays_c == rays_f == 64
+        assert bool(torch.isfinite(ref).all()) and ref.mean().item() > 0.01
+        assert torch.equal(img_c, ref) and torch.equal(img_f, ref)
+    with pytest.raises(NotImplementedError, match="probe route"):
         simple_tables(big, ())

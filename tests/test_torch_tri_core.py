@@ -112,8 +112,9 @@ def test_triangle_scenes_match_jax(scenes, name):
 
 def test_bigmesh_is_past_the_residency_rule():
     """bigmesh builds (164k triangles) and falls outside
-    resident_tables_fit in both packages, so every route refuses it
-    (tests/test_torch_core.py::test_unported_scenes_refuse)."""
+    resident_tables_fit in both packages, so every route takes the
+    streaming triangle search (tests/test_torch_core.py::
+    test_unported_scenes_refuse, tests/test_torch_tri_stream.py)."""
     big = tscene.make_scene("bigmesh", device="cpu")
     assert big.tris.n_real == 2 * 20 * 4 ** 6 + 2
     assert not tbs.resident_tables_fit(big.n_pad, big.tris.n_pad)

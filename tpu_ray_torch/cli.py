@@ -13,6 +13,8 @@ Run on the card (the default) or with ``--device cpu``, e.g.
       --height 512 --spp 4 --backend fused --steps 200 --out /tmp/fit.png
   python -m tpu_ray_torch.cli render --backend fused --no-regen \\
       --cull-secondary --out /tmp/y.png
+  python -m tpu_ray_torch.cli render --scene bigmesh --width 1920 \\
+      --height 1080 --backend fused --out /tmp/big.png
 
 --exact-argmin is accepted and changes nothing: the port's search is
 always exact. Not ported yet (ROADMAP.md queue A): --checkpoint/--resume,
@@ -31,7 +33,9 @@ def _add_common(ap: argparse.ArgumentParser):
     ap.add_argument("--scene", default="rtweekend",
                     help="rgb | randomized | rtweekend (reference scenes "
                          "0-2) | single | sixteen | sixtyfour | trimesh "
-                         "(spheres + triangles) | obj:PATH (a Wavefront "
+                         "(spheres + triangles) | bigmesh (164k triangles, "
+                         "past the residency rule: the streaming triangle "
+                         "search on every backend) | obj:PATH (a Wavefront "
                          "OBJ mesh on a ground quad)")
     ap.add_argument("--width", type=int, default=960)
     ap.add_argument("--height", type=int, default=540)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -476,8 +477,9 @@ def make_trimesh_scene(pad_to: int = SPHERE_PAD, subdivisions: int = 4,
 
 def make_bigmesh_scene(pad_to: int = SPHERE_PAD, device="cuda") -> Scene:
     """~164k-triangle scene (trimesh at subdivisions=6), past
-    ``kernels/bounce_step.resident_tables_fit``: built, but every route
-    refuses it until the streaming search is ported (ROADMAP.md)."""
+    ``kernels/bounce_step.resident_tables_fit``: every backend renders it
+    on the streaming route (the probe route with the listed triangle
+    search, K10 on the card, and the sorted-bounce wavefront)."""
     return make_trimesh_scene(pad_to=pad_to, subdivisions=6, device=device)
 
 
@@ -489,7 +491,7 @@ SCENE_BUILDERS: Dict[str, Callable[..., Scene]] = {
     "sixteen": make_sixteen_scene,        # BASELINE config 2
     "sixtyfour": make_sixtyfour_scene,    # BASELINE config 3
     "trimesh": make_trimesh_scene,        # BASELINE config 4 (10k tris)
-    "bigmesh": make_bigmesh_scene,        # 164k tris (refused, see above)
+    "bigmesh": make_bigmesh_scene,        # 164k tris (streaming route)
 }
 
 _SCENE_BY_INDEX = ["rgb", "randomized", "rtweekend", "single", "sixteen",
@@ -502,8 +504,8 @@ def make_obj_scene(path: str, pad_to: int = SPHERE_PAD,
     scaled so its longest extent is 2.5 world units, set on a gray ground
     quad under the sky, and framed by the default orbit camera. Per-face
     materials are a uniform albedo. A mesh past
-    ``kernels/bounce_step.resident_tables_fit`` builds, but every route
-    refuses it (ROADMAP.md)."""
+    ``kernels/bounce_step.resident_tables_fit`` renders on the streaming
+    route (see ``make_bigmesh_scene``), with a warning that says so."""
     v, f = load_obj(path)
     lo, hi = v.min(axis=0), v.max(axis=0)
     span = float(max(np.max(hi - lo), 1e-6))
@@ -517,6 +519,13 @@ def make_obj_scene(path: str, pad_to: int = SPHERE_PAD,
          (0.55, 0.55, 0.55)),
     ])
     tris = pack_triangles(verts, faces, colors, device=device)
+    from tpu_ray_torch.kernels.bounce_step import resident_tables_fit
+    if not resident_tables_fit(pad_to, tris.n_pad):
+        warnings.warn(
+            f"{path}: {tris.n_pad} (padded) triangles are past the "
+            "residency rule; rendering routes to the streaming triangle "
+            "search (slower per triangle than the resident routes, but no "
+            "table has to fit on chip)", stacklevel=2)
     b = SceneBuilder()
     scene = b.build(
         look_at=np.array([0.0, 1.0 * s, 0.0], np.float32),

@@ -10,7 +10,7 @@ JAX package's ``optax.adam(1e-2)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
@@ -35,7 +35,8 @@ def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
                     ray_chunk: Optional[int] = None,
                     optimizer: Optional[OptimizerFactory] = None,
                     train_camera: bool = True, train_scene: bool = True,
-                    remat: bool = False, cull_secondary: bool = False,
+                    remat: Union[bool, str] = False,
+                    cull_secondary: bool = False,
                     exact_argmin: bool = False, regen: bool = False,
                     fixed_samples: bool = False):
     """-> (init_fn(scene, camera) -> TrainState,

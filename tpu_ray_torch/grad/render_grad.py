@@ -8,7 +8,7 @@ of every scene and camera tensor that requires grad.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -21,7 +21,8 @@ from tpu_ray_torch.models.path_tracer import (render_pixels, tile_order,
 def render_mean(scene: Scene, camera: Camera, *, width: int, height: int,
                 spp: int, sample_start: int = 0, seed: int = 0,
                 max_bounces: int = 5, backend: str = "torch",
-                ray_chunk: Optional[int] = None, remat: bool = False,
+                ray_chunk: Optional[int] = None,
+                remat: Union[bool, str] = False,
                 cull_secondary: bool = False, exact_argmin: bool = False,
                 regen: bool = False, return_rays: bool = False):
     """Differentiable spp-mean radiance image [H,W,3] on the scene's
@@ -29,12 +30,16 @@ def render_mean(scene: Scene, camera: Camera, *, width: int, height: int,
 
     backend "torch"/"cuda": autograd of the eager bounce loop; remat=True
     recomputes each sample in the backward (``torch.utils.checkpoint``)
-    instead of keeping its activations. "fused" (pixels in 32x32-tile
+    instead of keeping its activations, and remat="save_hits" recomputes
+    it from the hit masks and winners its forward recorded, so the
+    backward runs no search. "fused" (pixels in 32x32-tile
     order, so the lanes of a warp stay coherent in both sweeps) ignores
     remat: with regen=True the persistent-wavefront trace with its K2
     recording forward and K3 backward; without, the per-sample route (K4
     forward, K5 replay, K6 backward), its later bounces culled by the
-    octant mask when cull_secondary. exact_argmin changes nothing (the
+    octant mask when cull_secondary. Past the residency rule (bigmesh)
+    "fused" falls back to the eager route of backend "cuda", which takes
+    remat (``models/path_tracer.render_pixels``). exact_argmin changes nothing (the
     port's search is always exact). return_rays=True also returns the
     rays-cast count (an int, no gradient)."""
     del exact_argmin

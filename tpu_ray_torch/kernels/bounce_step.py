@@ -2,7 +2,8 @@
 and the shading chain they share with the regen route.
 
 Port of ``tpu_ray/kernels/bounce_step.py`` (the per-sample route takes
-sphere scenes and the triangle scenes within ``resident_tables_fit``):
+sphere scenes and the triangle scenes within ``resident_tables_fit``;
+past it ``models/path_tracer.render_pixels`` takes the probe route):
 
 - ``shade_plain`` / ``shade_vjp_plain`` (JAX ``_shade`` / ``_shade_vjp``):
   one bounce's smooth state update given the winner, and its hand
@@ -1084,14 +1085,15 @@ def fused_tables(scene: Scene) -> FusedTables:
     (``prim_table``: the plane form for triangles) and tile boxes.
     Autograd carries the table's cotangent back through ``prim_table``
     and the permutation to the scene. A triangle scene past
-    ``resident_tables_fit`` is refused (ROADMAP.md queue B, #11)."""
+    ``resident_tables_fit`` is refused: ``models/path_tracer.render_pixels``
+    sends it to the probe route."""
     if scene.tris is not None and not resident_tables_fit(
             scene.n_pad, scene.tris.n_pad):
         raise NotImplementedError(
             f"{scene.tris.n_pad} padded triangles are past "
-            "resident_tables_fit: the streaming triangle search "
-            "(nearest_hit_tri_stream, kernel #11) is not ported yet "
-            "(ROADMAP.md queue B, #11)")
+            "resident_tables_fit: the fused route's records are i16 and "
+            "its kernels hold the whole table; render_pixels routes such "
+            "a scene to the probe route and the streaming triangle search")
     sp = permute_scene(scene)
     tb = FusedTables(prim_table(sp), *tile_bounds(sp), scene.use_sky)
     if sp.tris is None:

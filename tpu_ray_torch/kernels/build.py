@@ -40,6 +40,9 @@ SIGNATURES = {
     "trt_sphere_nearest_hit": [_P, _P, _I, _P, _P, _I, _P, _P, _P],
     # tri, m, origin, direction, r, t_out, idx_out, stream
     "trt_tri_nearest_hit": [_P, _I, _P, _P, _I, _P, _P, _P],
+    # tri, m, boxes, n_tiles, origin, direction, alive, r, t_out, idx_out,
+    # stream
+    "trt_tri_stream": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
     # state, r, cam13, table, n, tri, m, steps, use_sky, max_bounces,
     # width, height, film_w, film_h, stream
     "trt_regen_steps": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F,

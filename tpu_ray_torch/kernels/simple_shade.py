@@ -240,14 +240,15 @@ def simple_tables(scene: Scene, lights: tuple):
     spheres Morton-permuted and its triangles in scene order, the
     triangles' search table and inflated tile boxes, the lights' permuted
     ids and their centres and emissives. A triangle scene past
-    ``resident_tables_fit`` is refused (ROADMAP.md queue B, #11)."""
+    ``resident_tables_fit`` is refused: ``models/path_tracer.render_pixels``
+    sends it to the eager estimator on the probe route, with a warning."""
     if scene.tris is not None and not resident_tables_fit(
             scene.n_pad, scene.tris.n_pad):
         raise NotImplementedError(
             f"{scene.tris.n_pad} padded triangles are past "
-            "resident_tables_fit: the streaming triangle search "
-            "(nearest_hit_tri_stream, kernel #11) is not ported yet "
-            "(ROADMAP.md queue B, #11)")
+            "resident_tables_fit: K9's fused tables are resident; "
+            "render_pixels routes such a scene to the probe route and the "
+            "streaming triangle search")
     perm = morton_perm(scene)
     table = prim_table(permute_spheres(scene, perm)).contiguous()
     tri = boxes = None

@@ -23,10 +23,16 @@ kernel (``kernels/simple_shade.make_simple_trace``, all spp samples in
 one launch; it ignores regen, cull_secondary and max_bounces, as the JAX
 package does).
 
-Triangle scenes take these routes only within the JAX package's residency
+Triangle scenes take these routes within the JAX package's residency
 rule (``kernels/bounce_step.resident_tables_fit``: trimesh and small
-``obj:`` meshes); past it (bigmesh) every route refuses (ROADMAP.md queue
-B, #11).
+``obj:`` meshes). Past it (bigmesh, large ``obj:`` meshes) the triangle
+search of every backend is the listed search of
+``kernels/tri_intersect.tri_nearest_hit_stream`` (K10 on the card), fed by
+the alive lanes; ``trace_rays`` then re-sorts its wavefront at every
+bounce by (alive, direction octant), so a block's rays share a direction
+octant and its tile list stays short; and "fused" (with or without regen,
+and its estimators, which warn) falls back to the probe route of backend
+"cuda", as the JAX package falls back to its probe route.
 
 ``render_pixels``/``render_pass`` are differentiable w.r.t. the scene and
 camera tensors: "torch" and "cuda" through autograd of the eager loop
@@ -35,10 +41,15 @@ gradient), "fused" through ``kernels/regen.RegenTrace`` (K2 recording
 forward, K3 backward), ``bounce_step.FusedSample`` (K4 or K8 forward, K5
 replay and K6 backward) without regen, or ``simple_shade.SimpleTrace``
 (K9 forward; its backward re-runs the eager estimator on K1/K7).
+On the eager routes remat=True recomputes each sample in the backward,
+and remat="save_hits" recomputes it from the hits its forward recorded
+(``HitTape``), so the backward runs no search.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+import warnings
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -47,14 +58,16 @@ from torch.utils.checkpoint import checkpoint
 from tpu_ray_torch.config import SHADINGS, RenderConfig
 from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera, default_camera
-from tpu_ray_torch.core.scene import Scene, make_scene
+from tpu_ray_torch.core.scene import F32_MAX, Scene, make_scene
 from tpu_ray_torch.kernels.bounce_step import (fused_tables,
                                                make_fused_sample,
-                                               resident_tables_fit)
+                                               resident_tables_fit,
+                                               tri_tile_boxes)
 from tpu_ray_torch.kernels.regen import make_regen_trace
 from tpu_ray_torch.kernels.simple_shade import make_simple_trace
 from tpu_ray_torch.kernels.sphere_intersect import sphere_nearest_hit
-from tpu_ray_torch.kernels.tri_intersect import tri_nearest_hit
+from tpu_ray_torch.kernels.tri_intersect import (tri_nearest_hit,
+                                                  tri_nearest_hit_stream)
 from tpu_ray_torch.ops.accumulate import AccumState, accumulate
 from tpu_ray_torch.ops.intersect import (Hit, Payload, hit_payload,
                                          nearest_hit, payload_tables)
@@ -70,23 +83,52 @@ from tpu_ray_torch.ops.tonemap import linear_to_srgb, pack_rgba8
 # search(center, radius, origins, directions) -> Hit
 SearchFn = Callable[..., Hit]
 # tri_search(tri_search_table, origins, directions) -> Hit
-# probe(scene, origins, directions) -> Payload
+# probe(scene, origins, directions, alive=None) -> Payload
 ProbeFn = Callable[..., Payload]
 
 _SEARCH = {"torch": nearest_hit, "cuda": sphere_nearest_hit}
 _TRI_SEARCH = {"torch": nearest_hit_tri, "cuda": tri_nearest_hit}
+_MAX = float(F32_MAX)
 
 
-def _check_tris(scene: Scene) -> None:
-    """Refuse a triangle scene past the residency rule on every route
-    (none falls back)."""
-    if scene.tris is not None and not resident_tables_fit(
-            scene.n_pad, scene.tris.n_pad):
-        raise NotImplementedError(
-            f"{scene.tris.n_pad} padded triangles are past "
-            "resident_tables_fit: the streaming triangle search "
-            "(nearest_hit_tri_stream, kernel #11) and the sorted-bounce "
-            "wavefront are not ported yet (ROADMAP.md queue B, #11)")
+def past_residency(scene: Scene) -> bool:
+    """Is scene a triangle scene past ``resident_tables_fit`` (bigmesh)?
+    Its triangle search is then the listed one of every backend."""
+    return scene.tris is not None and not resident_tables_fit(
+        scene.n_pad, scene.tris.n_pad)
+
+
+class HitTape:
+    """The outcome of every search of one sample, for remat="save_hits"
+    (the JAX ``_name_hit`` policy). The sample's first run records, in
+    call order, each search's hit mask and winner (the winner as i16 below
+    2^15 primitives, else i32: 3 or 5 B a ray); a rerun after ``rewind``
+    (the checkpoint's recompute in the backward) replays them instead of
+    searching. t is not kept: its one consumer is the miss test, so a
+    replayed hit has t = 0 and a replayed miss F32_MAX."""
+
+    def __init__(self):
+        self.saved = []
+        self.next: Optional[int] = None   # None: record
+
+    def rewind(self):
+        """Replay from the first search if a run was recorded."""
+        self.next = 0 if self.saved else None
+
+    def search(self, n_prim: int, fn, *args) -> Hit:
+        if self.next is None:
+            hit = fn(*args)
+            wide = torch.int16 if n_prim < 2 ** 15 else torch.int32
+            self.saved.append((hit.t < _MAX, hit.idx.to(wide)))
+            return hit
+        mask, idx = self.saved[self.next]
+        self.next += 1
+        return Hit(t=torch.where(mask, 0.0, _MAX),
+                   idx=idx.to(torch.int32))
+
+
+def _search(tape: Optional[HitTape], n_prim: int, fn, *args) -> Hit:
+    return fn(*args) if tape is None else tape.search(n_prim, fn, *args)
 
 
 def tile_order(width: int, height: int, tile: int = 32):
@@ -111,56 +153,94 @@ def untile_image(color_sum, width: int, height: int, inv):
 
 def probe(scene: Scene, origins, directions, search: SearchFn = nearest_hit,
           tables=None, tri_search=nearest_hit_tri, tri_tab=None,
-          tri_tables=None) -> Payload:
+          tri_tables=None, alive=None, boxes=None,
+          tape: Optional[HitTape] = None) -> Payload:
     """The nearest hit of each ray and its differentiable payload (JAX
     ``probe_jnp``/``probe_pallas``): the sphere search, ``hit_payload``,
     then for a triangle scene tri_search over tri_tab (the triangles'
     ``tri_search_table``), ``tri_payload`` and ``merge_payloads`` (a
-    sphere wins a tie in t). tables/tri_tab/tri_tables: the scene's,
-    built here when None."""
-    p = hit_payload(scene, origins, directions,
-                    search(scene.center, scene.radius, origins, directions),
-                    tables)
+    sphere wins a tie in t). Past the residency rule the triangle search
+    is ``tri_nearest_hit_stream`` over the tile boxes (``tri_tile_boxes``)
+    whatever tri_search is, and only the alive lanes [R] bool (None: all)
+    feed its lists; a dead lane's payload is then a miss's. tape: records
+    or replays each search (remat="save_hits"). tables/tri_tab/tri_tables/
+    boxes: the scene's, built here when None."""
+    hit = _search(tape, scene.n_pad, search, scene.center, scene.radius,
+                  origins, directions)
+    p = hit_payload(scene, origins, directions, hit, tables)
     if scene.tris is None:
         return p
     if tri_tab is None:
         tri_tab = tri_search_table(scene.tris)
-    tp = tri_payload(scene.tris, origins, directions,
-                     tri_search(tri_tab, origins, directions), tri_tables)
+    m = scene.tris.n_pad
+    if past_residency(scene):
+        if boxes is None:
+            boxes = tri_tile_boxes(scene.tris)
+        th = _search(tape, m, tri_nearest_hit_stream, tri_tab, boxes,
+                     origins, directions, alive)
+    else:
+        th = _search(tape, m, tri_search, tri_tab, origins, directions)
+    tp = tri_payload(scene.tris, origins, directions, th, tri_tables)
     return merge_payloads(p, tp, scene.n_pad)
 
 
 def probe_for(scene: Scene, backend: str) -> ProbeFn:
     """``probe`` with backend's searches ("torch" or "cuda") and the
-    scene's tables built once, for every probe of a pass."""
+    scene's tables built once, for every probe of a pass: (scene,
+    origins, directions, alive=None, tape=None) -> Payload."""
     search, tri_search = _SEARCH[backend], _TRI_SEARCH[backend]
     tables = payload_tables(scene)
-    tri_tab = tri_tables = None
+    tri_tab = tri_tables = boxes = None
     if scene.tris is not None:
         tri_tab = tri_search_table(scene.tris)
         tri_tables = tri_payload_tables(scene.tris)
-    return lambda sc, o, d: probe(sc, o, d, search, tables, tri_search,
-                                  tri_tab, tri_tables)
+        if past_residency(scene):
+            boxes = tri_tile_boxes(scene.tris)
+    return lambda sc, o, d, alive=None, tape=None: probe(
+        sc, o, d, search, tables, tri_search, tri_tab, tri_tables, alive,
+        boxes, tape)
 
 
 def trace_rays(scene: Scene, origins, directions, stream_base,
-               max_bounces: int, probe_fn: ProbeFn = probe):
+               max_bounces: int, probe_fn: ProbeFn = probe,
+               sort_rays: Optional[bool] = None):
     """Trace a flat ray wavefront to completion (reference main.cpp:388-482
     with alive-masking) -> (color [R,3] linear radiance, rays_cast [R]).
-    probe_fn(scene, origins, directions) -> Payload (``probe``,
-    ``probe_for``)."""
+    probe_fn(scene, origins, directions, alive=) -> Payload (``probe``,
+    ``probe_for``).
+
+    sort_rays (default: on exactly past the residency rule, where the
+    triangle search is the listed one): at the top of every bounce the
+    wavefront is permuted by a stable argsort of (alive, direction
+    octant), dead lanes last, so each block's rays share an octant and its
+    list of reachable tiles stays short, and all-dead blocks list nothing.
+    Every per-lane value rides the permutation (origin, direction,
+    attenuation, colour, alive, rays, RNG base, slot) and the output is
+    unsorted at the end, so each lane computes what it computes unsorted."""
+    if sort_rays is None:
+        sort_rays = past_residency(scene)
     n = origins.shape[0]
     dev = origins.device
-    origin, direction = origins, directions
+    origin, direction, base = origins, directions, stream_base
     atten = torch.ones((n, 3), dtype=torch.float32, device=dev)
     color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     rays_cast = torch.zeros(n, dtype=torch.int64, device=dev)
+    slot = torch.arange(n, device=dev)
     for b in range(max_bounces):
         if not bool(alive.any()):
             break   # later bounces change nothing
+        if sort_rays:
+            octant = ((direction[:, 0] > 0.0).to(torch.int64) * 4
+                      + (direction[:, 1] > 0.0).to(torch.int64) * 2
+                      + (direction[:, 2] > 0.0).to(torch.int64))
+            order = torch.argsort(torch.where(alive, octant, 8), stable=True)
+            origin, direction, atten, color = (
+                origin[order], direction[order], atten[order], color[order])
+            alive, rays_cast, base, slot = (
+                alive[order], rays_cast[order], base[order], slot[order])
         rays_cast += alive
-        p = probe_fn(scene, origin, direction)
+        p = probe_fn(scene, origin, direction, alive=alive)
         # miss: optional sky emission, then the ray dies (main.cpp:433-440)
         if scene.use_sky:
             sky_mask = (alive & ~p.hit)[..., None]
@@ -171,14 +251,18 @@ def trace_rays(scene: Scene, origins, directions, stream_base,
         color = color + torch.where(lh, p.emissive * atten, 0.0)
         atten = torch.where(lh, atten * p.albedo, atten)
 
-        rand3 = torch.stack([rng.draw_uniform(stream_base, b, s, -1.0, 1.0)
+        rand3 = torch.stack([rng.draw_uniform(base, b, s, -1.0, 1.0)
                              for s in range(3)], dim=-1)
-        rand_reflect = rng.draw_uniform(stream_base, b, 3, 0.0, 1.0)
+        rand_reflect = rng.draw_uniform(base, b, 3, 0.0, 1.0)
         new_dir = scatter_direction(direction, p.normal_raw, p.inside,
                                     p.specular, p.ior, rand3, rand_reflect)
         direction = torch.where(lh, new_dir, direction)
         origin = torch.where(lh, p.next_origin, origin)
         alive = live_hit
+    if sort_rays:
+        inv = torch.empty_like(slot)
+        inv[slot] = torch.arange(n, device=dev)
+        color, rays_cast = color[inv], rays_cast[inv]
     return color, rays_cast
 
 
@@ -187,7 +271,8 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
                   max_bounces: int = 5, backend: str = "torch",
                   ray_chunk: Optional[int] = None, shading: str = "path",
                   lights: tuple = (), regen: bool = False,
-                  remat: bool = False, cull_secondary: bool = False):
+                  remat: Union[bool, str] = False,
+                  cull_secondary: bool = False):
     """``spp`` jittered samples for a flat pixel subset [R] ->
     (color_sum [R,3] summed over spp, rays_cast int). Differentiable.
 
@@ -196,14 +281,34 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
     estimator of ``ops/shading_modes``; on "fused" through K9, which
     ignores max_bounces, regen and cull_secondary. remat=True (backends
     "torch"/"cuda") recomputes each sample in the backward instead of
-    keeping its activations (``torch.utils.checkpoint``); "fused" ignores
-    it, since its backward keeps only the winner records or, for the
-    estimators, nothing. cull_secondary (fused path without regen) culls
-    bounces 1.. by the octant mask, bit-identically."""
+    keeping its activations (``torch.utils.checkpoint``); remat=
+    "save_hits" does too, but its forward records each search's hit mask
+    and winner (``HitTape``) and the recompute replays them, so the
+    backward searches nothing. "fused" ignores remat, since its backward
+    keeps only the winner records or, for the estimators, nothing.
+    cull_secondary (fused path without regen) culls bounces 1.. by the
+    octant mask, bit-identically.
+
+    Past the residency rule "fused" (with or without regen, and its
+    estimators, which warn) falls back to the probe route of backend
+    "cuda" (K1 and K10 on the card), as the JAX package falls back to its
+    probe route: K2/K3's i16 records overflow past 2^15 primitives and
+    the resident kernels hold the whole table."""
     if shading not in SHADINGS:
         raise ValueError(f"shading must be one of {SHADINGS}, got "
                          f"{shading!r}")
-    _check_tris(scene)
+    if remat not in (False, True, "save_hits"):
+        raise ValueError(f"remat must be False, True or 'save_hits' "
+                         f"('save_hits_bounce' is not ported: ROADMAP.md "
+                         f"queue B), got {remat!r}")
+    if backend == "fused" and past_residency(scene):
+        if shading != "path":
+            warnings.warn(
+                f"the fused {shading} estimator needs resident tables; "
+                f"{scene.tris.n_pad} padded triangles are past "
+                "resident_tables_fit, so it falls back to the probe route "
+                "and the streaming triangle search (slower)", stacklevel=2)
+        backend, regen = "cuda", False
     n = pixel.shape[0]
     chunk = n if ray_chunk is None else ray_chunk
     if n % chunk:
@@ -237,27 +342,35 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
 
     probe_fn = probe_for(scene, backend)
     if shading == "path":
-        def trace(o, d, base):
-            return trace_rays(scene, o, d, base, max_bounces, probe_fn)
+        def trace(o, d, base, pf):
+            return trace_rays(scene, o, d, base, max_bounces, pf)
     elif shading == "flat":
-        def trace(o, d, base):
-            return trace_flat(scene, o, d, probe_fn)
+        def trace(o, d, base, pf):
+            return trace_flat(scene, o, d, pf)
     else:
-        def trace(o, d, base):
-            return trace_lambert_shadow(scene, o, d, probe_fn, lights)
+        def trace(o, d, base, pf):
+            return trace_lambert_shadow(scene, o, d, pf, lights)
 
-    def one_sample(s):
+    def one_sample(s, tape=None):
+        pf = probe_fn
+        if tape is not None:     # remat="save_hits": record, or replay
+            tape.rewind()
+            pf = functools.partial(probe_fn, tape=tape)
         o, d, base = camera_rays(camera, width, height, pixel, s, seed)
         colors, rays = [], 0
         for k in range(0, n, chunk):
-            c, rc = trace(o[k:k + chunk], d[k:k + chunk], base[k:k + chunk])
+            c, rc = trace(o[k:k + chunk], d[k:k + chunk], base[k:k + chunk],
+                          pf)
             colors.append(c)
             rays += int(rc.sum())
         return torch.cat(colors), rays
 
     rays = 0
     for s in range(sample_start, sample_start + spp):
-        if remat and torch.is_grad_enabled():
+        if remat == "save_hits" and torch.is_grad_enabled():
+            c, rc = checkpoint(one_sample, s, HitTape(),
+                               use_reentrant=False)
+        elif remat and torch.is_grad_enabled():
             c, rc = checkpoint(one_sample, s, use_reentrant=False)
         else:
             c, rc = one_sample(s)

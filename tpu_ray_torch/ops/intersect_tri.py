@@ -52,11 +52,12 @@ def tri_search_table(tris: Triangles):
 
 
 def _mt_slab(tab, origin, direction):
-    """Möller-Trumbore over all triangles for one slab of rays -> (t [r,M]
-    with F32_MAX where there is no hit)."""
-    v0x, v0y, v0z = tab[None, :, 0], tab[None, :, 1], tab[None, :, 2]
-    e1x, e1y, e1z = tab[None, :, 3], tab[None, :, 4], tab[None, :, 5]
-    e2x, e2y, e2z = tab[None, :, 6], tab[None, :, 7], tab[None, :, 8]
+    """Möller-Trumbore for a slab of rays [r,3] against the triangles of
+    tab, [1,M,9] (the same M for every ray) or [r,M,9] (each ray its own)
+    -> t [r,M] with F32_MAX where there is no hit."""
+    v0x, v0y, v0z = tab[..., 0], tab[..., 1], tab[..., 2]
+    e1x, e1y, e1z = tab[..., 3], tab[..., 4], tab[..., 5]
+    e2x, e2y, e2z = tab[..., 6], tab[..., 7], tab[..., 8]
     ox, oy, oz = origin[:, 0:1], origin[:, 1:2], origin[:, 2:3]
     dx, dy, dz = direction[:, 0:1], direction[:, 1:2], direction[:, 2:3]
     # pvec = d x e2
@@ -92,7 +93,7 @@ def nearest_hit_tri(tab, origin, direction, tiles=None) -> Hit:
     step = max(1, _SLAB_ELEMS // max(m, 1))
     ts, idxs = [], []
     for k in range(0, r, step):
-        t = _mt_slab(tab, origin[k:k + step], direction[k:k + step])
+        t = _mt_slab(tab[None], origin[k:k + step], direction[k:k + step])
         if tiles is not None:
             keep = tiles[k:k + step].repeat_interleave(
                 m // tiles.shape[1], dim=1)
