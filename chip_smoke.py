@@ -29,11 +29,16 @@ route's gradients against the regen route's at 320x180. Then the triangle
 scenes: K7 (the triangle search of backend cuda) against its plain version
 on trimesh's primary rays and backend cuda's trimesh render against
 backend torch's; the triangle main path, trimesh (10,242 triangles) at
-1920x1080, 2 spp on fused + regen as the CLI drives it (two calls; K2's
-triangle mode at the path's own state, 1 lane in 32 bit for bit against
+1920x1080, 2 spp on fused + regen as the CLI drives it (two calls,
+through K2's listed triangle mode; at the path's own state, every 32nd
+256-lane block bit for bit against the listed plain version over all
+steps, the regen list pass rate and the pairs tested from the kernel's
+counters; the sweep of every triangle, as a caller names it: its image
+within 20 pixels of the listed route's, 1 lane in 32 bit for bit against
 its plain version), forward and backward as a user differentiates it
-(three calls; K2-record, and K3's triangle branch at the path's own
-records against its plain version on 1 lane in 32, two K3 launches
+(three calls; K2-record's listed mode on every 32nd block against its
+plain version, state and records, and K3's triangle branch at the path's
+own records against its plain version on 1 lane in 32, two K3 launches
 bit-equal), and its gradients (and the per-sample route's) against
 backend cuda autograd at 320x180. Then the per-sample route on trimesh
 at 1920x1080, 2 spp: K8 (bounce_fwd_list) and the triangle modes of K5
@@ -59,7 +64,10 @@ residency rule: bigmesh (163,842 triangles in 1,281 tiles) at 1920x1080,
 own primary rays and sorted bounce-1 state, bit for bit against its plain
 version on 1 lane in 32 and against K7 on every alive lane (differing
 lanes counted; none where K7's hit lies inside its tile's box), and its
-bound counted on every bounce's state; the pass as the CLI drives it on
+bound counted on every bounce's state, beside each bounce's time, the
+time of a launch that only builds the lists, and the pairs tested
+against the pairs listed (the kernel's counters, its lists held to the
+plain version's); the pass as the CLI drives it on
 backend fused, which falls back to the probe route (two calls, one more
 under torch.profiler, its image equal to backend cuda's, and one call at
 ray_chunk=43200); three forward+backward steps with remat="save_hits"
@@ -221,6 +229,14 @@ def mt_work(torch, tab, origin, direction, tiles=None):
     shares = dict(det=(pairs - n_ok) / pairs, u=(n_ok - n_whole) / pairs,
                   whole=n_whole / pairs) if pairs else {}
     return flops, shares
+
+
+def pair_flops(shares) -> float:
+    """Mean fp32 operations of a ray-triangle pair with mt_work's exit
+    mix ({stage: share of the pairs})."""
+    return (MT_FLOPS_DET * shares.get("det", 0.0)
+            + MT_FLOPS_U * shares.get("u", 0.0)
+            + MT_FLOPS_WHOLE * shares.get("whole", 0.0))
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -778,7 +794,7 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts):
               f"differ from K7 (none with K7's hit inside its tile's box); "
               f"K10 {ms_k:.3f} ms, K7 {ms_7:.3f} ms (CUDA events), plain "
               f"{ms_p:.1f} ms on the slice", flush=True)
-    flops = nbytes = 0.0
+    flops = nbytes = tested_flops = 0.0
     reach_sum = live_blocks = 0
     listed = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
     per_bounce = []
@@ -793,31 +809,55 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts):
         live_blocks += live
         sl = torch.arange(0, r, SLICE_STRIDE, device=dev)
         sl = sl[al[sl]]
-        f = 0.0
+        f, shares = 0.0, {}
         if sl.numel():
-            f, _ = mt_work(torch, tab, o[sl], d[sl], reach[sl // BLOCK_R])
+            f, shares = mt_work(torch, tab, o[sl], d[sl], reach[sl // BLOCK_R])
             f *= float(al.sum()) / sl.numel()
         flops += f
         # each lane's ray and alive flag in, its t and idx out
         nbytes += r * (24 + 1 + 8)
         ms_b = cuda_ms(torch, lambda: tri_nearest_hit_stream(
             tab, boxes, o, d, al), 3)
+        # the kernel's counters: its lists are the plain version's, and it
+        # tests at most the listed pairs; the list build timed alone
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
+        tri_nearest_hit_stream(tab, boxes, o, d, al, stats=stats)
+        k_listed, k_live, k_tested = stats.tolist()
+        lanes_of = torch.nn.functional.pad(al, (0, -r % BLOCK_R)).view(
+            -1, BLOCK_R).sum(1)
+        pairs = int((reach.sum(1) * lanes_of).sum()) * TRI_BLOCK_M
+        require(k_listed == n_reach and k_live >= live
+                and k_tested <= pairs,
+                f"K10 bounce {b}: counters {stats.tolist()} against "
+                f"{n_reach} listed tiles, {live} live blocks, {pairs} pairs")
+        ms_lists = cuda_ms(torch, lambda: tri_nearest_hit_stream(
+            tab, boxes, o, d, al, lists_only=True), 3)
+        tested_flops += k_tested * pair_flops(shares)
         per_bounce.append(dict(
             bounce=b, alive=int(al.sum()), live_blocks=live,
             tiles_per_live_block=n_reach / max(live, 1), flops=f,
-            bound_ms=bound(f, r * (24 + 1 + 8))[0], k10_ms=ms_b))
+            bound_ms=bound(f, r * (24 + 1 + 8))[0], k10_ms=ms_b,
+            lists_only_ms=ms_lists, list_share=ms_lists / ms_b,
+            pairs_listed=pairs, pairs_tested=k_tested))
     nbytes += float(listed.sum()) * TRI_BLOCK_M * TRI_BYTES + boxes.numel() * 4
     k10_bound = bound(flops, nbytes)
+    k10_tbound = bound(tested_flops, nbytes)
     pass_rate = reach_sum / max(live_blocks * n_tiles, 1)
     print(f"K10 bound over the pass's {len(states)} bounces: "
-          f"{flops:.6e} flops, {nbytes:.6e} B -> {k10_bound[0]:.3f} ms by "
-          f"{k10_bound[1]}; list pass rate {pass_rate:.4f} ({reach_sum} "
+          f"{flops:.6e} flops over the listed pairs, {nbytes:.6e} B -> "
+          f"{k10_bound[0]:.3f} ms by {k10_bound[1]}; over the pairs tested "
+          f"{tested_flops:.6e} flops -> {k10_tbound[0]:.3f} ms by "
+          f"{k10_tbound[1]}; list pass rate {pass_rate:.4f} ({reach_sum} "
           f"listed tiles over {live_blocks} live block-bounces x {n_tiles} "
           f"tiles); per bounce (CUDA events): "
           + "; ".join(f"{p['bounce']}: {p['alive']} alive, "
                       f"{p['tiles_per_live_block']:.1f} tiles a live block, "
-                      f"K10 {p['k10_ms']:.3f} ms, bound "
-                      f"{p['bound_ms']:.3f} ms" for p in per_bounce),
+                      f"K10 {p['k10_ms']:.3f} ms (lists alone "
+                      f"{p['lists_only_ms']:.3f} ms, "
+                      f"{100 * p['list_share']:.1f}%), bound "
+                      f"{p['bound_ms']:.3f} ms, pairs tested "
+                      f"{p['pairs_tested']} of {p['pairs_listed']} listed"
+                      for p in per_bounce),
           flush=True)
     phase("big_stream_check", t0)
 
@@ -1003,13 +1043,18 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts):
         source="tpu_ray_torch/csrc/tri_stream.cu",
         replaces="tpu_ray/kernels/tri_intersect.py:315",
         launches=launches["tri_nearest_hit_stream"], max_abs_err=0.0,
-        ms=k10_ms, plain_ms=checks[1]["plain_ms"], bound_ms=k10_bound[0],
-        bound_by=k10_bound[1], library_ms=None,
+        ms=k10_ms, plain_ms=checks[1]["plain_ms"], bound_ms=k10_tbound[0],
+        bound_by=k10_tbound[1], library_ms=None,
         path=f"render --scene bigmesh --backend fused {w}x{h} {spp} spp",
         shape=f"{launches['tri_nearest_hit_stream']} launches of {r} lanes "
               f"x {n_tri_real} triangles in {n_tiles} tiles; ms and bound: "
               f"the whole pass (torch.profiler); plain: bounce 1, 1 lane in "
-              f"32", list_pass_rate=pass_rate, checks=checks,
+              f"32; the bound is over the pairs the front-to-back fold "
+              f"tested (its counters), each priced by the listed pairs' "
+              f"exit mix", list_pass_rate=pass_rate,
+        checks=checks, bound_listed_pairs_ms=k10_bound[0],
+        pairs_listed=sum(p["pairs_listed"] for p in per_bounce),
+        pairs_tested=sum(p["pairs_tested"] for p in per_bounce),
         plain_lanes=checks[1]["plain_lanes"],
         ms_same_lanes=checks[1]["k10_ms"],
         same_lanes="bounce 1's sorted state, every lane")}
@@ -1047,11 +1092,12 @@ def main() -> int:
     from tpu_ray_torch.grad import image_mse, make_train_step, render_mean
     from tpu_ray_torch.kernels import build
     from tpu_ray_torch.kernels.bounce_step import (
-        BLOCK_N, BLOCK_R, bounce_bwd, bounce_bwd_plain, bounce_cull_mask,
-        bounce_cull_mask_octant, bounce_fwd, bounce_fwd_list,
-        bounce_fwd_list_plain, bounce_fwd_plain, bounce_replay,
-        bounce_replay_plain, fused_tables, init_state, morton_perm,
-        permute_spheres, tri_block_lists, tri_morton_perm)
+        BLOCK_N, BLOCK_R, TRI_BLOCK_M, _block_reach, bounce_bwd,
+        bounce_bwd_plain, bounce_cull_mask, bounce_cull_mask_octant,
+        bounce_fwd, bounce_fwd_list, bounce_fwd_list_plain, bounce_fwd_plain,
+        bounce_replay, bounce_replay_plain, fused_tables, init_state,
+        morton_perm, permute_spheres, tab_tile_boxes, tri_block_lists,
+        tri_morton_perm)
     from tpu_ray_torch.kernels.regen import (
         SEG_MAX, regen_bwd, regen_bwd_plain, regen_record, regen_steps,
         regen_steps_plain, regen_tables, wave_init)
@@ -1076,6 +1122,7 @@ def main() -> int:
     def reset_counts():
         for fn in counted:
             fn.launches = 0
+        regen_steps.listed_launches = regen_record.listed_launches = 0
 
     def counts():
         return {fn.__name__: fn.launches for fn in counted}
@@ -1974,6 +2021,8 @@ def main() -> int:
         tri_secs.append(time.perf_counter() - t_main)
         k2t_launches = regen_steps.launches
         require(k2t_launches > 0, "triangle main path did not launch K2")
+        require(regen_steps.listed_launches == k2t_launches,
+                "triangle main path did not take K2's listed mode")
         require(sum(counts().values()) == k2t_launches,
                 f"triangle forward path launched others: {counts()}")
     mean_t = state_t.mean
@@ -1994,12 +2043,28 @@ def main() -> int:
           flush=True)
     phase("tri_main_path", t0)
 
-    # 18. K2's triangle mode at the triangle path's own state (launches not
-    # counted): the whole launch, timed, must give the path's image, and
-    # every 32nd lane of it is held bit for bit against the plain version
-    # over all its steps
+    # 18. K2's triangle modes at the triangle path's own state (launches
+    # not counted). The listed mode: the whole launch, timed, must give the
+    # path's image; every 32nd 256-lane block (whole blocks, so that each
+    # lists as in the whole launch) is held bit for bit against the listed
+    # plain version over all its steps; a launch with the counters on
+    # gives the list pass rate (listed tiles over live block-steps x T)
+    # and the pairs tested. The sweep (regen_steps(tri=) without boxes,
+    # the mode a caller names): its whole launch, timed, with its own
+    # launch count; its image within 20 pixels of the listed one's (a
+    # list may skip a grazing hit), and 1 lane in 32 bit for bit against
+    # the sweep's plain version. The bounds count the search alone: every
+    # sphere of nonzero size, and the triangles of nonzero size (all of
+    # them for the sweep, the block's listed tiles' for the listed mode)
+    # charged by where each pair leaves the test, each cast ray; the pairs
+    # are counted on the block slice's own rays, stepped through the
+    # listed plain version one step at a time (which must end where its
+    # one call of all steps did), and scaled from the slice's rays to the
+    # path's
     t0 = time.perf_counter()
     ttable, ttri, tn_tri = regen_tables(tscene)
+    tboxes = tab_tile_boxes(ttri)
+    n_tiles_r = tboxes.shape[0]
     n_sph = ttable.shape[0] - tn_tri
     tsteps = TRI_SPP * MAX_BOUNCES
     kwt = dict(use_sky=tscene.use_sky, max_bounces=MAX_BOUNCES, width=MAIN_W,
@@ -2007,73 +2072,151 @@ def main() -> int:
     tst0, tc13, tr2 = wave_init(tracer_t.camera, torch.as_tensor(
         perm, device=dev), TRI_SPP, SEED, 0, MAIN_W, MAIN_H)
     tst_k = tst0.clone()
-    _, k2t_ms = timed(torch, lambda: regen_steps(tst_k, tc13, ttable, tsteps,
-                                                 tri=ttri, **kwt))
+    _, k2t_ms = timed(torch, lambda: regen_steps(
+        tst_k, tc13, ttable, tsteps, tri=ttri, boxes=tboxes, **kwt))
     require(int(tst_k[22].to(torch.int64).sum()) == rays_t,
-            "K2 triangle launch rays differ from the path's")
+            "K2 listed launch rays differ from the path's")
     again = accumulate(tracer_t.init_state(), untile_image(
         tst_k[16:19].T, MAIN_W, MAIN_H, inv), TRI_SPP)
     require(torch.equal(again.mean, mean_t),
-            "K2 triangle launch image differs from the path's")
-    tsl_k, tsl_p = tst0[:, cols].contiguous(), tst0[:, cols].contiguous()
+            "K2 listed launch image differs from the path's")
+    k2t_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    tst_c = tst0.clone()
+    regen_steps(tst_c, tc13, ttable, tsteps, tri=ttri, boxes=tboxes,
+                stats=k2t_stats, **kwt)
+    require(bits_equal(torch, tst_c, tst_k),
+            "K2 listed launch with counters differs")
+    del tst_c
+    t_listed, t_live, t_tested = k2t_stats.tolist()
+    k2t_pass = t_listed / max(t_live * n_tiles_r, 1)
+    bcols = torch.arange(tr2, device=dev).view(-1, BLOCK_R)[
+        ::SLICE_STRIDE].reshape(-1)
+    tsl_k, tsl_p = tst0[:, bcols].contiguous(), tst0[:, bcols].contiguous()
     _, k2t_ms_slice = timed(torch, lambda: regen_steps(
-        tsl_k, tc13, ttable, tsteps, tri=ttri, **kwt))
+        tsl_k, tc13, ttable, tsteps, tri=ttri, boxes=tboxes, **kwt))
     _, k2t_plain = timed(torch, lambda: regen_steps_plain(
-        tsl_p, tc13, ttable, tsteps, tri=ttri, **kwt))
-    require(bits_equal(torch, tsl_k, tst_k[:, cols]),
-            "K2 triangle mode on the lane slice differs from the launch")
+        tsl_p, tc13, ttable, tsteps, tri=ttri, boxes=tboxes, **kwt))
+    require(bits_equal(torch, tsl_k, tst_k[:, bcols]),
+            "K2 listed mode on the block slice differs from the launch")
     k2t_err = (tsl_p[16:19] - tsl_k[16:19]).abs().max().item()
     require(bits_equal(torch, tsl_p, tsl_k),
-            f"K2 triangle mode: slice not bit-equal to plain (image max |d| "
-            f"{k2t_err})")
-    # the bound counts the search alone: every sphere of nonzero size, and
-    # every triangle of nonzero size charged by where the pair leaves the
-    # test, each cast ray. The triangle pairs are counted on the lane
-    # slice's own rays, stepped through the plain version one step at a
-    # time (which must end where its one call of all steps did), and
-    # scaled from the slice's rays to the path's
-    cnt_st = tst0[:, cols].contiguous()
-    slice_tri_flops, slice_rays, exits = 0, 0, []
+            f"K2 listed mode: block slice not bit-equal to plain (image max "
+            f"|d| {k2t_err})")
+    # the sweep, on its own path: a caller naming it
+    tst_s = tst0.clone()
+    torch.cuda.synchronize()
+    reset_counts()
+    _, k2s_ms = timed(torch, lambda: regen_steps(tst_s, tc13, ttable, tsteps,
+                                                 tri=ttri, **kwt))
+    k2s_launches = regen_steps.launches
+    require(k2s_launches == 1 and regen_steps.listed_launches == 0
+            and sum(counts().values()) == 1,
+            f"the sweep's call launched {counts()}")
+    sweep_img = accumulate(tracer_t.init_state(), untile_image(
+        tst_s[16:19].T, MAIN_W, MAIN_H, inv), TRI_SPP).mean
+    n_px_sweep = int((sweep_img != mean_t).any(-1).sum())
+    require(n_px_sweep <= 20, f"the listed route's trimesh image differs "
+            f"from the sweep's on {n_px_sweep} pixels")
+    ssl_k, ssl_p = tst0[:, cols].contiguous(), tst0[:, cols].contiguous()
+    _, k2s_ms_slice = timed(torch, lambda: regen_steps(
+        ssl_k, tc13, ttable, tsteps, tri=ttri, **kwt))
+    _, k2s_plain = timed(torch, lambda: regen_steps_plain(
+        ssl_p, tc13, ttable, tsteps, tri=ttri, **kwt))
+    require(bits_equal(torch, ssl_k, tst_s[:, cols]),
+            "K2 sweep on the lane slice differs from the launch")
+    k2s_err = (ssl_p[16:19] - ssl_k[16:19]).abs().max().item()
+    require(bits_equal(torch, ssl_p, ssl_k),
+            f"K2 sweep: slice not bit-equal to plain (image max |d| "
+            f"{k2s_err})")
+    del ssl_k, ssl_p
+    cnt_st = tst0[:, bcols].contiguous()
+    blk_sl = torch.arange(cnt_st.shape[1], device=dev) // BLOCK_R
+    slice_all_flops = slice_list_flops = 0
+    slice_rays = slice_pairs = 0
+    exits_all, exits_list = [], []
     for _ in range(tsteps):
         alive = cnt_st[12] > 0.5
         if bool(alive.any()):
-            f, sh = mt_work(torch, ttri, cnt_st[0:3, alive].T,
-                            cnt_st[3:6, alive].T)
-            slice_tri_flops += f
+            reach = _block_reach(tboxes, cnt_st)[blk_sl[alive]]
+            o_a, d_a = cnt_st[0:3, alive].T, cnt_st[3:6, alive].T
+            f, sh = mt_work(torch, ttri, o_a, d_a)
+            slice_all_flops += f
+            exits_all.append((int(alive.sum()), sh))
+            f, sh = mt_work(torch, ttri, o_a, d_a, reach)
+            slice_list_flops += f
+            exits_list.append((int(alive.sum()), sh))
+            slice_pairs += int(reach.sum()) * TRI_BLOCK_M
             slice_rays += int(alive.sum())
-            exits.append((int(alive.sum()), sh))
-        regen_steps_plain(cnt_st, tc13, ttable, 1, tri=ttri, **kwt)
+        regen_steps_plain(cnt_st, tc13, ttable, 1, tri=ttri, boxes=tboxes,
+                          **kwt)
     require(bits_equal(torch, cnt_st, tsl_p)
             and slice_rays == int(tsl_p[22].to(torch.int64).sum()),
-            "the plain version stepped one step at a time differs")
+            "the listed plain version stepped one step at a time differs")
     del cnt_st
-    k2t_exits = {k: sum(n * sh[k] for n, sh in exits) / slice_rays
-                 for k in ("det", "u", "whole")}
-    tri_flops = (rays_t * n_sph_real * FLOPS_PER_PAIR
-                 + rays_t * slice_tri_flops / slice_rays)
+
+    def mean_exits(exits):
+        return {k: sum(n * sh.get(k, 0.0) for n, sh in exits) / slice_rays
+                for k in ("det", "u", "whole")}
+
+    k2t_exits, k2s_exits = mean_exits(exits_list), mean_exits(exits_all)
+    sph_flops = rays_t * n_sph_real * FLOPS_PER_PAIR
+    tri_flops_all = sph_flops + rays_t * slice_all_flops / slice_rays
+    tri_flops = sph_flops + rays_t * slice_list_flops / slice_rays
+    t_pairs_listed = slice_pairs * rays_t / slice_rays
     tri_bytes = (2 * STATE_BYTES * tr2 + n_sph_real * SPHERE_BYTES
                  + n_tri_real * (TRI_BYTES + SPHERE_BYTES) + 52)
     k2t_bound, k2t_by = bound(tri_flops, tri_bytes)
+    k2s_bound, k2s_by = bound(tri_flops_all, tri_bytes)
+    # the listed mode's own work: the pairs its front-to-back fold tested
+    # (its counters), each priced by the exit mix of the listed pairs
+    tested_flops = sph_flops + t_tested * pair_flops(k2t_exits)
+    k2t_tbound, k2t_tby = bound(tested_flops, tri_bytes)
     path_t = (f"triangle main: render --scene trimesh fused+regen "
               f"{MAIN_W}x{MAIN_H} {TRI_SPP} spp")
     kernels["regen_steps_tri"] = dict(
         name="regen_steps_tri", route="cuda",
         source="tpu_ray_torch/csrc/regen.cu",
         replaces="tpu_ray/kernels/regen.py:812",
-        also_replaces="tpu_ray/kernels/regen.py:868",
         launches=k2t_launches, max_abs_err=k2t_err, ms=k2t_ms,
-        plain_ms=k2t_plain, bound_ms=k2t_bound, bound_by=k2t_by,
+        plain_ms=k2t_plain, bound_ms=k2t_tbound, bound_by=k2t_tby,
         library_ms=None, path=path_t,
         shape=f"{tr2} lanes x {tsteps} steps, {rays_t} rays, "
               f"{ttable.shape[0]} primitives ({n_sph_real} spheres and "
-              f"{n_tri_real} triangles real)",
-        plain_lanes=tsl_p.shape[1], ms_same_lanes=k2t_ms_slice,
-        pairs_leaving_at=k2t_exits)
-    print(f"K2 triangle mode at the triangle path: {k2t_ms:.3f} ms (bound "
-          f"{k2t_bound:.3f} ms by {k2t_by}; triangle pairs leaving the test "
-          f"at {k2t_exits}); 1 lane in {SLICE_STRIDE} "
-          f"({tsl_p.shape[1]}) bit-equal to plain, {k2t_ms_slice:.3f} ms "
-          f"kernel / {k2t_plain:.3f} ms plain on those lanes", flush=True)
+              f"{n_tri_real} triangles real) in {n_tiles_r} tiles; bound "
+              f"over the pairs tested",
+        bound_listed_pairs_ms=k2t_bound, bound_all_triangles_ms=k2s_bound,
+        list_pass_rate=k2t_pass,
+        pairs_listed=t_pairs_listed, pairs_tested=t_tested,
+        plain_lanes=tsl_p.shape[1], same_lanes="every 32nd 256-lane block",
+        ms_same_lanes=k2t_ms_slice, pairs_leaving_at=k2t_exits)
+    kernels["regen_steps_tri_sweep"] = dict(
+        name="regen_steps_tri_sweep", route="cuda",
+        source="tpu_ray_torch/csrc/regen.cu",
+        replaces="tpu_ray/kernels/regen.py:868",
+        launches=k2s_launches, max_abs_err=k2s_err, ms=k2s_ms,
+        plain_ms=k2s_plain, bound_ms=k2s_bound, bound_by=k2s_by,
+        library_ms=None,
+        path=f"regen_steps(tri=) without tile boxes (the sweep a caller "
+             f"names), at the triangle path's state: trimesh "
+             f"{MAIN_W}x{MAIN_H} {TRI_SPP} spp",
+        shape=f"{tr2} lanes x {tsteps} steps, {rays_t} rays, every "
+              f"triangle", pixels_differing_from_listed=n_px_sweep,
+        plain_lanes=tsl_p.shape[1], ms_same_lanes=k2s_ms_slice,
+        pairs_leaving_at=k2s_exits)
+    print(f"K2 listed mode at the triangle path: {k2t_ms:.3f} ms (bound "
+          f"{k2t_tbound:.3f} ms by {k2t_tby} over the {t_tested} pairs "
+          f"tested, {k2t_bound:.3f} ms over the {t_pairs_listed:.6e} listed "
+          f"pairs, {k2s_bound:.3f} ms over every triangle; regen list pass "
+          f"rate {k2t_pass:.4f} ({t_listed} "
+          f"listed tiles over {t_live} live block-steps x {n_tiles_r} "
+          f"tiles); listed pairs leaving the test at {k2t_exits}); every "
+          f"32nd block ({tsl_p.shape[1]} lanes) bit-equal to plain, "
+          f"{k2t_ms_slice:.3f} ms kernel / {k2t_plain:.3f} ms plain on "
+          f"them. Sweep (1 launch on its own call): {k2s_ms:.3f} ms (bound "
+          f"{k2s_bound:.3f} ms by {k2s_by}), {n_px_sweep} pixels differ "
+          f"from the listed route's image; 1 lane in {SLICE_STRIDE} "
+          f"bit-equal to plain, {k2s_ms_slice:.3f} ms kernel / "
+          f"{k2s_plain:.3f} ms plain", flush=True)
     phase("k2_tri_check", t0)
 
     # 19. the triangle path's forward+backward, as a user differentiates
@@ -2109,6 +2252,8 @@ def main() -> int:
     peak_t = torch.cuda.max_memory_allocated() - mem0_t
     require(launches_t["regen_record"] > 0 and launches_t["regen_bwd"] > 0,
             f"triangle fwd+bwd did not launch K2-record and K3: {launches_t}")
+    require(regen_record.listed_launches == launches_t["regen_record"],
+            "triangle fwd+bwd did not take K2-record's listed mode")
     require(sum(launches_t.values()) == launches_t["regen_record"]
             + launches_t["regen_bwd"],
             f"triangle fwd+bwd launched other kernels: {launches_t}")
@@ -2137,48 +2282,68 @@ def main() -> int:
     phase("tri_fwd_bwd", t0)
 
     # 20. K2-record and K3's triangle branch at the triangle path's own
-    # state and records (launches not counted): K2-record leaves the
-    # forward-only K2's state and, on 1 lane in 32, the plain version's
-    # records; K3 (two launches, bit-equal) at the main loss's cotangent:
-    # its d_table against the path's gradients, and on 1 lane in 32
-    # d_state equal to plain, d_table and d_cam within 1e-4 of each
-    # group's max of the plain f64 sum (sphere and triangle rows apart)
+    # state and records (launches not counted): K2-record's listed mode
+    # leaves the forward-only listed K2's state and, on every 32nd 256-lane
+    # block, the listed plain version's state and records; its sweep
+    # leaves the forward-only sweep's state; K3 (two launches, bit-equal)
+    # at the main loss's cotangent: its d_table against the path's
+    # gradients, and on 1 lane in 32 d_state equal to plain, d_table and
+    # d_cam within 1e-4 of each group's max of the plain f64 sum (sphere
+    # and triangle rows apart)
     t0 = time.perf_counter()
     seg_t = min(SEG_MAX, tsteps)
     tst_r = tst0.clone()
     trecs, k2tr_ms = timed(torch, lambda: regen_record(
-        tst_r, tc13, ttable, tsteps, seg_t, tri=ttri, **kwt))
+        tst_r, tc13, ttable, tsteps, seg_t, tri=ttri, boxes=tboxes, **kwt))
     require(bits_equal(torch, tst_r, tst_k),
-            "K2-record triangle state differs from the forward-only K2's")
-    tsl_r, tsl_pr = tst0[:, cols].contiguous(), tst0[:, cols].contiguous()
+            "K2-record listed state differs from the forward-only K2's")
+    tsl_r, tsl_pr = tst0[:, bcols].contiguous(), tst0[:, bcols].contiguous()
     trecs_s, k2tr_ms_slice = timed(torch, lambda: regen_record(
-        tsl_r, tc13, ttable, tsteps, seg_t, tri=ttri, **kwt))
+        tsl_r, tc13, ttable, tsteps, seg_t, tri=ttri, boxes=tboxes, **kwt))
     (_, trecs_p), k2tr_plain = timed(torch, lambda: regen_steps_plain(
-        tsl_pr, tc13, ttable, tsteps, seg=seg_t, tri=ttri, **kwt))
+        tsl_pr, tc13, ttable, tsteps, seg=seg_t, tri=ttri, boxes=tboxes,
+        **kwt))
     require(bits_equal(torch, tsl_r, tsl_pr),
-            "K2-record triangle slice state not bit-equal to plain")
+            "K2-record listed block slice state not bit-equal to plain")
     t_end_p = trecs_p.t_end.long()
     valid = torch.arange(tsteps, device=dev)[:, None] < t_end_p[None, :]
     require(torch.equal(trecs_s.t_end, trecs_p.t_end)
             and torch.equal(trecs_s.rec[valid], trecs_p.rec[valid]),
-            "K2-record triangle records differ from plain")
+            "K2-record listed records differ from plain")
+    require(torch.equal(trecs_s.rec[valid], trecs.rec[:, bcols][valid])
+            and torch.equal(trecs_s.t_end, trecs.t_end[bcols]),
+            "K2-record listed records on the block slice differ from the "
+            "launch's")
+    for q in range(trecs_p.chk.shape[0]):
+        on = t_end_p > q * seg_t
+        require(bits_equal(torch, trecs_s.chk[q][:, on],
+                           trecs_p.chk[q][:, on]),
+                f"K2-record listed checkpoint {q} differs from plain")
     require(bool((trecs_p.rec[valid] >= n_sph).any()),
             "the triangle path recorded no triangle winner")
+    del trecs_s, tsl_r
+    tst_rs = tst0.clone()
+    regen_record(tst_rs, tc13, ttable, tsteps, seg_t, tri=ttri, **kwt)
+    require(bits_equal(torch, tst_rs, tst_s),
+            "K2-record sweep state differs from the forward-only sweep's")
+    del tst_rs
     n_chk_t = int(((trecs.t_end.long() + seg_t - 1) // seg_t).sum())
-    k2tr_bound, k2tr_by = bound(
-        tri_flops, tri_bytes + 2 * rays_t + STATE_BYTES * n_chk_t + 4 * tr2)
+    rec_bytes = 2 * rays_t + STATE_BYTES * n_chk_t + 4 * tr2
+    k2tr_bound, k2tr_by = bound(tested_flops, tri_bytes + rec_bytes)
     path_tg = (f"triangle main fwd+bwd: render_mean trimesh fused+regen "
                f"{MAIN_W}x{MAIN_H} {TRI_SPP} spp")
     kernels["regen_record_tri"] = dict(
         name="regen_record_tri", route="cuda",
         source="tpu_ray_torch/csrc/regen.cu",
         replaces="tpu_ray/kernels/regen.py:812",
-        also_replaces="tpu_ray/kernels/regen.py:868",
         launches=launches_t["regen_record"], max_abs_err=0.0, ms=k2tr_ms,
         plain_ms=k2tr_plain, bound_ms=k2tr_bound, bound_by=k2tr_by,
         library_ms=None, path=path_tg,
-        shape=f"{tr2} lanes x {tsteps} steps, seg {seg_t}, {rays_t} rays",
+        shape=f"{tr2} lanes x {tsteps} steps, seg {seg_t}, {rays_t} rays; "
+              f"bound over the pairs tested",
+        bound_listed_pairs_ms=bound(tri_flops, tri_bytes + rec_bytes)[0],
         forward_only_ms=k2t_ms, plain_lanes=tsl_pr.shape[1],
+        same_lanes="every 32nd 256-lane block",
         ms_same_lanes=k2tr_ms_slice)
 
     tcol = tst_k[16:19].T.contiguous().requires_grad_()
@@ -2250,9 +2415,12 @@ def main() -> int:
         plain_lanes=trecs_sl.t_end.shape[0], ms_same_lanes=k3t_ms_slice,
         partial_bytes=build.load().trt_regen_bwd_parts(tr2)
         * ttable.numel() * 4)
-    print(f"K2-record triangle mode: {k2tr_ms:.3f} ms (forward-only "
-          f"{k2t_ms:.3f} ms), state bit-equal to forward-only, 1 lane in "
-          f"{SLICE_STRIDE}: records equal to plain; K3 triangle branch at "
+    print(f"K2-record listed mode: {k2tr_ms:.3f} ms (forward-only "
+          f"{k2t_ms:.3f} ms), state bit-equal to forward-only, every 32nd "
+          f"block: state, records and checkpoints equal to plain, "
+          f"{k2tr_ms_slice:.3f} ms kernel / {k2tr_plain:.3f} ms plain; "
+          f"K2-record sweep state bit-equal to the sweep's; K3 triangle "
+          f"branch at "
           f"the triangle path: {k3t_ms:.3f} ms (bound {k3t_bound:.3f} ms by "
           f"{k3t_by}), two launches bit-equal, d_table equal to the path's "
           f"within 1e-4; 1 lane in {SLICE_STRIDE}: d_state equal to plain, "
@@ -2260,7 +2428,7 @@ def main() -> int:
           f"{k3t_err}), {k3t_ms_slice:.3f} ms kernel / {k3t_plain:.3f} ms "
           f"plain", flush=True)
     phase("k3_tri_check", t0)
-    del trecs, trecs_s, trecs_p, trecs_sl, tst_r
+    del trecs, trecs_p, trecs_sl, tst_r
 
     # 21. the triangle routes' gradients, fused+regen's and the
     # per-sample route's (K8, K5, K6), against backend cuda autograd (the
@@ -2692,6 +2860,8 @@ def main() -> int:
             "fwd_bwd_seconds": tri_step_secs,
             "fwd_bwd_rays_per_s": [rays_tg / t for t in tri_step_secs],
             "fwd_bwd_peak_bytes": peak_t,
+            "regen_list_pass_rate": k2t_pass,
+            "pixels_differing_from_sweep": n_px_sweep,
             "per_sample": {
                 "rays_cast": rays_ts, "seconds": tfwd_secs,
                 "rays_per_s": [rays_ts / t for t in tfwd_secs],

@@ -394,6 +394,130 @@ def test_triangle_routes_on_card(cuda_device):
         assert (a - b).abs().max() <= 3e-3 * b.abs().max().clamp_min(1e-12)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(64, 48), (100, 37)])
+def test_k2_listed_mode_matches_plain_on_card(cuda_device, w, h):
+    """K2's listed mode over trimesh (2 spp, all 10 steps), forward-only
+    and recording, bit-equal to regen_steps_plain with the tile boxes
+    (state, records, checkpoints, t_end), with a ragged last block at
+    100x37; its counters count listed tiles and tested pairs within their
+    bounds, and the launches are counted as listed."""
+    from tpu_ray_torch.kernels.bounce_step import tab_tile_boxes
+    ts = make_scene("trimesh", device=cuda_device)
+    table, tri, _ = regen_tables(ts)
+    boxes = tab_tile_boxes(tri)
+    perm, _ = tile_order(w, h)
+    st, cam, _ = wave_init(default_camera(ts),
+                           torch.as_tensor(perm, device=cuda_device), 2, 0,
+                           0, w, h)
+    kw = dict(REGEN_KW, width=w, height=h)
+    a, b, c = st.clone(), st.clone(), st.clone()
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    n0 = (regen_steps.listed_launches, regen_record.listed_launches)
+    regen_steps(a, cam, table, 10, tri=tri, boxes=boxes, stats=stats, **kw)
+    recs = regen_record(b, cam, table, 10, 4, tri=tri, boxes=boxes, **kw)
+    _, ref = regen_steps_plain(c, cam, table, 10, seg=4, tri=tri,
+                               boxes=boxes, **kw)
+    torch.cuda.synchronize()
+    assert (regen_steps.listed_launches - n0[0],
+            regen_record.listed_launches - n0[1]) == (1, 1)
+    assert torch.equal(_bits(a), _bits(c)) and torch.equal(_bits(b),
+                                                           _bits(c))
+    assert torch.equal(recs.t_end, ref.t_end)
+    valid = torch.arange(10, device=cuda_device)[:, None] < \
+        ref.t_end.long()[None, :]
+    assert torch.equal(recs.rec[valid], ref.rec[valid])
+    assert (recs.rec[valid] >= table.shape[0] - tri.shape[0]).any()
+    for s in range(ref.chk.shape[0]):
+        alive = ref.t_end.long() > s * 4
+        assert torch.equal(_bits(recs.chk[s][:, alive]),
+                           _bits(ref.chk[s][:, alive]))
+    listed, live, pairs = stats.tolist()
+    n_blocks, n_tiles = -(-st.shape[1] // 256), boxes.shape[0]
+    assert 0 < live <= 10 * n_blocks and 0 < listed <= live * n_tiles
+    assert 0 < pairs <= int(c[22].sum()) * n_tiles * 128
+
+
+def _tie_soup(dev):
+    """Two tiles of 128 triangles, the rest degenerate: tile 0 holds the
+    triangle z = 5 (-10..30 in x and y) at id 5, tile 1 the same
+    triangle at id 130 and, at id 131, a small one at z = 1 off to the
+    side, so tile 1's box starts nearer the rays than tile 0's. Rays from
+    near the origin along +z meet both copies at the same t."""
+    tab = torch.zeros((256, 9), device=dev)
+    big = torch.tensor([-10.0, -10.0, 5.0, 40.0, 0.0, 0.0, 0.0, 40.0, 0.0],
+                       device=dev)
+    tab[5] = big
+    tab[130] = big
+    tab[131] = torch.tensor([50.0, 50.0, 1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+                            device=dev)
+    g = np.random.default_rng(6)
+    o = torch.as_tensor(np.c_[g.uniform(-1, 1, (512, 2)),
+                              np.zeros(512)].astype(np.float32), device=dev)
+    d = torch.nn.functional.normalize(torch.as_tensor(np.c_[
+        g.uniform(-0.05, 0.05, (512, 2)), np.ones(512)].astype(np.float32),
+        device=dev), dim=1)
+    return tab, o, d
+
+
+@pytest.mark.cuda
+def test_exact_tie_across_tiles_on_card(cuda_device):
+    """An exact tie in t between two tiles, where the front-to-back order
+    folds the higher id's tile first: K10 and K2's listed mode keep the
+    lowest id, as their plain versions do, with every lane alive (each
+    lane folds the tile itself) and with 4 lanes a warp (the warp shares
+    each lane's fold)."""
+    import dataclasses
+
+    from tpu_ray_torch.core.scene import SceneBuilder
+    from tpu_ray_torch.core.trimesh import Triangles
+    from tpu_ray_torch.kernels.bounce_step import prim_table, tab_tile_boxes
+    from tpu_ray_torch.kernels.tri_intersect import (tri_nearest_hit_stream,
+                                                     tri_stream_plain)
+    tab, o, d = _tie_soup(cuda_device)
+    boxes = tab_tile_boxes(tab)
+    sparse = torch.arange(512, device=cuda_device) % 8 == 0
+    for al in (None, sparse):
+        k = tri_nearest_hit_stream(tab, boxes, o, d, al)
+        p = tri_stream_plain(tab, boxes, o, d, al)
+        torch.cuda.synchronize()
+        live = slice(None) if al is None else al
+        assert bool((p.idx[live] == 5).all())
+        assert torch.equal(k.idx, p.idx) and torch.equal(_bits(k.t),
+                                                         _bits(p.t))
+
+    sb = SceneBuilder()
+    sb.add((0.0, 100.0, 0.0), 1.0, (0.5, 0.5, 0.5), world_scale=False)
+    base = sb.build(look_at=(0.0, 0.0, 5.0), use_sky=True,
+                    default_distance=6.0, default_x_angle=0.0,
+                    default_y_height=0.0, device=cuda_device)
+    z = torch.zeros_like(tab[:, 0:3])
+    tris = Triangles(v0=tab[:, 0:3], e1=tab[:, 3:6], e2=tab[:, 6:9],
+                     albedo=z + 0.5, emissive=z, specular=z[:, 0],
+                     ior=z[:, 0], n_real=3)
+    table = prim_table(dataclasses.replace(base, tris=tris))
+    n_sph = table.shape[0] - 256
+    st = torch.zeros((24, 512), device=cuda_device)
+    st[0:3], st[3:6] = o.T, d.T
+    st[6:9] = 1.0
+    st[12] = 1.0
+    cam = torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0,
+                        1.0, 0.0, 1.0], device=cuda_device)
+    kw = dict(REGEN_KW, width=32, height=16)
+    for alive in (st[12], sparse.float()):
+        st[12] = alive
+        a, c = st.clone(), st.clone()
+        recs = regen_record(a, cam, table, 1, 1, tri=tab, boxes=boxes, **kw)
+        _, ref = regen_steps_plain(c, cam, table, 1, seg=1, tri=tab,
+                                   boxes=boxes, **kw)
+        torch.cuda.synchronize()
+        on = alive > 0.5
+        assert bool((ref.rec[0][on] == n_sph + 5).all())
+        assert torch.equal(recs.t_end, ref.t_end)
+        assert torch.equal(recs.rec[:, on], ref.rec[:, on])
+        assert torch.equal(_bits(a), _bits(c))
+
+
 # ---------------------------------------------------------------------------
 # the per-sample route on triangle scenes: K8, K5's and K6's triangle modes
 # ---------------------------------------------------------------------------

@@ -41,8 +41,9 @@
 //   Design: one thread per lane, 256-lane blocks. The block builds its
 //   own list in the launch: each alive lane slab-tests its ray against
 //   the T inflated tile boxes (staged in shared memory) in the op order
-//   of bounce_step.tri_block_lists, a warp vote ORs the lanes, and thread
-//   0 compacts the reached ids in ascending order: the JAX package's
+//   of bounce_step.tri_block_lists, warp votes OR the lanes into bit
+//   words, and a popc prefix compacts the reached ids in ascending order
+//   (common.cuh trt_block_list): the JAX package's
 //   tri_block_lists at block_r = 256, group 1, with no [B, T] list in
 //   HBM, no second launch and no host sync. The whole block then folds
 //   the same tile, so each listed tile (block_m triangles, 4.6 KB) is
@@ -176,7 +177,8 @@ __global__ void bounce_fwd_kernel(const float* __restrict__ st,
 // tri [m, 9] v0|e1|e2 (ids n_sph + j); boxes [n_tiles, 6], tile t holds
 // triangles [t * block_m, min((t + 1) * block_m, m)). Dynamic shared
 // memory: n_sph spheres (float4), block_m * 9 floats of staged tile,
-// n_tiles * 6 floats of boxes, n_tiles ints of reach flags and of list.
+// n_tiles * 6 floats of boxes, trt_list_scratch(n_tiles) ints of list
+// scratch and n_tiles ints of list.
 __global__ void bounce_fwd_list_kernel(const float* __restrict__ st,
                                        float* __restrict__ out, int r,
                                        const float* __restrict__ table,
@@ -190,9 +192,8 @@ __global__ void bounce_fwd_list_kernel(const float* __restrict__ st,
   float4* sph = smem4;
   float* tile = reinterpret_cast<float*>(sph + n_sph);
   float* box = tile + 9 * block_m;
-  int* reach = reinterpret_cast<int*>(box + 6 * n_tiles);
-  int* lst = reach + n_tiles;
-  __shared__ int s_cnt;
+  int* scratch = reinterpret_cast<int*>(box + 6 * n_tiles);
+  int* lst = scratch + trt_list_scratch(n_tiles);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in = i < r;
   TrtBounceLane L = {};
@@ -212,7 +213,7 @@ __global__ void bounce_fwd_list_kernel(const float* __restrict__ st,
     __syncthreads();
     // the block's list: tile t is reached if a lane's ray meets its box
     const int cnt = trt_block_list(alive, L.ox, L.oy, L.oz, L.dx, L.dy,
-                                   L.dz, box, n_tiles, reach, lst, &s_cnt);
+                                   L.dz, box, n_tiles, scratch, lst);
     float best = TRT_F32_MAX;
     int bi = 0;
     if (alive) {
@@ -394,7 +395,8 @@ extern "C" int trt_bounce_fwd_list(const float* state, float* out, int r,
   }
   const size_t smem = (size_t)n_sph * sizeof(float4) +
                       ((size_t)9 * block_m + 6 * n_tiles) * sizeof(float) +
-                      (size_t)2 * n_tiles * sizeof(int);
+                      (size_t)(trt_list_scratch(n_tiles) + n_tiles) *
+                          sizeof(int);
   if (smem > TRT_MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   cudaError_t err = trt_set_smem(bounce_fwd_list_kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -143,71 +143,247 @@ __device__ __forceinline__ void trt_fold_tris(
   }
 }
 
-// torch.maximum / torch.minimum: NaN if either is NaN (the slab test's
-// value can be NaN where 0 * inf meets, and the plain version keeps it)
-__device__ __forceinline__ float trt_nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+// trt_fold_tris with the winner by (t, id) in that order: a triangle
+// takes the lead with a smaller t, or the same t and a lower id. Folds
+// that visit the tiles out of id order (trt_fold_tiles_ordered) keep the
+// lowest id on an exact tie with it, as an ascending fold with strict <
+// does.
+__device__ __forceinline__ void trt_fold_tris_lex(
+    const float* __restrict__ tri, int j0, int j1, int id0, float ox,
+    float oy, float oz, float dx, float dy, float dz, float& best,
+    int& bi) {
+  for (int j = j0; j < j1; ++j) {
+    float t;
+    if (trt_tri_hit(tri + 9 * (size_t)j, ox, oy, oz, dx, dy, dz, t) &&
+        (t < best || (t == best && id0 + j < bi))) {
+      best = t;
+      bi = id0 + j;
+    }
+  }
 }
-__device__ __forceinline__ float trt_nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
+
+// A ray for the slab tests of the tile lists: origin, direction and the
+// reciprocal of each nonzero direction component, taken once for all the
+// boxes (the plain version's 1 / d, a true division, so the same f32).
+struct TrtRay {
+  float o[3], d[3], inv[3];
+};
+
+__device__ __forceinline__ TrtRay trt_ray(float ox, float oy, float oz,
+                                          float dx, float dy, float dz) {
+  TrtRay r;
+  r.o[0] = ox; r.o[1] = oy; r.o[2] = oz;
+  r.d[0] = dx; r.d[1] = dy; r.d[2] = dz;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r.inv[k] = r.d[k] != 0.0f ? 1.0f / r.d[k] : 0.0f;
+  return r;
 }
 
 // kernels/bounce_step.py _block_reach for one ray and one tile box
-// (lo.xyz, hi.xyz): does the ray meet the box at some t >= 0? The plain
-// version's op order; 1 / d is a true division.
-__device__ __forceinline__ bool trt_slab_reach(float ox, float oy, float oz,
-                                               float dx, float dy, float dz,
-                                               const float* box) {
-  const float big = 3.0e38f;
-  const float o[3] = {ox, oy, oz};
-  const float d[3] = {dx, dy, dz};
-  float tl = 0.0f, th = big;
+// (lo.xyz, hi.xyz): does the ray meet the box at some t >= 0? -> and tl,
+// where it does: the slab test's lower end (>= 0), the distance at which
+// the ray enters the box. The plain version's values: its torch.maximum /
+// torch.minimum carry a NaN (0 * inf where a box face meets the origin of
+// a ray with an overflowing reciprocal) to a miss, here a flag; an axis
+// the ray runs parallel to admits the ray if its origin lies between the
+// faces and rules it out otherwise, as the plain version's +-3e38 do.
+// MAYBE: -> false only where the ray surely misses the box (a NaN
+// answers true), the prefilter of trt_group_boxes.
+template <bool MAYBE = false>
+__device__ __forceinline__ bool trt_slab_entry(const TrtRay& r,
+                                               const float* box,
+                                               float& tl_out) {
+  float tl = 0.0f, th = 3.0e38f;
+  bool nan = false;
+#pragma unroll
   for (int k = 0; k < 3; ++k) {
     const float lo = box[k], hi = box[3 + k];
-    if (d[k] == 0.0f) {
-      const bool inside = o[k] >= lo && o[k] <= hi;
-      tl = trt_nan_max(tl, inside ? -big : big);
-      th = trt_nan_min(th, inside ? big : -big);
+    if (r.d[k] == 0.0f) {
+      if (!(r.o[k] >= lo && r.o[k] <= hi)) return false;
     } else {
-      const float inv = 1.0f / d[k];
-      const float a0 = (lo - o[k]) * inv;
-      const float a1 = (hi - o[k]) * inv;
-      tl = trt_nan_max(tl, trt_nan_min(a0, a1));
-      th = trt_nan_min(th, trt_nan_max(a0, a1));
+      const float a0 = (lo - r.o[k]) * r.inv[k];
+      const float a1 = (hi - r.o[k]) * r.inv[k];
+      nan |= (a0 != a0) | (a1 != a1);
+      tl = fmaxf(tl, fminf(a0, a1));
+      th = fminf(th, fmaxf(a0, a1));
     }
   }
-  return th >= tl && th >= 0.0f;
+  tl_out = tl;
+  if (MAYBE && nan) return true;
+  return !nan && th >= tl && th >= 0.0f;
+}
+
+// The boxes of groups of 32 consecutive tiles, for a prefilter of the
+// list build: gbox [ceil(n_tiles / 32), 6] (shared) gets each group's
+// union of the tile boxes box [n_tiles, 6], or the whole space where a
+// tile of the group is empty (lo > hi: the slab test's answer for it is
+// not monotone). A group box holds each of its tiles' boxes, so for
+// every f32 ray its slab interval holds theirs (each rounded step is
+// monotone): a ray that surely misses it (trt_slab_entry<true> false)
+// misses all 32 tiles, and the list is the one tile-by-tile tests give.
+// Every thread of the block calls it (it ends in a barrier).
+__device__ __forceinline__ void trt_group_boxes(const float* box,
+                                                int n_tiles, float* gbox) {
+  const int n_groups = (n_tiles + 31) >> 5;
+  const float inf = __int_as_float(0x7f800000);
+  for (int g = threadIdx.x; g < n_groups; g += blockDim.x) {
+    float lo[3] = {inf, inf, inf};
+    float hi[3] = {-inf, -inf, -inf};
+    bool whole = false;
+    for (int t = 32 * g; t < min(32 * g + 32, n_tiles); ++t) {
+      const float* b = box + 6 * t;
+      whole |= !(b[0] <= b[3] && b[1] <= b[4] && b[2] <= b[5]);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        lo[k] = fminf(lo[k], b[k]);
+        hi[k] = fmaxf(hi[k], b[3 + k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      gbox[6 * g + k] = whole ? -inf : lo[k];
+      gbox[6 * g + 3 + k] = whole ? inf : hi[k];
+    }
+  }
+  __syncthreads();
+}
+
+// Shared ints of trt_block_list's scratch for n_tiles tiles: a bit a tile
+// in 32-bit vote words, and the words' exclusive prefix of set bits.
+__host__ __device__ __forceinline__ int trt_list_scratch(int n_tiles) {
+  return 2 * ((n_tiles + 31) / 32) + 1;
 }
 
 // The block's list of reachable triangle tiles (kernels/bounce_step.py
 // tri_block_lists at block_r = blockDim.x, group 1): tile t is listed if
 // the ray (o, d) of an active lane meets its box (box [n_tiles, 6] in
-// shared memory), a warp vote ORs the lanes and thread 0 compacts the
-// reached ids into lst in ascending order. -> the count. Every thread of
+// shared memory). Each warp votes tile by tile and its first lane ORs the
+// votes of 32 tiles into a shared word; warp 0 scans the words' popc
+// counts with shuffles, and every thread writes its tiles' places, so lst
+// holds the reached ids in ascending order. -> the count. Every thread of
 // the block calls it (it holds barriers); blockDim.x is a multiple of 32.
-// reach, lst: n_tiles ints of shared memory each; cnt: one shared int.
+// scratch: trt_list_scratch(n_tiles) ints, lst: n_tiles ints, shared.
 __device__ __forceinline__ int trt_block_list(bool active, float ox,
                                               float oy, float oz, float dx,
                                               float dy, float dz,
                                               const float* box, int n_tiles,
-                                              int* reach, int* lst,
-                                              int* cnt) {
-  for (int k = threadIdx.x; k < n_tiles; k += blockDim.x) reach[k] = 0;
+                                              int* scratch, int* lst) {
+  const int n_words = (n_tiles + 31) >> 5;
+  unsigned* words = reinterpret_cast<unsigned*>(scratch);
+  int* pre = scratch + n_words;
+  const int lane = threadIdx.x & 31;
+  for (int w = threadIdx.x; w < n_words; w += blockDim.x) words[w] = 0u;
   __syncthreads();
-  for (int t = 0; t < n_tiles; ++t) {
-    const bool f = active && trt_slab_reach(ox, oy, oz, dx, dy, dz,
-                                            box + 6 * t);
-    if (__any_sync(0xffffffffu, f) && (threadIdx.x & 31) == 0) {
-      reach[t] = 1;
+  if (__any_sync(0xffffffffu, active)) {         // uniform in the warp
+    const TrtRay ray = trt_ray(ox, oy, oz, dx, dy, dz);
+    unsigned bits = 0u;
+    for (int t = 0; t < n_tiles; ++t) {
+      float tl;
+      const bool f = active && trt_slab_entry(ray, box + 6 * t, tl);
+      if (__any_sync(0xffffffffu, f)) bits |= 1u << (t & 31);
+      if ((t & 31) == 31 || t == n_tiles - 1) {
+        if (lane == 0 && bits) atomicOr(words + (t >> 5), bits);
+        bits = 0u;
+      }
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int c = 0;
-    for (int t = 0; t < n_tiles; ++t) {
-      if (reach[t]) lst[c++] = t;
+  if (threadIdx.x < 32) {
+    int carry = 0;
+    for (int j0 = 0; j0 < n_words; j0 += 32) {
+      const int j = j0 + lane;
+      const int c = j < n_words ? __popc(words[j]) : 0;
+      int x = c;                                   // inclusive scan
+      for (int s = 1; s < 32; s <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, s);
+        if (lane >= s) x += y;
+      }
+      if (j < n_words) pre[j] = carry + x - c;
+      carry += __shfl_sync(0xffffffffu, x, 31);
     }
-    *cnt = c;
+    if (lane == 0) pre[n_words] = carry;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) {
+    const unsigned b = words[t >> 5];
+    if ((b >> (t & 31)) & 1u) {
+      lst[pre[t >> 5] + __popc(b & ((1u << (t & 31)) - 1u))] = t;
+    }
+  }
+  const int cnt = pre[n_words];
+  __syncthreads();
+  return cnt;
+}
+
+// The entries of trt_block_list_ordered's list: a power of two >= n.
+__host__ __device__ __forceinline__ int trt_pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// trt_block_list's tiles, ordered front to back: ord[k] = (key << 32) |
+// tile, ascending, where a listed tile's key is the f32 bits of the least
+// entry distance (trt_slab_entry's tl) over the active lanes that reach
+// it, and a tie of keys goes to the lower tile id. Each warp takes the
+// min of its reaching lanes' entries (__reduce_min_sync on the bits, in
+// the order of the non-negative floats) and its first lane folds it into
+// the tile's entry with a 64-bit shared atomicMin; a bitonic sort of the
+// trt_pow2_at_least(n_tiles) entries then puts the listed tiles first
+// (an unreached tile keeps key 0xffffffff). -> the count. Every thread
+// of the block calls it (it holds barriers). gbox: trt_group_boxes of
+// box; ord: that many u64 of shared memory; cnt: one shared int.
+__device__ __forceinline__ int trt_block_list_ordered(
+    bool active, const TrtRay& ray, const float* box, const float* gbox,
+    int n_tiles, unsigned long long* ord, int* cnt) {
+  const int n_ord = trt_pow2_at_least(n_tiles);
+  const int n_groups = (n_tiles + 31) >> 5;
+  const unsigned long long unreached = 0xffffffffull << 32;
+  for (int t = threadIdx.x; t < n_ord; t += blockDim.x) {
+    ord[t] = unreached | (unsigned)t;
+  }
+  if (threadIdx.x == 0) *cnt = 0;
+  __syncthreads();
+  // a warp tests the tiles of a group (gbox, trt_group_boxes) only where
+  // one of its lanes may meet the group's box
+  for (int g = 0; g < n_groups; ++g) {
+    float tg;
+    const bool in_g = active && trt_slab_entry<true>(ray, gbox + 6 * g, tg);
+    if (!__any_sync(0xffffffffu, in_g)) continue;   // uniform in the warp
+    for (int t = 32 * g; t < min(32 * g + 32, n_tiles); ++t) {
+      float tl = 0.0f;
+      const bool f = in_g && trt_slab_entry(ray, box + 6 * t, tl);
+      if (__any_sync(0xffffffffu, f)) {
+        // tl >= 0: clear the sign of a -0 so the bits order as the floats
+        const unsigned near = __reduce_min_sync(
+            0xffffffffu, f ? (__float_as_uint(tl) & 0x7fffffffu)
+                           : 0xffffffffu);
+        if ((threadIdx.x & 31) == 0) {
+          atomicMin(ord + t,
+                    ((unsigned long long)near << 32) | (unsigned)t);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int size = 2; size <= n_ord; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int q = threadIdx.x; q < n_ord / 2; q += blockDim.x) {
+        const int lo = 2 * stride * (q / stride) + q % stride;
+        const int hi = lo + stride;
+        const unsigned long long a = ord[lo], b = ord[hi];
+        if ((a > b) == ((lo & size) == 0)) {
+          ord[lo] = b;
+          ord[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int q = threadIdx.x; q < n_ord; q += blockDim.x) {
+    if (ord[q] < unreached && (q + 1 == n_ord || ord[q + 1] >= unreached)) {
+      *cnt = q + 1;
+    }
   }
   __syncthreads();
   return *cnt;
@@ -235,6 +411,125 @@ __device__ __forceinline__ void trt_fold_tiles_staged(
     if (active) {
       trt_fold_tris(tile, 0, nj, id0 + j0, ox, oy, oz, dx, dy, dz, best, bi);
     }
+  }
+}
+
+// A warp's lanes that need more than this many of a tile's triangles
+// fold them each on their own; fewer share the warp (trt_fold_tile_warp).
+#define TRT_WARP_SHARE_LANES 16
+
+// trt_fold_tris_lex over the nj staged triangles of one tile (ids id0 +
+// j) for the lanes of a warp that need it. Where many lanes need the
+// tile, each folds it on its own. Where few do, the warp takes them in
+// turn: each thread tests every 32nd triangle against the lane's ray
+// (shuffled to all), a butterfly of shuffles takes the least (t, id) of
+// their hits, and the lane folds that one into its best, so a tile that
+// one lane of a warp needs costs the warp nj / 32 tests, not nj. The
+// least (t, id) is the same whatever the order of the comparisons, so
+// both give the winner of the one-by-one fold. Every lane of the warp
+// calls it.
+__device__ __forceinline__ void trt_fold_tile_warp(const float* tile,
+                                                   int nj, int id0,
+                                                   bool need,
+                                                   const TrtRay& ray,
+                                                   float& best, int& bi) {
+  unsigned mask = __ballot_sync(0xffffffffu, need);
+  if (__popc(mask) > TRT_WARP_SHARE_LANES) {
+    if (need) {
+      trt_fold_tris_lex(tile, 0, nj, id0, ray.o[0], ray.o[1], ray.o[2],
+                        ray.d[0], ray.d[1], ray.d[2], best, bi);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  while (mask) {
+    const int src = __ffs(mask) - 1;
+    mask &= mask - 1;
+    const float ox = __shfl_sync(0xffffffffu, ray.o[0], src);
+    const float oy = __shfl_sync(0xffffffffu, ray.o[1], src);
+    const float oz = __shfl_sync(0xffffffffu, ray.o[2], src);
+    const float dx = __shfl_sync(0xffffffffu, ray.d[0], src);
+    const float dy = __shfl_sync(0xffffffffu, ray.d[1], src);
+    const float dz = __shfl_sync(0xffffffffu, ray.d[2], src);
+    float bt = __int_as_float(0x7f800000);
+    int bj = nj;                                   // nj: no hit
+    for (int j = lane; j < nj; j += 32) {
+      float t;
+      if (trt_tri_hit(tile + 9 * j, ox, oy, oz, dx, dy, dz, t) &&
+          (t < bt || (t == bt && j < bj))) {
+        bt = t;
+        bj = j;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ot = __shfl_xor_sync(0xffffffffu, bt, off);
+      const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
+      if (ot < bt || (ot == bt && oj < bj)) {
+        bt = ot;
+        bj = oj;
+      }
+    }
+    if (lane == src && bj < nj &&
+        (bt < best || (bt == best && id0 + bj < bi))) {
+      best = bt;
+      bi = id0 + bj;
+    }
+  }
+}
+
+// The fold of trt_fold_tiles_staged over trt_block_list_ordered's tiles
+// ord[0..cnt), front to back, with an early exit. A lane needs a tile
+// only where its ray enters the tile's box (box [n_tiles, 6], shared) at
+// no more than its best t; the block stages a tile only when some lane
+// needs it (a warp whose lanes all pass it by does no work), and as the
+// tiles come in the order of the block's least entry, it stops once no
+// active lane's best reaches the next tile's key. The winner is compared
+// by (t, id) (trt_fold_tris_lex), so it is the ascending fold's over the
+// listed tiles wherever a lane's winner lies inside its tile's (inflated)
+// box; a grazing hit that Möller-Trumbore accepts outside the box (the
+// fuzz the lists already allow against a full sweep) can be passed over.
+// A tile that few lanes of a warp need is shared by the warp
+// (trt_fold_tile_warp). wmax: one shared u32 a warp (the f32 bits of its
+// lanes' largest best, refreshed after each fold). tested: += the tiles
+// this lane tested.
+// Every thread of the block calls it (it holds barriers); only active
+// lanes fold.
+__device__ __forceinline__ void trt_fold_tiles_ordered(
+    const float* __restrict__ tri, int m, int block_m,
+    const unsigned long long* ord, int cnt, const float* box, float* tile,
+    unsigned* wmax, int id0, bool active, const TrtRay& ray, float& best,
+    int& bi, int& tested) {
+  const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  // best >= 0 where it is set: its bits order as the floats
+  const unsigned mine = __reduce_max_sync(
+      0xffffffffu, active ? __float_as_uint(best) : 0u);
+  if ((threadIdx.x & 31) == 0) wmax[warp] = mine;
+  for (int k = 0; k < cnt; ++k) {
+    const unsigned long long e = ord[k];
+    const float near = __uint_as_float((unsigned)(e >> 32));
+    const int t = (int)(unsigned)e;
+    float tl;
+    const bool need = active && near <= best &&
+                      trt_slab_entry(ray, box + 6 * t, tl) && tl <= best;
+    // a barrier too: every thread is done with the previous tile, and
+    // every warp's wmax of the last fold is written
+    if (!__syncthreads_or(need)) {
+      unsigned top = 0u;
+      for (int w = 0; w < n_warps; ++w) top = max(top, wmax[w]);
+      if (near > __uint_as_float(top)) break;   // uniform in the block
+      continue;
+    }
+    const int j0 = t * block_m;
+    const int nj = min(block_m, m - j0);
+    for (int q = threadIdx.x; q < 9 * nj; q += blockDim.x) {
+      tile[q] = tri[(size_t)9 * j0 + q];
+    }
+    __syncthreads();
+    trt_fold_tile_warp(tile, nj, id0 + j0, need, ray, best, bi);
+    tested += need;
+    const unsigned w_best = __reduce_max_sync(
+        0xffffffffu, active ? __float_as_uint(best) : 0u);
+    if ((threadIdx.x & 31) == 0) wmax[warp] = w_best;
   }
 }
 

@@ -37,7 +37,7 @@
 // nothing but the output leaves the chip. The sphere (centre, radius)
 // table sits in shared memory, a broadcast. On a triangle scene the
 // primary fold of each sample builds the block's tile list in the launch
-// (common.cuh trt_block_list: K8's slab test, warp vote and ascending
+// (common.cuh trt_block_list: K8's slab test, warp votes and ascending
 // compaction) and folds the listed tiles staged through shared memory;
 // shadow folds sweep every tile, staged the same way, and a block with no
 // hit lane skips them. The TPU kernel's K-stacked bf16 search, packed
@@ -57,7 +57,7 @@ __device__ int nearest(bool active, float ox, float oy, float oz, float dx,
                        float dy, float dz, const float4* sph, int n_sph,
                        const float* __restrict__ tri, int m, int block_m,
                        const float* box, int n_tiles, bool listed,
-                       float* tile, int* reach, int* lst, int* s_cnt) {
+                       float* tile, int* scratch, int* lst) {
   float best = TRT_F32_MAX;
   int bi = 0;
   if (active) {
@@ -67,7 +67,7 @@ __device__ int nearest(bool active, float ox, float oy, float oz, float dx,
     int cnt = n_tiles;
     if (listed) {
       cnt = trt_block_list(active, ox, oy, oz, dx, dy, dz, box, n_tiles,
-                           reach, lst, s_cnt);
+                           scratch, lst);
     }
     trt_fold_tiles_staged(tri, m, block_m, listed ? lst : nullptr, cnt,
                           tile, n_sph, active, ox, oy, oz, dx, dy, dz, best,
@@ -77,8 +77,9 @@ __device__ int nearest(bool active, float ox, float oy, float oz, float dx,
 }
 
 // Dynamic shared memory: n_sph spheres (float4), block_m * 9 floats of
-// staged tile, n_tiles * 6 floats of boxes, n_tiles ints of reach flags
-// and of list. listed: build the primary folds' block lists (boxes given).
+// staged tile, n_tiles * 6 floats of boxes, trt_list_scratch(n_tiles)
+// ints of list scratch and n_tiles ints of list. listed: build the
+// primary folds' block lists (boxes given).
 __global__ void simple_trace_kernel(
     const float* __restrict__ rows, int r, const float* __restrict__ cam13,
     const float* __restrict__ table, int n_sph,
@@ -90,9 +91,8 @@ __global__ void simple_trace_kernel(
   float4* sph = smem4;
   float* tile = reinterpret_cast<float*>(sph + n_sph);
   float* box = tile + 9 * block_m;
-  int* reach = reinterpret_cast<int*>(box + 6 * n_tiles);
-  int* lst = reach + n_tiles;
-  __shared__ int s_cnt;
+  int* scratch = reinterpret_cast<int*>(box + 6 * n_tiles);
+  int* lst = scratch + trt_list_scratch(n_tiles);
   for (int k = threadIdx.x; k < n_sph; k += blockDim.x) {
     const float* w = table + 12 * (size_t)k;
     sph[k] = make_float4(w[0], w[1], w[2], w[3]);
@@ -126,8 +126,8 @@ __global__ void simple_trace_kernel(
     trt_normalize_eps(dx, dy, dz);
     const float ox = c.px, oy = c.py, oz = c.pz;
     const int idx = nearest(in, ox, oy, oz, dx, dy, dz, sph, n_sph, tri, m,
-                            block_m, box, n_tiles, listed, tile, reach, lst,
-                            &s_cnt);
+                            block_m, box, n_tiles, listed, tile, scratch,
+                            lst);
     const bool hit = idx >= 0;
     const float* w = table + 12 * (size_t)(hit ? idx : 0);
     float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
@@ -184,7 +184,7 @@ __global__ void simple_trace_kernel(
       trt_normalize_eps(lx, ly, lz);
       const int sidx = nearest(hit, nox, noy, noz, lx, ly, lz, sph, n_sph,
                                tri, m, block_m, box, n_tiles, false, tile,
-                               reach, lst, &s_cnt);
+                               scratch, lst);
       if (hit) {
         const float lam = fmaxf(nx * lx + ny * ly + nz * lz, 0.0f);
         if (sidx == lidx[j]) {
@@ -239,7 +239,8 @@ extern "C" int trt_simple_trace(const float* rows, int r, const float* cam13,
   const int block_m = m > 0 ? m / n_tiles : 0;
   const size_t smem = (size_t)n_sph * sizeof(float4) +
                       ((size_t)9 * block_m + 6 * n_tiles) * sizeof(float) +
-                      (size_t)2 * n_tiles * sizeof(int);
+                      (size_t)(trt_list_scratch(n_tiles) + n_tiles) *
+                          sizeof(int);
   if (smem > TRT_MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   cudaError_t err = trt_set_smem(simple_trace_kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -74,7 +74,8 @@ __all__ = ["shade_plain", "shade_vjp_plain", "nrm3_fwd", "nrm3_bwd",
            "nearest_prim",
            "cull_mask", "bounce_cull_mask", "octant_occupancy",
            "bounce_cull_mask_octant", "TRI_BLOCK_M", "tri_tile_bounds",
-           "tri_tile_boxes", "tri_block_lists", "init_state", "bounce_fwd",
+           "tri_tile_boxes", "tab_tile_boxes", "tri_block_lists",
+           "init_state", "bounce_fwd",
            "bounce_fwd_plain", "bounce_fwd_list", "bounce_fwd_list_plain",
            "bounce_replay", "bounce_replay_plain",
            "bounce_bwd", "bounce_bwd_plain", "FusedTables", "fused_tables",
@@ -716,7 +717,10 @@ def tri_tile_bounds(tris: Triangles):
     """Boxes of the triangle tiles (the extremes of v0, v0 + e1, v0 + e2)
     -> (lo [T,3], hi [T,3]), T = M / TRI_BLOCK_M. Degenerate padding
     triangles are left out, so an all-padding tile gets an empty box."""
-    v0, e1, e2 = tris.v0, tris.e1, tris.e2
+    return _tile_bounds(tris.v0, tris.e1, tris.e2)
+
+
+def _tile_bounds(v0, e1, e2):
     m, block_m = v0.shape[0], TRI_BLOCK_M
     if m % block_m:
         raise ValueError(f"{m} triangles are not a multiple of {block_m}")
@@ -734,7 +738,17 @@ def tri_tile_boxes(tris: Triangles):
     """The tile boxes inflated by 1e-4 of their size and magnitude, as one
     [T,6] table (lo, hi): the slab test of ``tri_block_lists`` is then
     conservative against f32 rounding. Empty boxes stay empty."""
-    lo, hi = tri_tile_bounds(tris)
+    return _inflate(*tri_tile_bounds(tris))
+
+
+@torch.no_grad()
+def tab_tile_boxes(tab):
+    """``tri_tile_boxes`` of the triangles of a search table [M,9]
+    (``ops/intersect_tri.tri_search_table``: v0|e1|e2), the same values."""
+    return _inflate(*_tile_bounds(tab[:, 0:3], tab[:, 3:6], tab[:, 6:9]))
+
+
+def _inflate(lo, hi):
     span = torch.clamp_min(hi - lo, 0.0)
     pad = 1e-4 * (span + torch.maximum(lo.abs(), hi.abs()) + 1e-6)
     nonempty = lo[:, 0:1] <= hi[:, 0:1]

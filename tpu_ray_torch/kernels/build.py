@@ -41,15 +41,15 @@ SIGNATURES = {
     # tri, m, origin, direction, r, t_out, idx_out, stream
     "trt_tri_nearest_hit": [_P, _I, _P, _P, _I, _P, _P, _P],
     # tri, m, boxes, n_tiles, origin, direction, alive, r, t_out, idx_out,
-    # stream
-    "trt_tri_stream": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
-    # state, r, cam13, table, n, tri, m, steps, use_sky, max_bounces,
-    # width, height, film_w, film_h, stream
-    "trt_regen_steps": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F,
-                        _F, _P],
+    # lists_only, stats, stream
+    "trt_tri_stream": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P],
+    # state, r, cam13, table, n, tri, m, boxes, n_tiles, stats, steps,
+    # use_sky, max_bounces, width, height, film_w, film_h, stream
+    "trt_regen_steps": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+                        _I, _I, _F, _F, _P],
     # as trt_regen_steps, then rec, chk, t_end, seg, stream
-    "trt_regen_steps_record": [_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
-                               _I, _F, _F, _P, _P, _P, _I, _P],
+    "trt_regen_steps_record": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I,
+                               _I, _I, _I, _I, _F, _F, _P, _P, _P, _I, _P],
     # d_state, r, cam13, table, n, n_tri, rec, chk, t_end, steps, seg,
     # use_sky, max_bounces, width, height, film_w, film_h, part, part_cam,
     # d_table, d_cam, stream

@@ -10,12 +10,22 @@ total and regenerates the next sample's camera ray in the lane, from the
 counter RNG. ``regen_steps_plain`` is the same step, vectorised over the
 [24, R] state in plain PyTorch; the wrappers take it for CPU tensors only.
 
-K2 with a triangle search table also replaces ``regen_step(tri_lists=...)``
-(``_regen_list_kernel``, and ``_regen_kernel``'s triangle tiles): after the
-spheres every step folds the triangles in id order, so the winner is the
+K2 has two triangle modes, named by the caller as JAX's caller names
+them: after the spheres each step folds triangles, and the winner is the
 lowest id in the one primitive id space (spheres 0..N-1, triangles
-N..N+M-1). The TPU kernel's reachable-tile lists only skip tiles that
-cannot hold the nearest hit; the port sweeps every triangle.
+N..N+M-1) on an exact tie.
+- The listed mode (``tri`` and its tile boxes ``boxes``) replaces
+  ``regen_step(tri_lists=...)`` (``_regen_list_kernel``): at every step
+  each 256-lane block lists the 128-triangle tiles its live lanes' rays can
+  reach (``bounce_step.tri_block_lists`` at group 1, built in the launch
+  where JAX builds them on the host, ``_step_lists``) and folds only
+  those. The route takes it for every triangle scene it runs.
+- The sweep (``tri`` without boxes) replaces ``regen_step(tri_tab=,
+  tri_lists=None)`` (``_regen_kernel``'s triangle tiles): every live lane
+  folds every triangle.
+A list leaves out only tiles whose inflated box no live lane of the block
+meets, so the two modes differ only where Möller-Trumbore accepts a
+grazing hit outside its tile's box.
 
 K3 replaces ``regen_seg_bwd`` (``_regen_seg_kernel``, with its triangle
 branch): the reverse of the whole recorded trace. ``regen_bwd_plain`` is
@@ -64,10 +74,12 @@ from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera, film_extent
 from tpu_ray_torch.core.scene import Scene
 from tpu_ray_torch.kernels import build
-from tpu_ray_torch.kernels.bounce_step import (nearest_prim, nrm3_bwd,
+from tpu_ray_torch.kernels.bounce_step import (BLOCK_R, _block_reach,
+                                               nearest_prim, nrm3_bwd,
                                                nrm3_fwd, permute_scene,
                                                prim_table, shade_plain,
-                                               shade_vjp_plain)
+                                               shade_vjp_plain,
+                                               tab_tile_boxes)
 from tpu_ray_torch.ops.intersect_tri import tri_search_table
 from tpu_ray_torch.ops.raygen import camera_rays, film_offsets, film_rays
 
@@ -191,15 +203,21 @@ def step_tail_plain(st, cam, table, idx, *, use_sky: bool, max_bounces: int,
 
 def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
                       max_bounces: int, width: int, height: int,
-                      seg: int | None = None, tri=None):
+                      seg: int | None = None, tri=None, boxes=None):
     """``steps`` wavefront steps over the [24, R] state, in place. A dead
     lane only advances its bounce row, so once every lane is dead the
     remaining steps are applied to that row at once. With ``seg``, also
     records (see module docstring) -> (state, Records); else -> state.
     tri: the triangle search table (the last M rows of table are the
-    triangles), None for a sphere scene."""
+    triangles), None for a sphere scene. boxes: its tile boxes [T,6]
+    (``bounce_step.tab_tile_boxes``) for the listed mode, where each step
+    lists every BLOCK_R-lane block's reachable tiles from that step's
+    state (``tri_block_lists``) and each live lane folds only its block's
+    (a slice of lanes lists as whole blocks of its own); None for the
+    sweep of every triangle."""
     r = state.shape[1]
     dev = state.device
+    blk = torch.arange(r, device=dev) // BLOCK_R
     if seg is not None:
         recs = Records(
             rec=torch.full((steps, r), -1, dtype=torch.int16, device=dev),
@@ -215,8 +233,10 @@ def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
             break
         if seg is not None and k % seg == 0:
             recs.chk[k // seg] = state
+        tiles = None if boxes is None else _block_reach(boxes, state)[blk]
         new, rec = step_tail_plain(state, cam, table,
-                                   nearest_prim(state, table, tri), **kw)
+                                   nearest_prim(state, table, tri, tiles),
+                                   **kw)
         if seg is not None:
             recs.rec[k] = rec.to(torch.int16)
             recs.t_end.add_(alive.to(torch.int32))
@@ -242,58 +262,91 @@ def _check_ids(table):
                          f"are i16, at most {ID_LIMIT - 1}")
 
 
-def _tri_args(tri, table, dev):
-    """(pointer, M) of the triangle search table for the C entry points."""
+def _tri_args(tri, boxes, stats, table, dev):
+    """(pointer, M, boxes pointer, T, stats pointer) of the triangle search
+    table, its tile boxes and the listed mode's counters for the C entry
+    points."""
     if tri is None:
-        return None, 0
-    build.require(tri, "tri", torch.float32, (tri.shape[0], 9), dev)
-    if tri.shape[0] > table.shape[0]:
+        if boxes is not None or stats is not None:
+            raise ValueError("tile boxes and stats need a triangle table")
+        return None, 0, None, 0, None
+    if boxes is None and stats is not None:
+        raise ValueError("stats count the listed mode's tiles: give the "
+                         "tile boxes")
+    m = tri.shape[0]
+    build.require(tri, "tri", torch.float32, (m, 9), dev)
+    if m > table.shape[0]:
         raise ValueError("the table must hold a row per triangle")
-    return tri.data_ptr(), tri.shape[0]
+    if boxes is None:
+        return tri.data_ptr(), m, None, 0, None
+    n_t = boxes.shape[0]
+    build.require(boxes, "boxes", torch.float32, (n_t, 6), dev)
+    if n_t < 1 or m % n_t:
+        raise ValueError(f"{m} triangles in {n_t} tiles")
+    if stats is not None:
+        build.require(stats, "stats", torch.int64, (3,), dev)
+    return (tri.data_ptr(), m, boxes.data_ptr(), n_t,
+            None if stats is None else stats.data_ptr())
 
 
 def regen_steps(state, cam, table, steps: int, *, use_sky: bool,
-                max_bounces: int, width: int, height: int, tri=None):
+                max_bounces: int, width: int, height: int, tri=None,
+                boxes=None, stats=None):
     """K2: ``steps`` persistent-wavefront steps over the [24, R] f32 state,
     updated in place (search + shade + in-lane regeneration). cam: [13]
-    f32 (``cam13``), table [P,12] f32, tri [M,9] f32 or None (see module
-    docstring). CPU tensors take ``regen_steps_plain``."""
+    f32 (``cam13``), table [P,12] f32, tri [M,9] f32 or None, boxes [T,6]
+    f32 (the listed mode) or None (the sweep; see module docstring).
+    stats: None, or an int64 [3] CUDA tensor that the listed mode adds its
+    counts to: listed tiles summed over the live block-steps, live
+    block-steps, ray-triangle pairs tested. CPU tensors take
+    ``regen_steps_plain``."""
     if not state.is_cuda:
+        if stats is not None:
+            raise ValueError("stats are counted by the kernel only")
         return regen_steps_plain(state, cam, table, steps, use_sky=use_sky,
                                  max_bounces=max_bounces, width=width,
-                                 height=height, tri=tri)
+                                 height=height, tri=tri, boxes=boxes)
     dev = _check_regen_args(state, cam, table)
-    tri_ptr, m = _tri_args(tri, table, dev)
+    tri_ptr, m, box_ptr, n_t, st_ptr = _tri_args(tri, boxes, stats, table,
+                                                 dev)
     film_w, film_h = film_extent(width, height)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.trt_regen_steps(
             state.data_ptr(), state.shape[1], cam.data_ptr(),
-            table.data_ptr(), table.shape[0], tri_ptr, m, int(steps),
-            int(bool(use_sky)), int(max_bounces), int(width), int(height),
-            float(film_w), float(film_h), build.stream_of(state))
+            table.data_ptr(), table.shape[0], tri_ptr, m, box_ptr, n_t,
+            st_ptr, int(steps), int(bool(use_sky)), int(max_bounces),
+            int(width), int(height), float(film_w), float(film_h),
+            build.stream_of(state))
     build.check("trt_regen_steps", err)
     regen_steps.launches += 1
+    regen_steps.listed_launches += boxes is not None
     return state
 
 
+# launches of every mode, and of the listed mode among them
 regen_steps.launches = 0
+regen_steps.listed_launches = 0
 
 
 def regen_record(state, cam, table, steps: int, seg: int, *, use_sky: bool,
-                 max_bounces: int, width: int, height: int,
-                 tri=None) -> Records:
+                 max_bounces: int, width: int, height: int, tri=None,
+                 boxes=None, stats=None) -> Records:
     """K2 in recording mode: as ``regen_steps``, and also writes the
     winner records, the checkpoints every ``seg`` steps and t_end
     (``Records``). The state advances bit for bit as without recording.
     CPU tensors take ``regen_steps_plain(..., seg=seg)``."""
     _check_ids(table)
     if not state.is_cuda:
+        if stats is not None:
+            raise ValueError("stats are counted by the kernel only")
         return regen_steps_plain(state, cam, table, steps, use_sky=use_sky,
                                  max_bounces=max_bounces, width=width,
-                                 height=height, seg=seg, tri=tri)[1]
+                                 height=height, seg=seg, tri=tri,
+                                 boxes=boxes)[1]
     dev = _check_regen_args(state, cam, table)
-    tri_ptr, m = _tri_args(tri, table, dev)
+    tri_ptr, m, box_ptr, n_t, st_ptr = _tri_args(tri, boxes, stats, table,
+                                                 dev)
     r = state.shape[1]
     recs = Records(
         rec=torch.empty((steps, r), dtype=torch.int16, device=dev),
@@ -305,17 +358,20 @@ def regen_record(state, cam, table, steps: int, seg: int, *, use_sky: bool,
     with torch.cuda.device(dev):
         err = lib.trt_regen_steps_record(
             state.data_ptr(), r, cam.data_ptr(), table.data_ptr(),
-            table.shape[0], tri_ptr, m, int(steps), int(bool(use_sky)),
+            table.shape[0], tri_ptr, m, box_ptr, n_t, st_ptr, int(steps),
+            int(bool(use_sky)),
             int(max_bounces), int(width), int(height), float(film_w),
             float(film_h),
             recs.rec.data_ptr(), recs.chk.data_ptr(), recs.t_end.data_ptr(),
             int(seg), build.stream_of(state))
     build.check("trt_regen_steps_record", err)
     regen_record.launches += 1
+    regen_record.listed_launches += boxes is not None
     return recs
 
 
 regen_record.launches = 0
+regen_record.listed_launches = 0
 
 
 def _step_vjp_plain(st, consts, idx, d_st, cam, table, *, use_sky: bool,
@@ -450,12 +506,19 @@ regen_bwd.launches = 0
 def regen_tables(scene: Scene):
     """The regen route's tables of the Morton-permuted scene ->
     (table [P,12], differentiable through the permutation; tri [M,9] or
-    None; n_tri)."""
+    None; n_tri). The listed mode's tile boxes are
+    ``bounce_step.tab_tile_boxes(tri)``."""
     sp = permute_scene(scene)
     table = prim_table(sp)
     if sp.tris is None:
         return table, None, 0
     return table, tri_search_table(sp.tris), sp.tris.n_pad
+
+
+def _boxes_of(tri):
+    """The listed mode's tile boxes of the triangle search table, None for
+    a sphere scene."""
+    return None if tri is None else tab_tile_boxes(tri)
 
 
 def trace_regen(scene: Scene, camera: Camera, pixel, *, width: int,
@@ -464,14 +527,16 @@ def trace_regen(scene: Scene, camera: Camera, pixel, *, width: int,
     """All ``spp`` samples of the pixel set through the persistent
     wavefront -> (color_sum [R,3], rays_cast int). One regen_steps call of
     spp * max_bounces steps: a sample takes at most max_bounces steps, so
-    the cap never cuts a lane. No autograd history."""
+    the cap never cuts a lane. A triangle scene takes the listed mode. No
+    autograd history."""
     with torch.no_grad():
         table, tri, _ = regen_tables(scene)
         st, cam, _ = wave_init(camera, pixel, spp, seed, sample_start,
                                width, height)
         regen_steps(st, cam, table, spp * max_bounces,
                     use_sky=scene.use_sky, max_bounces=max_bounces,
-                    width=width, height=height, tri=tri)
+                    width=width, height=height, tri=tri,
+                    boxes=_boxes_of(tri))
     return st[16:19].T, int(st[22].to(torch.int64).sum())
 
 
@@ -483,20 +548,22 @@ class RegenTrace(torch.autograd.Function):
     the 12 camera rows (position, film_center, cam_x, cam_y) and sample
     s0's primary origins/directions [R,3]; autograd carries their
     cotangents on through ``prim_table``, the permutation,
-    ``Camera.basis`` and ``camera_rays``. The triangle search table rides
-    along without a gradient (the search is a discrete choice). Forward:
-    K2 in recording mode. Backward: K3. The records live in ``ctx`` until
-    the backward has run."""
+    ``Camera.basis`` and ``camera_rays``. The triangle search table and
+    its tile boxes ride along without a gradient (the search is a
+    discrete choice). Forward: K2 in recording mode (the listed mode on a
+    triangle scene). Backward: K3. The records live in ``ctx`` until the
+    backward has run."""
 
     @staticmethod
-    def forward(ctx, table, rows, o0, d0, base0, pixel, tri, cfg):
+    def forward(ctx, table, rows, o0, d0, base0, pixel, tri, boxes, cfg):
         width, height, seed, max_bounces, spp, s0, seg, use_sky = cfg
         st = _init_state(o0, d0, base0, pixel, seed, s0, width)
         cam = torch.cat([rows, rows.new_tensor([float(s0 + spp)])])
         table = table.contiguous()
         recs = regen_record(st, cam, table, spp * max_bounces, seg,
                             use_sky=use_sky, max_bounces=max_bounces,
-                            width=width, height=height, tri=tri)
+                            width=width, height=height, tri=tri,
+                            boxes=boxes)
         ctx.save_for_backward(table, cam, recs.rec, recs.chk, recs.t_end)
         ctx.cfg = cfg
         ctx.n_tri = 0 if tri is None else tri.shape[0]
@@ -516,7 +583,7 @@ class RegenTrace(torch.autograd.Function):
             use_sky=use_sky, max_bounces=max_bounces, width=width,
             height=height, n_tri=ctx.n_tri)
         return (d_tab, d_cam[0:12], d_st[0:3].T, d_st[3:6].T, None, None,
-                None, None)
+                None, None, None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -550,7 +617,7 @@ def make_regen_trace(width: int, height: int, seed: int, max_bounces: int,
         cfg = (width, height, seed, max_bounces, spp, int(s0), seg,
                scene.use_sky)
         color, rays = RegenTrace.apply(table, rows, o, d, base0, pixel, tri,
-                                       cfg)
+                                       _boxes_of(tri), cfg)
         return color, int(rays)
 
     return trace

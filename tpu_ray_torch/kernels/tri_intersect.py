@@ -117,15 +117,24 @@ def tri_stream_plain(tab, boxes, origin, direction, alive=None,
     return Hit(t=t_out, idx=idx_out)
 
 
-def tri_nearest_hit_stream(tab, boxes, origin, direction, alive=None) -> Hit:
+def tri_nearest_hit_stream(tab, boxes, origin, direction, alive=None, *,
+                           stats=None, lists_only: bool = False) -> Hit:
     """K10 (``csrc/tri_stream.cu``): ``tri_stream_plain``'s contract in one
     launch, one thread per lane; each 256-lane block builds its list of
-    reachable tiles from its alive lanes in the launch and folds only
-    those. The JAX ``nearest_hit_tri_stream``, the triangle search of
+    reachable tiles from its alive lanes in the launch and folds them
+    front to back, each lane stopping where its best hit lies before a
+    tile's box. The JAX ``nearest_hit_tri_stream``, the triangle search of
     every route past ``resident_tables_fit``. Dead lanes return a miss.
     Neither output carries autograd history. CPU tensors take
-    ``tri_stream_plain``."""
+    ``tri_stream_plain``.
+
+    For measurement, on CUDA tensors only: stats, an int64 [3] tensor that
+    the launch adds its counts to (listed tiles summed over the live
+    blocks, live blocks, ray-triangle pairs tested); lists_only builds the
+    lists and stops, every lane missing."""
     if not origin.is_cuda:
+        if stats is not None or lists_only:
+            raise ValueError("stats and lists_only measure the kernel")
         return tri_stream_plain(tab, boxes, origin, direction, alive)
     m, r, n_t = tab.shape[0], origin.shape[0], boxes.shape[0]
     dev = origin.device
@@ -135,6 +144,8 @@ def tri_nearest_hit_stream(tab, boxes, origin, direction, alive=None) -> Hit:
     build.require(direction, "direction", torch.float32, (r, 3), dev)
     if alive is not None:
         build.require(alive, "alive", torch.bool, (r,), dev)
+    if stats is not None:
+        build.require(stats, "stats", torch.int64, (3,), dev)
     if n_t < 1 or m % n_t:
         raise ValueError(f"{m} triangles in {n_t} tiles")
     t = torch.empty(r, dtype=torch.float32, device=dev)
@@ -144,7 +155,9 @@ def tri_nearest_hit_stream(tab, boxes, origin, direction, alive=None) -> Hit:
         err = lib.trt_tri_stream(
             tab.data_ptr(), m, boxes.data_ptr(), n_t, origin.data_ptr(),
             direction.data_ptr(), None if alive is None else alive.data_ptr(),
-            r, t.data_ptr(), idx.data_ptr(), build.stream_of(origin))
+            r, t.data_ptr(), idx.data_ptr(), int(bool(lists_only)),
+            None if stats is None else stats.data_ptr(),
+            build.stream_of(origin))
     build.check("trt_tri_stream", err)
     tri_nearest_hit_stream.launches += 1
     return Hit(t=t, idx=idx)
