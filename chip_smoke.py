@@ -7,17 +7,22 @@ Builds the hand-written CUDA kernels from tpu_ray_torch/csrc with nvcc,
 holds each against its plain PyTorch version on the card, renders with the
 sphere-search kernel (held against the same render with the plain search),
 then drives the main path as the CLI does: rtweekend at 1920x1080, 64 spp,
-backend fused + regen. The main path's own regen state is then run through
-the kernel again, which must give the main path's image, and every 32nd
-lane of it is held bit for bit against the plain version over all 320
-steps. Then the forward+backward main path, as a user differentiates it:
+backend fused + regen, through K2's culled sphere search. The main path's
+own regen state is then run through the kernel again, which must give the
+main path's image, and every 32nd lane of it is held bit for bit against
+the plain version over all 320 steps, its counters (boxes, tiles and
+pairs tested) against the plain mirror's; the sweep of every sphere is
+timed in turns with it, and the sphere tiles' host cost. Then the forward+backward main path, as a user
+differentiates it:
 image_mse(grad.render_mean(...), 0).backward() w.r.t. every scene leaf and
 the camera, three calls, through K2's recording mode and the K3 backward;
 K2-record is held against the forward-only K2 and (1 lane in 32) its plain
 version, K3 at the main path's own records against its plain version on
-1 lane in 32; the fused gradients against backend torch autograd at
-320x180; two make_train_step steps at full size. Then the per-sample fused
-route (backend fused without regen) at the same size: K4, K5 and K6 at
+1 lane in 32, with its registers, occupancy and lane-steps; the fused
+gradients against backend torch
+autograd at 320x180; two make_train_step steps at full size. Then the
+per-sample fused route (backend fused without regen) at the same size:
+K4, K5 and K6 at
 the route's own inputs (the main camera's sample 0, 1 lane in 32, and K6
 also on all lanes) against their plain versions, a forward pass as the
 CLI drives it (and the same samples without the Morton permutation, which
@@ -97,6 +102,9 @@ PEAK_BYTES = 3.35e12      # bytes/s
 # one ray-sphere test of csrc/common.cuh trt_nearest_sphere: 3 sub (m),
 # 5 (t_proj), 6 (projection), 5 (dsq), 1 (r^2)
 FLOPS_PER_PAIR = 20
+# one slab test of a sphere tile's box in csrc/common.cuh trt_box_entry:
+# 3 x (2 sub, 2 mul) and the min/max of the interval's ends
+FLOPS_PER_BOX = 20
 # one ray-triangle test of csrc/common.cuh trt_tri_hit, by the stage at
 # which the pair leaves it: 9 (pvec) + 5 (det) for a pair that fails the
 # det test; + 1 (1/det) + 3 (tvec) + 6 (u) for one that fails the u test;
@@ -1099,8 +1107,9 @@ def main() -> int:
         morton_perm, permute_spheres, tab_tile_boxes, tri_block_lists,
         tri_morton_perm)
     from tpu_ray_torch.kernels.regen import (
-        SEG_MAX, regen_bwd, regen_bwd_plain, regen_record, regen_steps,
-        regen_steps_plain, regen_tables, wave_init)
+        SEG_MAX, regen_bwd, regen_bwd_info, regen_bwd_plain, regen_record,
+        regen_steps, regen_steps_plain, regen_tables, sphere_tiles,
+        wave_init)
     from tpu_ray_torch.kernels.sphere_intersect import (nearest_hit_plain,
                                                         sphere_nearest_hit)
     from tpu_ray_torch.kernels.tri_intersect import (tri_hit_plain,
@@ -1123,6 +1132,7 @@ def main() -> int:
         for fn in counted:
             fn.launches = 0
         regen_steps.listed_launches = regen_record.listed_launches = 0
+        regen_steps.culled_launches = regen_record.culled_launches = 0
 
     def counts():
         return {fn.__name__: fn.launches for fn in counted}
@@ -1205,9 +1215,16 @@ def main() -> int:
     mean_d, max_d = diff.mean().item(), diff.max().item()
     require(mean_d < 1e-5, f"K2: image mean |d| {mean_d} >= 1e-5")
     require(bits_equal(torch, st_k, st_p), "K2: state not bit-equal to plain")
+    # the culled sphere search, as the route runs it
+    st_c = st0.clone()
+    regen_steps(st_c, c13, table, CHECK_SPP * MAX_BOUNCES,
+                sph=sphere_tiles(table, float(cam.position.abs().max())),
+                **kw)
+    require(bits_equal(torch, st_c, st_p),
+            "K2 culled: state not bit-equal to plain")
     print(f"K2 check, {CHECK_W}x{CHECK_H} {CHECK_SPP} spp: rays {rays_k}, "
-          f"image mean |d| {mean_d}, max |d| {max_d}, state bit-equal",
-          flush=True)
+          f"image mean |d| {mean_d}, max |d| {max_d}, state bit-equal, "
+          f"the sweep and the culled search", flush=True)
     phase("k2_check", t0)
 
     # 5. the K1 path: render through K1 inside the bounce loop (backend
@@ -1274,6 +1291,8 @@ def main() -> int:
     secs = time.perf_counter() - t_main
     k2_launches = regen_steps.launches
     require(k2_launches > 0, "main path did not launch K2")
+    require(regen_steps.culled_launches == k2_launches,
+            "main path did not take K2's culled sphere search")
     require(sum(counts().values()) == k2_launches,
             f"forward path launched others: {counts()}")
     mean = state.mean
@@ -1301,19 +1320,47 @@ def main() -> int:
     perm, inv = tile_order(MAIN_W, MAIN_H)
     st0, c13, r2 = wave_init(tracer.camera, torch.as_tensor(perm, device=dev),
                              MAIN_SPP, SEED, 0, MAIN_W, MAIN_H)
+    # the sphere tiles' host cost, as the route pays it once a pass and a
+    # fwd+bwd step (kernels/regen.py _search_of): the table's copy to the
+    # host, the tiling, the copy back, wall time to a synchronize
+    tiles_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t_tiles = time.perf_counter()
+        sph = sphere_tiles(table, float(tracer.camera.position.abs().max()))
+        torch.cuda.synchronize()
+        tiles_ms.append(1e3 * (time.perf_counter() - t_tiles))
     st_k = st0.clone()
     _, k2_ms = timed(torch, lambda: regen_steps(st_k, c13, table, steps,
-                                                **kwm))
+                                                sph=sph, **kwm))
     rays_k = int(st_k[22].to(torch.int64).sum())
     require(rays_k == rays, f"K2 launch rays {rays_k} != main path {rays}")
     again = accumulate(tracer.init_state(), untile_image(
         st_k[16:19].T, MAIN_W, MAIN_H, inv), MAIN_SPP)
     require(torch.equal(again.mean, mean),
             "K2 launch image differs from the main path's")
+    # the sweep of every sphere (the sphere mode before the cull), timed in
+    # turns with the culled search: culled, sweep, culled, sweep, culled
+    k2_cull_ms, k2_sweep_ms = [k2_ms], []
+    for _ in range(2):
+        st_s = st0.clone()
+        k2_sweep_ms.append(timed(torch, lambda: regen_steps(
+            st_s, c13, table, steps, **kwm))[1])
+        require(bits_equal(torch, st_s, st_k),
+                "K2's sweep ends in another state than the culled search")
+        st_s = st0.clone()
+        k2_cull_ms.append(timed(torch, lambda: regen_steps(
+            st_s, c13, table, steps, sph=sph, **kwm))[1])
+    del st_s
+    k2_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    regen_steps(st0.clone(), c13, table, steps, sph=sph, stats=k2_stats,
+                **kwm)
+    k2_boxes, k2_folded, k2_pairs = k2_stats.tolist()
     cols = slice(None, None, SLICE_STRIDE)
     sl_k, sl_p = st0[:, cols].contiguous(), st0[:, cols].contiguous()
-    _, k2_ms_slice = timed(torch, lambda: regen_steps(sl_k, c13, table, steps,
-                                                      **kwm))
+    sl_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    _, k2_ms_slice = timed(torch, lambda: regen_steps(
+        sl_k, c13, table, steps, sph=sph, stats=sl_stats, **kwm))
     _, k2_plain = timed(torch, lambda: regen_steps_plain(sl_p, c13, table,
                                                          steps, **kwm))
     require(bits_equal(torch, sl_k, st_k[:, cols]),
@@ -1322,10 +1369,28 @@ def main() -> int:
     k2_err = (sl_p[16:19] - sl_k[16:19]).abs().max().item()
     require(bits_equal(torch, sl_p, sl_k),
             f"K2: slice state not bit-equal to plain (image max |d| {k2_err})")
-    # the bound counts the search alone: leaving out the shading and the
-    # regeneration of each step only lowers it
-    k2_bound, k2_by = bound(rays * n_real * FLOPS_PER_PAIR,
-                            2 * STATE_BYTES * r2 + n_real * SPHERE_BYTES + 52)
+    # the plain mirror of the culled search skips the tiles the kernel
+    # skips: the same counts on the slice, and the same state
+    sl_m = st0[:, cols].contiguous()
+    mir_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    _, k2_mirror = timed(torch, lambda: regen_steps_plain(
+        sl_m, c13, table, steps, sph=sph, stats=mir_stats, **kwm))
+    require(bits_equal(torch, sl_m, sl_p),
+            "K2's plain mirror of the cull differs from the plain version")
+    require(torch.equal(mir_stats, sl_stats),
+            f"K2 culled counts {sl_stats.tolist()} differ from the plain "
+            f"mirror's {mir_stats.tolist()}")
+    # the bound counts the search alone (leaving out the shading and the
+    # regeneration of each step only lowers it): the pairs and tile boxes
+    # the culled search tested, beside the sweep of every real sphere
+    k2_io = 2 * STATE_BYTES * r2 + n_real * SPHERE_BYTES + 52
+    k2_bound, k2_by = bound(k2_pairs * FLOPS_PER_PAIR
+                            + k2_boxes * FLOPS_PER_BOX, k2_io)
+    k2_bound_all = bound(rays * n_real * FLOPS_PER_PAIR, k2_io)[0]
+    k2_sph = dict(sphere_tiles=int(sph.boxes.shape[0]),
+                  tile_boxes_tested=k2_boxes, tiles_folded=k2_folded,
+                  pairs_tested=k2_pairs, pairs_every_sphere=rays * n_real,
+                  sphere_tiles_host_ms=tiles_ms)
     kernels["regen_steps"] = dict(
         name="regen_steps", route="cuda", source="tpu_ray_torch/csrc/regen.cu",
         replaces="tpu_ray/kernels/regen.py:868",
@@ -1334,12 +1399,22 @@ def main() -> int:
         plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by,
         library_ms=None,
         path=f"main: render fused+regen {MAIN_W}x{MAIN_H} {MAIN_SPP} spp",
-        shape=f"{r2} lanes x {steps} steps, {rays} rays",
-        plain_lanes=sl_p.shape[1], ms_same_lanes=k2_ms_slice)
+        shape=f"{r2} lanes x {steps} steps, {rays} rays; culled sphere "
+              f"search, bound over the pairs and boxes tested",
+        plain_lanes=sl_p.shape[1], ms_same_lanes=k2_ms_slice,
+        culled_ms=k2_cull_ms, sweep_ms=k2_sweep_ms,
+        bound_every_sphere_ms=k2_bound_all, mirror_ms=k2_mirror, **k2_sph)
     print(f"K2 at the main path: {k2_ms:.3f} ms (bound {k2_bound:.3f} ms by "
-          f"{k2_by}); 1 lane in {SLICE_STRIDE} ({sl_p.shape[1]}) "
-          f"bit-equal to plain, {k2_ms_slice:.3f} ms kernel / "
-          f"{k2_plain:.3f} ms plain on those lanes", flush=True)
+          f"{k2_by} over the pairs tested, {k2_bound_all:.3f} ms over every "
+          f"sphere); culled {k2_cull_ms} ms against the sweep of every "
+          f"sphere {k2_sweep_ms} ms in turns, the same state; "
+          f"{sph.boxes.shape[0]} tiles: {k2_boxes} tile boxes tested, "
+          f"{k2_folded} tiles folded, {k2_pairs} ray-sphere pairs tested of "
+          f"{rays * n_real} ({k2_pairs / (rays * n_real):.4f}); 1 lane in "
+          f"{SLICE_STRIDE} ({sl_p.shape[1]}) bit-equal to plain, counts "
+          f"equal to the plain mirror's, {k2_ms_slice:.3f} ms kernel / "
+          f"{k2_plain:.3f} ms plain / {k2_mirror:.3f} ms mirror on those "
+          f"lanes; sphere_tiles on the host {tiles_ms} ms wall", flush=True)
     phase("k2_main_check", t0)
     # 8. the forward+backward main path, as a user differentiates it:
     # image_mse(render_mean(...), 0).backward() w.r.t. every scene leaf and
@@ -1375,6 +1450,8 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() - mem0
     require(launches["regen_record"] > 0, "fwd+bwd did not launch K2-record")
     require(launches["regen_bwd"] > 0, "fwd+bwd did not launch K3")
+    require(regen_record.culled_launches == launches["regen_record"],
+            "fwd+bwd did not take K2-record's culled sphere search")
     require(sum(launches.values()) == launches["regen_record"]
             + launches["regen_bwd"],
             f"fwd+bwd launched other kernels: {launches}")
@@ -1408,12 +1485,30 @@ def main() -> int:
     seg = min(SEG_MAX, steps)
     st_r = st0.clone()
     recs, k2r_ms = timed(torch, lambda: regen_record(st_r, c13, table, steps,
-                                                     seg, **kwm))
+                                                     seg, sph=sph, **kwm))
     require(bits_equal(torch, st_r, st_k),
             "K2-record state differs from the forward-only K2's")
+    # the recording sweep of every sphere, in turns with the culled one
+    k2r_cull_ms, k2r_sweep_ms = [k2r_ms], []
+    for _ in range(2):
+        st_s = st0.clone()
+        recs_w, ms = timed(torch, lambda: regen_record(
+            st_s, c13, table, steps, seg, **kwm))
+        k2r_sweep_ms.append(ms)
+        require(bits_equal(torch, st_s, st_k) and torch.equal(
+            recs_w.t_end, recs.t_end),
+            "K2-record's sweep differs from the culled recording")
+        del recs_w
+        st_s = st0.clone()
+        k2r_cull_ms.append(timed(torch, lambda: regen_record(
+            st_s, c13, table, steps, seg, sph=sph, **kwm))[1])
+    del st_s
     sl_r, sl_pr = st0[:, cols].contiguous(), st0[:, cols].contiguous()
+    slr_stats = torch.zeros(3, dtype=torch.int64, device=dev)
     recs_s, k2r_ms_slice = timed(torch, lambda: regen_record(
-        sl_r, c13, table, steps, seg, **kwm))
+        sl_r, c13, table, steps, seg, sph=sph, stats=slr_stats, **kwm))
+    require(torch.equal(slr_stats, sl_stats),
+            "K2-record culled counts differ from the forward's")
     (_, recs_p), k2r_plain = timed(torch, lambda: regen_steps_plain(
         sl_pr, c13, table, steps, seg=seg, **kwm))
     require(bits_equal(torch, sl_r, sl_pr),
@@ -1433,8 +1528,8 @@ def main() -> int:
     n_chk = int(((recs.t_end.long() + seg - 1) // seg).sum())
     rec_bytes = 2 * rays + STATE_BYTES * n_chk + 4 * r2
     k2r_bound, k2r_by = bound(
-        rays * n_real * FLOPS_PER_PAIR,
-        2 * STATE_BYTES * r2 + n_real * SPHERE_BYTES + 52 + rec_bytes)
+        k2_pairs * FLOPS_PER_PAIR + k2_boxes * FLOPS_PER_BOX,
+        k2_io + rec_bytes)
     kernels["regen_record"] = dict(
         name="regen_record", route="cuda",
         source="tpu_ray_torch/csrc/regen.cu",
@@ -1446,12 +1541,19 @@ def main() -> int:
         path=f"main fwd+bwd: render_mean fused+regen {MAIN_W}x{MAIN_H} "
              f"{MAIN_SPP} spp",
         shape=f"{r2} lanes x {steps} steps, seg {seg}, {rays} rays, "
-              f"{n_chk} lane checkpoints",
+              f"{n_chk} lane checkpoints; culled sphere search, bound over "
+              f"the pairs and boxes tested",
         forward_only_ms=k2_ms, plain_lanes=sl_pr.shape[1],
-        ms_same_lanes=k2r_ms_slice)
+        ms_same_lanes=k2r_ms_slice, culled_ms=k2r_cull_ms,
+        sweep_ms=k2r_sweep_ms,
+        bound_every_sphere_ms=bound(rays * n_real * FLOPS_PER_PAIR,
+                                    k2_io + rec_bytes)[0], **k2_sph)
     print(f"K2-record at the main path: {k2r_ms:.3f} ms against K2 "
           f"forward-only {k2_ms:.3f} ms (bound {k2r_bound:.3f} ms by "
-          f"{k2r_by}); state bit-equal to forward-only; 1 lane in "
+          f"{k2r_by}); culled {k2r_cull_ms} ms against the sweep "
+          f"{k2r_sweep_ms} ms in turns, the same state and t_end; "
+          f"{k2_pairs} pairs tested, the counts on the slice equal to the "
+          f"forward's; state bit-equal to forward-only; 1 lane in "
           f"{SLICE_STRIDE}: records, checkpoints and state equal to plain, "
           f"{k2r_ms_slice:.3f} ms kernel / {k2r_plain:.3f} ms plain",
           flush=True)
@@ -1475,6 +1577,21 @@ def main() -> int:
                                                          again)),
             "K3: two launches on the main path's records differ")
     del again
+    k3_info = regen_bwd_info(table.shape[0], dev)
+    t_end_b = recs.t_end.long()
+
+    def swept(block):
+        """Lane-steps the blocks of `block` lanes sweep: each its lanes
+        times its longest lane's alive steps."""
+        pad = -t_end_b.shape[0] % block
+        te = torch.cat([t_end_b, t_end_b.new_zeros(pad)]).view(-1, block)
+        return int(te.amax(dim=1).sum()) * block
+
+    k3_life = dict(alive_lane_steps=int(t_end_b.sum()),
+                   swept_lane_steps=swept(k3_info["threads"]),
+                   swept_lane_steps_256=swept(256))
+    print(f"K3 launch 1: {k3_info} (registers and local bytes a thread, "
+          f"blocks and warps an SM); lane-steps: {k3_life}", flush=True)
     scene_cols = dict(center=slice(0, 3), radius=3, albedo=slice(4, 7),
                       emissive=slice(7, 10), specular=10, ior=11)
     for k, c in scene_cols.items():
@@ -1524,7 +1641,7 @@ def main() -> int:
         shape=f"{r2} lanes, {int(t_end_l.sum())} alive lane-steps, seg "
               f"{seg}", plain_lanes=recs_sl.t_end.shape[0],
         ms_same_lanes=k3_ms_slice,
-        stash_bytes=2 * 48 * int(t_end_l.sum()))
+        stash_bytes=2 * 48 * int(t_end_l.sum()), **k3_info, **k3_life)
     print(f"K3 at the main path: {k3_ms:.3f} ms (bound {k3_bound:.3f} ms "
           f"by {k3_by}); two launches bit-equal; d_table equal to the "
           f"fwd+bwd path's within 1e-4; "
@@ -2399,6 +2516,8 @@ def main() -> int:
         require(err <= 1e-4 * b.abs().max().item(),
                 f"K3 triangle {name} differs from plain by {err}")
     t_end_t = trecs.t_end.long()
+    k3t_info = regen_bwd_info(ttable.shape[0], dev)
+    print(f"K3 triangle branch launch 1: {k3t_info}", flush=True)
     k3t_bound, k3t_by = bound(
         rays_t * K3_FLOPS_PER_STEP,
         2 * rays_t + STATE_BYTES * n_chk_t + 4 * tr2 + 15 * 4 * tr2
@@ -2413,8 +2532,9 @@ def main() -> int:
         shape=f"{tr2} lanes, {int(t_end_t.sum())} alive lane-steps, seg "
               f"{seg_t}, {ttable.shape[0]} table rows",
         plain_lanes=trecs_sl.t_end.shape[0], ms_same_lanes=k3t_ms_slice,
-        partial_bytes=build.load().trt_regen_bwd_parts(tr2)
-        * ttable.numel() * 4)
+        partial_bytes=build.load().trt_regen_bwd_parts(
+            tr2, ttable.shape[0]) * ttable.numel() * 4,
+        **k3t_info)
     print(f"K2-record listed mode: {k2tr_ms:.3f} ms (forward-only "
           f"{k2t_ms:.3f} ms), state bit-equal to forward-only, every 32nd "
           f"block: state, records and checkpoints equal to plain, "

@@ -18,10 +18,11 @@ from tpu_ray_torch.kernels.bounce_step import (
     bounce_fwd, bounce_fwd_list, bounce_fwd_list_plain, bounce_fwd_plain,
     bounce_replay, bounce_replay_plain, fused_tables, init_state,
     morton_perm, permute_spheres, scene_table)
-from tpu_ray_torch.kernels.regen import (regen_bwd, regen_bwd_plain,
+from tpu_ray_torch.kernels.regen import (nearest_sphere_culled, regen_bwd,
+                                         regen_bwd_info, regen_bwd_plain,
                                          regen_record, regen_steps,
                                          regen_steps_plain, regen_tables,
-                                         wave_init)
+                                         sphere_tiles, wave_init)
 from tpu_ray_torch.kernels.sphere_intersect import (nearest_hit_plain,
                                                     sphere_nearest_hit)
 from tpu_ray_torch.kernels.tri_intersect import tri_hit_plain, tri_nearest_hit
@@ -348,9 +349,12 @@ def test_k3_matches_plain_and_repeats_on_card(cuda_device, name):
 @pytest.mark.cuda
 def test_k3_multi_tile_repeats_on_card(cuda_device):
     """Two K3 launches bit-equal where each block sums several lane tiles
-    (650x350 = 227,500 lanes over the 256 blocks), on rtweekend (the
-    partial row in shared memory) and trimesh (in global memory)."""
-    assert build.load().trt_regen_bwd_parts(650 * 350) == 256
+    (650x350 = 227,500 lanes: over 1,024 blocks of two warps on
+    rtweekend, the partial row in shared memory, and 256 blocks of 256
+    threads on trimesh, in global memory)."""
+    lib = build.load()
+    assert lib.trt_regen_bwd_parts(650 * 350, 512) == 1024
+    assert lib.trt_regen_bwd_parts(650 * 350, 10496) == 256
     for name in ("rtweekend", "trimesh"):
         table, _, n_tri, _, cam, kw, recs, d_out = _tri_records(
             cuda_device, 650, 350, name)
@@ -360,6 +364,147 @@ def test_k3_multi_tile_repeats_on_card(cuda_device):
         for x, x2 in zip(a, a2):
             assert torch.equal(_bits(x), _bits(x2))
         assert a[1].abs().max() > 0
+
+
+def _culled_setup(dev, w=160, h=96):
+    """rtweekend's permuted table, its sphere tiles and the route's state at
+    w x h, 2 spp."""
+    ts = make_scene("rtweekend", device=dev)
+    table, _, _ = regen_tables(ts)
+    cam = default_camera(ts)
+    perm, _ = tile_order(w, h)
+    st, c13, _ = wave_init(cam, torch.as_tensor(perm, device=dev), 2, 0, 0,
+                           w, h)
+    sph = sphere_tiles(table, float(cam.position.abs().max()))
+    return table, st, c13, sph, dict(REGEN_KW, width=w, height=h)
+
+
+@pytest.mark.cuda
+def test_k2_culled_matches_plain_on_card(cuda_device):
+    """K2's culled sphere search, forward and recording, bit-equal to the
+    plain version that folds every sphere (state, records, checkpoints),
+    with the plain mirror's counts."""
+    table, st, c13, sph, kw = _culled_setup(cuda_device)
+    a, b, c, m = st.clone(), st.clone(), st.clone(), st.clone()
+    stats = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    regen_steps(a, c13, table, 10, sph=sph, stats=stats, **kw)
+    recs = regen_record(b, c13, table, 10, 4, sph=sph, **kw)
+    _, ref = regen_steps_plain(c, c13, table, 10, seg=4, **kw)
+    mirror = torch.zeros_like(stats)
+    regen_steps_plain(m, c13, table, 10, sph=sph, stats=mirror, **kw)
+    torch.cuda.synchronize()
+    for x in (a, b, m):
+        assert torch.equal(_bits(x), _bits(c))
+    assert torch.equal(stats, mirror)
+    assert stats[2] < int(c[22].sum()) * table.shape[0] // 4
+    assert torch.equal(recs.t_end, ref.t_end)
+    t = torch.arange(10, device=cuda_device)[:, None]
+    valid = t < ref.t_end.long()[None, :]
+    assert torch.equal(recs.rec[valid], ref.rec[valid])
+    for s in range(ref.chk.shape[0]):
+        alive = ref.t_end.long() > s * 4
+        assert torch.equal(_bits(recs.chk[s][:, alive]),
+                           _bits(ref.chk[s][:, alive]))
+
+
+@pytest.mark.cuda
+def test_k2_culled_exact_tie_on_card(cuda_device):
+    """Spheres 3 and 20 share a centre and radius in different tiles, 12
+    and 33 mirror each other about a ray: the lower id wins on the card as
+    in the plain fold, in a warp whose 32 live lanes fold the tied tiles
+    each on its own and in one whose 5 live lanes fold them together
+    (common.cuh TRT_SPH_SHARE_LANES, 6)."""
+    n = 40
+    g = np.random.default_rng(5)
+    c = g.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    c[:, 2] = g.uniform(6.0, 9.0, n)
+    c[20] = c[3] = (0.0, 0.0, 4.0)
+    c[33], c[12] = (0.5, 0.2, 2.5), (0.5, -0.2, 2.5)
+    rad = np.full(n, 0.1, np.float32)
+    rad[[3, 20]] = 0.5
+    rad[[12, 33]] = 0.3
+    table = torch.zeros((n, 12), device=cuda_device)
+    table[:, 0:3] = torch.as_tensor(c, device=cuda_device)
+    table[:, 3] = torch.as_tensor(rad, device=cuda_device)
+    table[:, 4:7] = 0.5
+    sph = sphere_tiles(table)
+    r = 64                                  # two warps, lanes of each kind
+    live = torch.arange(r, device=cuda_device) < 37
+    st = torch.zeros((24, r), device=cuda_device)
+    st[12] = live.float()
+    st[6:9] = 1.0
+    o = torch.zeros((3, r), device=cuda_device)
+    o[0, 1::3] = 0.5
+    o[0:2, 2::3] = torch.tensor([[0.1], [0.05]], device=cuda_device)
+    d = torch.tensor([0.0, 0.0, 4.0], device=cuda_device)[:, None] - o
+    d[:, 1::3] = torch.tensor([[0.0], [0.0], [1.0]], device=cuda_device)
+    st[0:3] = o
+    st[3:6] = torch.nn.functional.normalize(d, dim=0)
+    cam = torch.zeros(13, device=cuda_device)
+    cam[12] = 1.0
+    kw = dict(REGEN_KW, width=8, height=8)
+    recs = regen_record(st.clone(), cam, table, 1, 1, sph=sph, **kw)
+    _, ref = regen_steps_plain(st.clone(), cam, table, 1, seg=1, **kw)
+    want, _ = nearest_sphere_culled(st, table, sph)
+    torch.cuda.synchronize()
+    assert torch.equal(recs.t_end, live.int())
+    assert torch.equal(recs.rec[0][live], ref.rec[0][live])
+    assert torch.equal(recs.rec[0][live].long(), want[live])
+    assert set(want[live].tolist()) == {3, 12}
+
+
+@pytest.mark.cuda
+def test_k3_shared_row_on_card(cuda_device):
+    """K3 in blocks of two warps, the partial row in shared memory, more
+    than 8 warps an SM, on rtweekend's permuted table at 650x350 (several
+    lane tiles a block): two launches bit-equal, d_state equal to plain,
+    d_table within 1e-4 of each column's max."""
+    table, _, _, st, cam, kw, recs, d_out = _tri_records(
+        cuda_device, 650, 350, "rtweekend")
+    a = regen_bwd(recs, d_out, cam, table, **kw)
+    a2 = regen_bwd(recs, d_out, cam, table, **kw)
+    info = regen_bwd_info(table.shape[0], cuda_device)
+    b = regen_bwd_plain(recs, d_out, cam, table, **kw)
+    torch.cuda.synchronize()
+    assert info["threads"] == 64 and info["warps_per_sm"] > 8
+    for x, x2 in zip(a, a2):
+        assert torch.equal(_bits(x), _bits(x2))
+    rows = list(range(12)) + [16, 17, 18]
+    assert torch.equal(a[0][rows], b[0][rows])
+    for k in range(12):
+        want = b[1][:, k]
+        assert (a[1][:, k] - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_k3_row_past_shared_memory_on_card(cuda_device):
+    """A sphere table whose [n, 12] partial row is too large for shared
+    memory (rtweekend padded to 2,304 rows, 110.6 KB) takes the global-row
+    branch: two launches bit-equal and against plain."""
+    ts = make_scene("rtweekend", pad_to=2304, device=cuda_device)
+    table, _, _ = regen_tables(ts)
+    assert 12 * 4 * table.shape[0] > 96 * 1024
+    perm, _ = tile_order(96, 64)
+    st, cam, _ = wave_init(default_camera(ts),
+                           torch.as_tensor(perm, device=cuda_device), 2, 0,
+                           0, 96, 64)
+    kw = dict(REGEN_KW, width=96, height=64)
+    recs = regen_record(st.clone(), cam, table, 10, 4, **kw)
+    d_out = torch.zeros_like(st)
+    d_out[16:19] = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (3, st.shape[1])).astype(np.float32), device=cuda_device)
+    a = regen_bwd(recs, d_out, cam, table, **kw)
+    a2 = regen_bwd(recs, d_out, cam, table, **kw)
+    b = regen_bwd_plain(recs, d_out, cam, table, **kw)
+    torch.cuda.synchronize()
+    assert regen_bwd_info(table.shape[0], cuda_device)["threads"] == 256
+    for x, x2 in zip(a, a2):
+        assert torch.equal(_bits(x), _bits(x2))
+    rows = list(range(12)) + [16, 17, 18]
+    assert torch.equal(a[0][rows], b[0][rows])
+    for k in range(12):
+        want = b[1][:, k]
+        assert (a[1][:, k] - want).abs().max() <= 1e-4 * want.abs().max()
 
 
 @pytest.mark.cuda

@@ -533,6 +533,177 @@ __device__ __forceinline__ void trt_fold_tiles_ordered(
   }
 }
 
+// One pair of trt_fold_spheres: does the ray meet sphere s (cx, cy, cz, r)
+// at some t > 1e-4? -> and t, the fold's own value (the same ops).
+__device__ __forceinline__ bool trt_sphere_hit(const float4 s, float ox,
+                                               float oy, float oz, float dx,
+                                               float dy, float dz,
+                                               float& t) {
+  const float mx = s.x - ox, my = s.y - oy, mz = s.z - oz;
+  const float tp = mx * dx + my * dy + mz * dz;
+  const float px = mx - dx * tp, py = my - dy * tp, pz = mz - dz * tp;
+  const float dsq = px * px + py * py + pz * pz;
+  const float r2 = s.w * s.w;
+  if (!(dsq < r2)) return false;
+  const float x = trt_safe_sqrt(r2 - dsq);
+  const float tn = tp - x;
+  t = tn < TRT_F32_EPS ? tp + x : tn;
+  return t > TRT_F32_EPS;
+}
+
+// The distance at which the ray enters a sphere tile's box (lo.xyz,
+// hi.xyz): trt_slab_entry's tl where the ray meets the box, +inf where it
+// surely misses or the box is empty (lo > hi: the slab test alone would
+// take it for the box between its faces), and 0 where a NaN (0 * inf: a
+// face through the origin of a ray with an overflowing reciprocal) leaves
+// it unsure. An axis the ray runs parallel to rules the box out unless the
+// origin lies between its faces. The plain version is kernels/regen.py
+// _box_entry.
+__device__ __forceinline__ float trt_box_entry(const TrtRay& r,
+                                               const float* box) {
+  if (!(box[0] <= box[3])) return __int_as_float(0x7f800000);
+  float tl = 0.0f, th = 3.0e38f;
+  bool nan = false;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float lo = box[k], hi = box[3 + k];
+    if (r.d[k] == 0.0f) {
+      if (!(r.o[k] >= lo && r.o[k] <= hi)) return __int_as_float(0x7f800000);
+    } else {
+      const float a0 = (lo - r.o[k]) * r.inv[k];
+      const float a1 = (hi - r.o[k]) * r.inv[k];
+      nan |= (a0 != a0) | (a1 != a1);
+      tl = fmaxf(tl, fminf(a0, a1));
+      th = fminf(th, fmaxf(a0, a1));
+    }
+  }
+  if (nan) return 0.0f;
+  return th >= tl && th >= 0.0f ? tl : __int_as_float(0x7f800000);
+}
+
+// The most lanes of a warp that fold a sphere tile together
+// (trt_fold_sph_tile_warp); tools/cull_variants.py times other limits.
+#define TRT_SPH_SHARE_LANES 6
+
+// trt_fold_spheres over the spheres [j0, j1) of one tile, staged in shared
+// memory, for the lanes of a warp that need it. Where more than
+// TRT_SPH_SHARE_LANES lanes need the tile, each folds it on its own.
+// Where fewer do, the warp
+// takes them two at a time: each half warp tests the tile's spheres (one
+// a thread for tiles of up to 16) against one lane's ray
+// (shuffled to it), four shuffle steps take the least (t, id) of the
+// half's hits, and the lane folds that one into its best with strict <.
+// The tiles come in ascending id order, so this is the one-by-one fold's
+// winner: the least t, and the lowest id on an exact tie. Every lane of
+// the warp calls it.
+__device__ __forceinline__ void trt_fold_sph_tile_warp(
+    const float4* sph, int j0, int j1, bool need, const TrtRay& ray,
+    float& best, int& bi) {
+  unsigned mask = __ballot_sync(0xffffffffu, need);
+  if (!mask) return;
+  if (__popc(mask) > TRT_SPH_SHARE_LANES) {
+    if (need) {
+      trt_fold_spheres(sph, j0, j1, ray.o[0], ray.o[1], ray.o[2], ray.d[0],
+                       ray.d[1], ray.d[2], best, bi);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4;
+  while (mask) {
+    const int s0 = __ffs(mask) - 1;
+    mask &= mask - 1;
+    const int s1 = mask ? __ffs(mask) - 1 : -1;
+    if (mask) mask &= mask - 1;
+    const int src = half && s1 >= 0 ? s1 : s0;
+    const float ox = __shfl_sync(0xffffffffu, ray.o[0], src);
+    const float oy = __shfl_sync(0xffffffffu, ray.o[1], src);
+    const float oz = __shfl_sync(0xffffffffu, ray.o[2], src);
+    const float dx = __shfl_sync(0xffffffffu, ray.d[0], src);
+    const float dy = __shfl_sync(0xffffffffu, ray.d[1], src);
+    const float dz = __shfl_sync(0xffffffffu, ray.d[2], src);
+    float bt = __int_as_float(0x7f800000);
+    int bj = j1;                                   // j1: no hit
+    for (int j = j0 + (lane & 15); j < j1; j += 16) {
+      float t;
+      if (trt_sphere_hit(sph[j], ox, oy, oz, dx, dy, dz, t) &&
+          (t < bt || (t == bt && j < bj))) {
+        bt = t;
+        bj = j;
+      }
+    }
+    for (int off = 8; off > 0; off >>= 1) {        // within each half
+      const float ot = __shfl_xor_sync(0xffffffffu, bt, off);
+      const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
+      if (ot < bt || (ot == bt && oj < bj)) {
+        bt = ot;
+        bj = oj;
+      }
+    }
+    const float t0 = __shfl_sync(0xffffffffu, bt, 0);
+    const int i0 = __shfl_sync(0xffffffffu, bj, 0);
+    const float t1 = __shfl_sync(0xffffffffu, bt, 16);
+    const int i1 = __shfl_sync(0xffffffffu, bj, 16);
+    if (lane == s0 && i0 < j1 && t0 < best) {
+      best = t0;
+      bi = i0;
+    }
+    if (lane == s1 && i1 < j1 && t1 < best) {
+      best = t1;
+      bi = i1;
+    }
+  }
+}
+
+// The culled sphere search of one step: trt_nearest_sphere's (best, bi)
+// over the tiles of a sphere table in ascending order, tile t holding
+// spheres [tst[t], tst[t + 1]) with the inflated box box[6 t .. 6 t + 6),
+// and group g the tiles [gst[g], gst[g + 1]) with the union of their boxes
+// gbox[6 g .. 6 g + 6) (all in shared memory). A lane tests a group's
+// tiles only where its ray enters the group's box at no more than its best
+// so far (a group of one tile is not tested apart), and folds a tile only
+// where its ray enters the tile's box at no more than its best; a tile it
+// skips cannot hold its nearest hit, whose point lies inside the box
+// (kernels/regen.py sphere_tiles). A warp whose lanes all skip a group
+// passes over it. A lane whose origin lies past o_lim (the origins the
+// boxes were inflated for) folds every tile. counts += (boxes tested,
+// tiles folded, pairs tested) of this lane. Every lane of the warp calls
+// it; only active lanes fold. The plain version is kernels/regen.py
+// nearest_sphere_culled.
+__device__ __forceinline__ void trt_fold_sph_tiles(
+    const float4* sph, const float* box, const int* tst, const float* gbox,
+    const int* gst, int n_groups, float o_lim, bool active,
+    float ox, float oy, float oz, float dx, float dy, float dz, float& best,
+    int& bi, unsigned* counts) {
+  best = TRT_F32_MAX;
+  bi = 0;
+  const TrtRay ray = trt_ray(ox, oy, oz, dx, dy, dz);
+  const bool cull =
+      active && fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz)) <= o_lim;
+  for (int g = 0; g < n_groups; ++g) {
+    const int t0 = gst[g], t1 = gst[g + 1];
+    bool in_g = active;
+    if (t1 - t0 > 1 && cull) {
+      in_g = trt_box_entry(ray, gbox + 6 * g) <= best;
+      counts[0] += 1u;
+    }
+    if (!__any_sync(0xffffffffu, in_g)) continue;   // uniform in the warp
+    for (int t = t0; t < t1; ++t) {
+      const int j0 = tst[t], j1 = tst[t + 1];
+      bool need = in_g;
+      if (in_g && cull) {
+        need = trt_box_entry(ray, box + 6 * t) <= best;
+        counts[0] += 1u;
+      }
+      if (need) {
+        counts[1] += 1u;
+        counts[2] += (unsigned)(j1 - j0);
+      }
+      trt_fold_sph_tile_warp(sph, j0, j1, need, ray, best, bi);
+    }
+  }
+}
+
 // Stage n spheres (center [n,3], radius [n]) into shared memory.
 __device__ __forceinline__ void trt_stage_spheres(
     float4* sph, const float* __restrict__ center,

@@ -10,8 +10,11 @@
 // the winner is the lowest id in the one id space on an exact tie:
 // spheres 0..N-1, triangles N..P-1), then trt_step_tail (regen_step.cuh):
 // the _step_tail semantics of regen.py:167-224, shading a triangle in the
-// plane form. Three modes, named by the caller (kernels/regen.py):
-// - spheres (no triangle table): regen_step on a sphere scene;
+// plane form. Four modes, named by the caller (kernels/regen.py):
+// - the culled sphere search (sphere tiles, no triangle table): regen_step
+//   on a sphere scene as the route runs it (regen_sph_kernel);
+// - the sphere sweep (no tiles, no triangle table): every live lane folds
+//   every sphere, the mode the cull replaced, kept to time against;
 // - the triangle sweep (a triangle table, no tile boxes): every live lane
 //   folds every triangle in id order, regen_step(tri_tab=,
 //   tri_lists=None), #2's triangle mode;
@@ -24,8 +27,10 @@
 // repeats its f32 op sequence (see common.cuh on -fmad=false). Layout:
 // kernels/regen.py.
 //
-// Bound on the H100: fp32 ALU. Each step of a lane searches every sphere
-// (~20 flops a pair, 512 pairs for rtweekend), the triangles of its mode
+// Bound on the H100: fp32 ALU. Each step of a lane searches the spheres
+// (~20 flops a pair: 512 pairs for rtweekend in the sweep, ~40 and ~18
+// slab tests of tile and group boxes in the culled search), the triangles
+// of its mode
 // (14, 24 or 46 flops a Möller-Trumbore pair by where it leaves the test:
 // 10,368 triangles for trimesh in the sweep, the listed tiles' in the
 // listed mode) and then shades (~200 flops); the lane's 96 B of state is
@@ -44,9 +49,27 @@
 // bounce row by the steps it skips, as the plain version does, and in
 // recording mode writes the count of steps it took (t_end) instead of the
 // TPU kernel's dead-block sentinel, leaving the records past it unwritten.
-// - Spheres and the sweep (regen_steps_kernel): a dead lane leaves the
-//   loop at once. The sweep reads the triangle table (36 B a triangle,
-//   373 KB for trimesh) from global memory through L1/L2, where it stays
+// - The culled sphere search (regen_sph_kernel): the Morton-permuted
+//   sphere table is cut into tiles of 16 consecutive spheres (a sphere
+//   that dwarfs the rest, rtweekend's ground, a tile of its own), each
+//   with a box inflated past the f32 rounding of a hit's t, and groups of
+//   4 tiles with the union of their boxes (kernels/regen.py
+//   sphere_tiles); the boxes sit in shared memory beside the spheres.
+//   Each step a lane takes its direction's reciprocal once, walks the
+//   groups and tiles in ascending order and folds a tile only where its
+//   ray enters the group's and the tile's box at no more than its best so
+//   far (common.cuh trt_fold_sph_tiles): a skipped tile cannot hold the
+//   nearest hit, and the ascending order with strict < keeps the lowest
+//   id on an exact tie, so the winners are the sweep's bit for bit. A
+//   tile that few lanes of a warp need is folded by the warp, two lanes
+//   at a time, one sphere a thread (trt_fold_sph_tile_warp). The 32 lanes
+//   of a warp run the steps together for those shuffles: a dead lane
+//   stays in the loop, inactive, until its warp has none alive. On
+//   rtweekend a lane-step tests ~40 of 482 real spheres' pairs (PERF.md).
+// - The sphere sweep and the triangle sweep (regen_steps_kernel): a dead
+//   lane leaves the loop at once. The triangle sweep reads the triangle
+//   table (36 B a triangle, 373 KB for trimesh) from global memory
+//   through L1/L2, where it stays
 //   resident, the lanes of a warp reading the same triangle at once.
 // - The listed mode (regen_list_kernel): the block's 256 threads run the
 //   steps in lockstep, so that every barrier and warp vote is reached by
@@ -114,6 +137,90 @@ __global__ void regen_steps_kernel(float* __restrict__ st, int r,
 }
 
 #define TRT_REGEN_THREADS 256
+
+// The sphere mode's culled search. The sphere table (float4, n_sph of
+// them), the tile and group boxes (6 floats each) and the tile and group
+// starts (n_tiles + 1 and n_groups + 1 ints) sit in dynamic shared memory.
+// The 32 lanes of a warp run the steps together, so that the warp-shared
+// fold's shuffles reach all of them: a dead lane stays in the loop,
+// inactive, and the warp leaves once none of its lanes is alive (b_i and
+// t_end as in regen_steps_kernel). stats (nullptr, or 3 u64 added to):
+// boxes tested (groups and tiles), tiles folded, ray-sphere pairs tested,
+// over the live lane-steps.
+template <bool RECORD>
+__global__ void __launch_bounds__(TRT_REGEN_THREADS)
+regen_sph_kernel(float* __restrict__ st, int r,
+                 const float* __restrict__ cam13,
+                 const float* __restrict__ table,
+                 const float* __restrict__ boxes,
+                 const int* __restrict__ starts, int n_tiles,
+                 const float* __restrict__ gboxes,
+                 const int* __restrict__ gstarts, int n_groups, float o_lim,
+                 int steps, TrtRegenParams p,
+                 int16_t* __restrict__ rec, float* __restrict__ chk,
+                 int* __restrict__ t_end, int seg,
+                 unsigned long long* __restrict__ stats) {
+  extern __shared__ float4 sph[];
+  const int n = p.n_sph;
+  float* box = reinterpret_cast<float*>(sph + n);
+  float* gbox = box + 6 * n_tiles;
+  int* tst = reinterpret_cast<int*>(gbox + 6 * n_groups);
+  int* gst = tst + n_tiles + 1;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const float* w = table + 12 * (size_t)k;
+    sph[k] = make_float4(w[0], w[1], w[2], w[3]);
+  }
+  for (int k = threadIdx.x; k < 6 * n_tiles; k += blockDim.x) {
+    box[k] = boxes[k];
+  }
+  for (int k = threadIdx.x; k < 6 * n_groups; k += blockDim.x) {
+    gbox[k] = gboxes[k];
+  }
+  for (int k = threadIdx.x; k <= n_tiles; k += blockDim.x) tst[k] = starts[k];
+  for (int k = threadIdx.x; k <= n_groups; k += blockDim.x) {
+    gst[k] = gstarts[k];
+  }
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < r;
+  const TrtCam c = trt_load_cam(cam13);
+  TrtLane L = {};
+  if (in) L = trt_load_lane(st, r, i);
+  int t_lane = steps;  // the steps this lane was alive for
+  unsigned counts[3] = {0u, 0u, 0u};
+  for (int k = 0; k < steps; ++k) {
+    const bool alive = in && L.alive > 0.5f;
+    if (in && !alive && t_lane == steps) {
+      t_lane = k;
+      L.b_i = L.b_i + (float)(steps - k);
+    }
+    if (!__any_sync(0xffffffffu, alive)) break;   // uniform in the warp
+    if (RECORD && alive && k % seg == 0) {
+      trt_store_lane(chk + (size_t)(k / seg) * 24 * r, r, i, L);
+    }
+    float best;
+    int bi;
+    trt_fold_sph_tiles(sph, box, tst, gbox, gst, n_groups, o_lim, alive,
+                       L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, best, bi,
+                       counts);
+    if (alive) {
+      const int idx = best < TRT_F32_MAX ? bi : -1;
+      if (RECORD) rec[(size_t)k * r + i] = (int16_t)idx;
+      trt_step_tail(L, c, table, idx, p);
+    }
+  }
+  if (stats) {
+    for (int q = 0; q < 3; ++q) {
+      const unsigned v = __reduce_add_sync(0xffffffffu, counts[q]);
+      if ((threadIdx.x & 31) == 0) {
+        atomicAdd(stats + q, (unsigned long long)v);
+      }
+    }
+  }
+  if (!in) return;
+  if (RECORD) t_end[i] = t_lane;
+  trt_store_lane(st, r, i, L);
+}
 
 // The listed mode. boxes [n_tiles, 6]: the inflated tile boxes, tile t
 // holding triangles [t * block_m, (t + 1) * block_m). stats (nullptr, or
@@ -244,7 +351,68 @@ int launch(float* state, int r, const float* cam13, const float* table,
   return (int)cudaGetLastError();
 }
 
+template <bool RECORD>
+int launch_sph(float* state, int r, const float* cam13, const float* table,
+               int n, const float* boxes, const int* starts, int n_tiles,
+               const float* gboxes, const int* gstarts, int n_groups,
+               float o_lim, unsigned long long* stats, int steps,
+               int use_sky, int max_bounces, int width, int height,
+               float film_w, float film_h, int16_t* rec, float* chk,
+               int* t_end, int seg, cudaStream_t stream) {
+  if (boxes == nullptr || starts == nullptr || n_tiles < 1 ||
+      gboxes == nullptr || gstarts == nullptr || n_groups < 1 ||
+      n_groups > n_tiles) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (RECORD && seg <= 0) return (int)cudaErrorInvalidValue;
+  const TrtRegenParams p{use_sky, max_bounces, (float)width, (float)height,
+                         film_w, film_h, n};
+  const size_t smem = (size_t)n * sizeof(float4) +
+                      (size_t)6 * (n_tiles + n_groups) * sizeof(float) +
+                      (size_t)(n_tiles + n_groups + 2) * sizeof(int);
+  if (smem > TRT_MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  cudaError_t err = trt_set_smem(regen_sph_kernel<RECORD>, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (r == 0 || steps <= 0) return 0;
+  const int blocks = (r + TRT_REGEN_THREADS - 1) / TRT_REGEN_THREADS;
+  regen_sph_kernel<RECORD><<<blocks, TRT_REGEN_THREADS, smem, stream>>>(
+      state, r, cam13, table, boxes, starts, n_tiles, gboxes, gstarts,
+      n_groups, o_lim, steps, p, rec, chk, t_end, seg, stats);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The sphere mode's culled search (regen_sph_kernel): state [24, r]; table
+// [n, 12] sphere rows; boxes [n_tiles, 6] and starts [n_tiles + 1] the
+// sphere tiles, gboxes [n_groups, 6] and gstarts [n_groups + 1] their
+// groups (kernels/regen.py sphere_tiles); o_lim their origin bound;
+// stats nullptr
+// or 3 u64 (see regen_sph_kernel). rec nullptr: the forward; else the
+// recording mode, rec/chk/t_end as trt_regen_steps_record's.
+extern "C" int trt_regen_sph(float* state, int r, const float* cam13,
+                             const float* table, int n, const float* boxes,
+                             const int* starts, int n_tiles,
+                             const float* gboxes, const int* gstarts,
+                             int n_groups, float o_lim,
+                             unsigned long long* stats,
+                             int steps, int use_sky, int max_bounces,
+                             int width, int height, float film_w,
+                             float film_h, int16_t* rec, float* chk,
+                             int* t_end, int seg, cudaStream_t stream) {
+  if (rec == nullptr) {
+    return launch_sph<false>(state, r, cam13, table, n, boxes, starts,
+                             n_tiles, gboxes, gstarts, n_groups, o_lim,
+                             stats, steps, use_sky,
+                             max_bounces, width, height, film_w, film_h,
+                             nullptr, nullptr, nullptr, 1, stream);
+  }
+  return launch_sph<true>(state, r, cam13, table, n, boxes, starts, n_tiles,
+                          gboxes, gstarts, n_groups, o_lim, stats,
+                          steps, use_sky, max_bounces,
+                          width, height, film_w, film_h, rec, chk, t_end,
+                          seg, stream);
+}
 
 // state [24, r]; table [n, 12] (n - m sphere rows, then m triangle rows);
 // tri [m, 9] v0|e1|e2 (nullptr when m = 0); boxes [n_tiles, 6] the tile

@@ -17,8 +17,8 @@
 //
 // Design. d_table and d_cam must be the same from run to run, so no float
 // atomics (the scheme of K6, bounce.cu). Launch 1 runs a bounded number of
-// blocks (at most TRT_BWD_PARTS); block k owns the lane tiles k, k + grid,
-// ... (a partition fixed by r alone) and, for each tile, walks the
+// blocks (bwd_config); block k owns the lane tiles k, k + grid, ... (a
+// partition fixed by r and the table's size, never by the device) and, for each tile, walks the
 // segments from the last to the first: each lane loads its checkpoint and
 // replays its alive steps of the segment without search through
 // trt_step_tail (regen_step.cuh, the forward's own code, so the replayed
@@ -28,12 +28,18 @@
 // down, a lane past its own t_end masked. At each step, within a warp the
 // lanes of one winner (__match_any_sync) are summed by their lowest lane
 // in lane order, and the warps add their sums to the block's partial row
-// [n, 12] one warp at a time. The row sits in shared memory when it fits
-// (rtweekend: 24.6 KB; there K3 took 59 ms against 66 ms with the global
-// row, chip_smoke.py on an H100 80GB HBM3 at 700 W) and otherwise in the
-// block's own row of the partials in global memory (trimesh: 10,496 x
-// 48 B), which no other block touches. The 12 camera-row cotangents accumulate per lane in
-// registers and are summed over the block's threads in thread order at
+// [n, 12] one warp at a time. Where the row fits shared memory
+// (rtweekend: 24.6 KB) a block is two warps: two barriers a step couple
+// only those two, eight blocks an SM hold their rows (with the carveout
+// set to shared memory) and 16 warps, at 128 registers a thread. (Blocks
+// of one warp, with no barrier but 8 warps an SM, and the 256-thread
+// blocks of eight barriers a step this replaced are slower:
+// tools/cull_variants.py times them from patched copies, PERF.md.) Where
+// the row does not fit (trimesh: 10,496
+// x 48 B) it lies in the block's own row of the partials in global
+// memory, which no other block touches, in 256-thread blocks. The 12
+// camera-row cotangents accumulate per lane in registers and are summed
+// over the block's threads in thread order at
 // the end. Launch 2 sums the partials over the blocks in order, one
 // thread per entry. The cotangent of a lane stays in registers across
 // its segments; the TPU kernel's per-segment launch and HBM round trip of
@@ -46,9 +52,14 @@
 
 #define TRT_SEG_MAX 64
 #define TRT_STASH 12
+// the global-row branch: blocks of 256 threads, at most 256 of them
 #define TRT_BWD_THREADS 256
-// the most blocks of launch 1 (the partials' leading dimension)
 #define TRT_BWD_PARTS 256
+// the shared-row branch: blocks of two warps, at most 1,024 of them, and
+// eight blocks an SM where registers and shared memory allow
+#define TRT_BWD_SMEM_THREADS 64
+#define TRT_BWD_SMEM_PARTS 1024
+#define TRT_BWD_SMEM_BLOCKS 8
 // the largest partial row kept in shared memory
 #define TRT_BWD_SMEM_ROW (96 * 1024)
 
@@ -56,8 +67,12 @@ namespace {
 
 // Dynamic shared memory: 13 floats a thread of staged d_winner (13, not
 // 12, so consecutive threads start in different banks), then the [n, 12]
-// partial row when smem_row is set.
-__global__ void regen_bwd_kernel(float* __restrict__ dst, int r,
+// partial row when smem_row is set. THREADS and MIN_BLOCKS: the block
+// size it is launched with and the blocks an SM should hold
+// (__launch_bounds__).
+template <int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+regen_bwd_kernel(float* __restrict__ dst, int r,
                                  const float* __restrict__ cam13,
                                  const float* __restrict__ table, int n,
                                  int n_tri, const int16_t* __restrict__ rec,
@@ -231,21 +246,96 @@ __global__ void regen_bwd_sum_kernel(const float* __restrict__ part,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= m) return;
   float s = 0.0f;
+#pragma unroll 16
   for (int k = 0; k < parts; ++k) s = s + part[(size_t)k * m + j];
   out[j] = s;
 }
 
+// K3's configuration for a table of n rows. Where the [n, 12] row fits
+// TRT_BWD_SMEM_ROW: blocks of two warps, each block's partial row in
+// shared memory. Else the global-row branch of 256-thread blocks.
+struct TrtBwdConfig {
+  bool smem_row;
+  int threads, max_parts;
+  size_t smem;
+};
+
+TrtBwdConfig bwd_config(int n) {
+  const size_t row = (size_t)12 * n * sizeof(float);
+  if (row > TRT_BWD_SMEM_ROW) {
+    return {false, TRT_BWD_THREADS, TRT_BWD_PARTS,
+            (size_t)13 * TRT_BWD_THREADS * sizeof(float)};
+  }
+  return {true, TRT_BWD_SMEM_THREADS, TRT_BWD_SMEM_PARTS,
+          (size_t)13 * TRT_BWD_SMEM_THREADS * sizeof(float) + row};
+}
+
+int bwd_parts(const TrtBwdConfig& cfg, int r) {
+  const int blocks = (r + cfg.threads - 1) / cfg.threads;
+  return blocks < cfg.max_parts ? blocks : cfg.max_parts;
+}
+
+// The kernel of a configuration, its attributes set (shared memory, and
+// the carveout that lets TRT_BWD_SMEM_BLOCKS small blocks hold their
+// rows).
+cudaError_t bwd_kernel(const TrtBwdConfig& cfg, const void** fn) {
+  const void* k =
+      cfg.smem_row
+          ? (const void*)regen_bwd_kernel<TRT_BWD_SMEM_THREADS,
+                                          TRT_BWD_SMEM_BLOCKS>
+          : (const void*)regen_bwd_kernel<TRT_BWD_THREADS, 1>;
+  *fn = k;
+  cudaError_t err = trt_set_smem(k, cfg.smem);
+  if (err == cudaSuccess && cfg.smem_row) {
+    err = cudaFuncSetAttribute(k,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  return err;
+}
+
 }  // namespace
 
-// The number of K3 partial rows for r lanes (the wrapper sizes them).
-extern "C" int trt_regen_bwd_parts(int r) {
-  const int blocks = (r + TRT_BWD_THREADS - 1) / TRT_BWD_THREADS;
-  return blocks < TRT_BWD_PARTS ? blocks : TRT_BWD_PARTS;
+// The number of K3 partial rows for r lanes and a table of n rows (the
+// wrapper sizes them): a function of those alone, never of the device, so
+// the partition of the lanes, and with it the sums, is the same on every
+// card.
+extern "C" int trt_regen_bwd_parts(int r, int n) {
+  return bwd_parts(bwd_config(n), r);
+}
+
+// K3's launch-1 kernel for a table of n rows, as the card runs it: out[0] registers a thread, out[1] local memory a thread
+// (bytes: the stash and any spills), out[2] blocks an SM holds (the
+// occupancy calculator), out[3] threads a block, out[4] dynamic shared
+// memory a block (bytes), out[5] the SMs. -> a CUDA error code.
+extern "C" int trt_regen_bwd_info(int n, int* out) {
+  const TrtBwdConfig cfg = bwd_config(n);
+  const void* fn = nullptr;
+  cudaError_t err = bwd_kernel(cfg, &fn);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      cfg.threads, cfg.smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = cfg.threads;
+  out[4] = (int)cfg.smem;
+  out[5] = sms;
+  return (int)err;
 }
 
 // dstate [24, r] (d_out in, d_state out); table [n, 12], its last n_tri
-// rows triangles; part [trt_regen_bwd_parts(r), n, 12] and part_cam
-// [trt_regen_bwd_parts(r), 12] scratch; d_table [n, 12] and d_cam [12]
+// rows triangles; part [trt_regen_bwd_parts(r, n), n, 12] and part_cam
+// [trt_regen_bwd_parts(r, n), 12] scratch; d_table [n, 12] and d_cam [12]
 // out.
 extern "C" int trt_regen_bwd(float* dstate, int r, const float* cam13,
                              const float* table, int n, int n_tri,
@@ -253,25 +343,25 @@ extern "C" int trt_regen_bwd(float* dstate, int r, const float* cam13,
                              const int* t_end, int steps, int seg,
                              int use_sky, int max_bounces, int width,
                              int height, float film_w, float film_h,
-                             float* part, float* part_cam, float* d_table,
-                             float* d_cam, cudaStream_t stream) {
+                             float* part, float* part_cam,
+                             float* d_table, float* d_cam,
+                             cudaStream_t stream) {
   if (seg < 1 || seg > TRT_SEG_MAX) return (int)cudaErrorInvalidValue;
   if (n_tri < 0 || n_tri > n) return (int)cudaErrorInvalidValue;
-  const size_t row = (size_t)12 * n * sizeof(float);
-  const int smem_row = row <= TRT_BWD_SMEM_ROW;
-  const size_t smem =
-      (size_t)13 * TRT_BWD_THREADS * sizeof(float) + (smem_row ? row : 0);
-  cudaError_t err = trt_set_smem(regen_bwd_kernel, smem);
+  const TrtBwdConfig cfg = bwd_config(n);
+  const void* fn = nullptr;
+  cudaError_t err = bwd_kernel(cfg, &fn);
   if (err != cudaSuccess) return (int)err;
-  const TrtRegenParams p{use_sky, max_bounces, (float)width, (float)height,
-                         film_w, film_h, n - n_tri};
+  TrtRegenParams p{use_sky, max_bounces, (float)width, (float)height,
+                   film_w, film_h, n - n_tri};
   int parts = 0;
   if (r > 0) {
-    parts = trt_regen_bwd_parts(r);
-    regen_bwd_kernel<<<parts, TRT_BWD_THREADS, smem, stream>>>(
-        dstate, r, cam13, table, n, n_tri, rec, chk, t_end, steps, seg, p,
-        smem_row, part, part_cam);
-    err = cudaGetLastError();
+    parts = bwd_parts(cfg, r);
+    int smem_row = cfg.smem_row;
+    void* args[] = {&dstate, &r, &cam13, &table, &n, &n_tri, &rec, &chk,
+                    &t_end, &steps, &seg, &p, &smem_row, &part, &part_cam};
+    err = cudaLaunchKernel(fn, dim3(parts), dim3(cfg.threads), args,
+                           cfg.smem, stream);
     if (err != cudaSuccess) return (int)err;
   }
   const int m = 12 * n;

@@ -50,13 +50,22 @@ SIGNATURES = {
     # as trt_regen_steps, then rec, chk, t_end, seg, stream
     "trt_regen_steps_record": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I,
                                _I, _I, _I, _I, _F, _F, _P, _P, _P, _I, _P],
+    # state, r, cam13, table, n, boxes, starts, n_tiles, gboxes, gstarts,
+    # n_groups, o_lim, stats, steps, use_sky, max_bounces, width, height,
+    # film_w, film_h, rec, chk, t_end, seg, stream
+    "trt_regen_sph": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _F, _P, _I,
+                      _I, _I, _I, _I, _F, _F, _P, _P, _P, _I, _P],
     # d_state, r, cam13, table, n, n_tri, rec, chk, t_end, steps, seg,
     # use_sky, max_bounces, width, height, film_w, film_h, part, part_cam,
     # d_table, d_cam, stream
     "trt_regen_bwd": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _F, _F, _P, _P, _P, _P, _P],
-    # r -> rows of trt_regen_bwd's partials (returns a count, not an error)
-    "trt_regen_bwd_parts": [_I],
+    # r, n -> rows of trt_regen_bwd's partials (returns a count, not an
+    # error)
+    "trt_regen_bwd_parts": [_I, _I],
+    # n, out[6]: K3's registers, local bytes, blocks an SM, threads, shared
+    # bytes, SMs
+    "trt_regen_bwd_info": [_I, _P],
     # state, out, r, table, n, bounce, mask, n_tiles, block_n, use_sky,
     # idx_out, stream
     "trt_bounce_fwd": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P],

@@ -27,6 +27,14 @@ A list leaves out only tiles whose inflated box no live lane of the block
 meets, so the two modes differ only where Möller-Trumbore accepts a
 grazing hit outside its tile's box.
 
+On a sphere scene the route takes K2's culled sphere search (``sph``, the
+tiles of ``sphere_tiles``): a lane folds a 16-sphere tile of the
+Morton-permuted table only where its ray enters the tile's inflated box
+at no more than its best so far, which changes no winner
+(``nearest_sphere_culled`` is its plain mirror, held bit for bit to
+``regen_steps_plain``, the yardstick, which folds every sphere). Without
+``sph`` the sphere mode folds every sphere, as before the cull.
+
 K3 replaces ``regen_seg_bwd`` (``_regen_seg_kernel``, with its triangle
 branch): the reverse of the whole recorded trace. ``regen_bwd_plain`` is
 its plain version.
@@ -65,6 +73,7 @@ carries d_table back through the permutation to the scene's leaves.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -72,7 +81,7 @@ import torch
 
 from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera, film_extent
-from tpu_ray_torch.core.scene import Scene
+from tpu_ray_torch.core.scene import F32_EPS, F32_MAX, Scene
 from tpu_ray_torch.kernels import build
 from tpu_ray_torch.kernels.bounce_step import (BLOCK_R, _block_reach,
                                                nearest_prim, nrm3_bwd,
@@ -82,16 +91,210 @@ from tpu_ray_torch.kernels.bounce_step import (BLOCK_R, _block_reach,
                                                tab_tile_boxes)
 from tpu_ray_torch.ops.intersect_tri import tri_search_table
 from tpu_ray_torch.ops.raygen import camera_rays, film_offsets, film_rays
+from tpu_ray_torch.ops.vec import safe_sqrt
 
 __all__ = ["regen_steps", "regen_steps_plain", "regen_record",
            "regen_bwd", "regen_bwd_plain", "step_tail_plain", "wave_init",
            "cam13", "trace_regen", "make_regen_trace", "RegenTrace",
-           "Records", "SEG_MAX", "regen_tables"]
+           "Records", "SEG_MAX", "regen_tables", "SphereTiles",
+           "sphere_tiles", "nearest_sphere_culled", "regen_bwd_info"]
+
+_EPS, _MAX = float(F32_EPS), float(F32_MAX)
 
 # the longest segment K3 replays (its per-lane stash is sized for it)
 SEG_MAX = 64
 # winner records are i16: the primitive id space must stay below 2^15
 ID_LIMIT = 2 ** 15
+
+
+# K2's sphere mode folds the sphere table in tiles of this many spheres
+# (16 gives rtweekend's 482 spheres 34 tiles, and a half warp holds a
+# tile, so the warp shares a tile's fold two lanes at a time;
+# tools/cull_variants.py times 32, and other group sizes, from patched
+# copies)
+SPH_TILE = 16
+# consecutive tiles a group box holds: a lane tests a group's tiles only
+# where its ray enters the group's box at no more than its best
+SPH_GROUP = 4
+# a sphere of more than this many times the median radius of the real
+# spheres gets a tile of its own (rtweekend's ground: 5,000 times)
+SPH_ISOLATE = 16.0
+# the sphere boxes' inflation, relative to |centre|_inf + radius + the
+# origin bound: 168 f32 roundings (2^-24) of that size, where the hit
+# point of a computed t and the slab test's entry need ~60 (sphere_tiles)
+SPH_PAD = 1e-5
+
+
+class SphereTiles(NamedTuple):
+    """K2's sphere tiles (``sphere_tiles``)."""
+    boxes: torch.Tensor   # [T,6] f32 lo|hi, inflated; lo > hi: empty
+    starts: torch.Tensor  # [T+1] i32: tile t holds [starts[t], starts[t+1])
+    gboxes: torch.Tensor  # [G,6] f32: the union of each group's tile boxes
+    gstarts: torch.Tensor  # [G+1] i32: group g holds tiles [gs[g], gs[g+1])
+    o_lim: float          # the origin bound (|o|_inf) the boxes hold for
+    n: int                # the sphere table's rows
+
+
+def _f32_down(x: float) -> float:
+    """The largest f32 value at most x."""
+    f = torch.tensor(x, dtype=torch.float32)
+    if float(f) > x:
+        f = torch.nextafter(f, torch.tensor(float("-inf")))
+    return float(f)
+
+
+@torch.no_grad()
+def sphere_tiles(table, origin_bound: float = 0.0) -> SphereTiles:
+    """Tiles of a sphere table [N,12] (the Morton-permuted scene's, so a
+    tile is spatially compact) and their boxes, for K2's culled search.
+
+    Consecutive spheres form tiles of at most SPH_TILE; a sphere whose
+    radius exceeds SPH_ISOLATE times the median real radius gets a tile of
+    its own (rtweekend's ground, 62.5 against 0.0125, sits mid-table after
+    the permutation and would widen its neighbours' box to every ray), and
+    padding (radius 0) starts tiles of its own. The tiles cover the table
+    in ascending id order, so a fold over them with strict < keeps the
+    lowest id on an exact tie. A tile's box is the union of its real
+    spheres' boxes, centre +- (radius + pad); a padding-only tile gets an
+    empty box (lo = 1e30 > hi = -1e30), which the kernel never enters.
+
+    The pad covers f32 rounding: the point o + t d at a t the fold computes
+    lies within radius + ~30 u (|m| + r) of the centre (m = c - o, u =
+    2^-24; the far root of a ray that starts inside included), and the
+    slab test's entry may round ~3 u t late, so a box inflated by ~60 u
+    (|c| + |o| + r) still holds the entry at or before that t, and a tile
+    the kernel skips cannot hold a lane's nearest hit. pad = SPH_PAD (|c|_inf
+    + r + o_lim) allows 168 u. o_lim bounds the origins: the scene's
+    extent (every hit point lies on a sphere) and ``origin_bound`` (the
+    camera's |position|_inf, where regenerated rays start); a lane whose
+    origin lies past it folds every tile.
+
+    Groups of at most SPH_GROUP consecutive tiles (a tile of its own
+    sphere, or of padding, is a group of its own) get the union of their
+    boxes: f32 rounding is monotone, so a ray's entry into a group's box is
+    at most its entry into each of the group's tiles, and a lane that
+    skips a group skips only tiles it would skip one by one."""
+    c = table[:, 0:3].detach().to("cpu", torch.float64)
+    rad = table[:, 3].detach().to("cpu", torch.float64)
+    n = rad.shape[0]
+    valid = rad > 0.0
+    size = c.abs().amax(dim=1) + rad
+    reach = float(size[valid].max()) if bool(valid.any()) else 0.0
+    o_lim = _f32_down(max(reach * (1.0 + 1e-6), float(origin_bound)))
+    big = (valid & (rad > SPH_ISOLATE * rad[valid].median())
+           if bool(valid.any()) else valid)
+    v, b = valid.tolist(), big.tolist()
+    starts = [0]
+    for i in range(1, n):
+        if (i - starts[-1] == SPH_TILE or b[i] or b[i - 1]
+                or v[i] != v[i - 1]):
+            starts.append(i)
+    starts.append(n)
+    ext = (rad + SPH_PAD * (size + o_lim))[:, None]
+    lo = torch.where(valid[:, None], c - ext, _MAX)
+    hi = torch.where(valid[:, None], c + ext, -_MAX)
+    boxes = torch.stack([torch.cat([lo[a:e].amin(dim=0), hi[a:e].amax(dim=0)])
+                         for a, e in zip(starts[:-1], starts[1:])])
+    alone = [b[a] or not v[a] for a in starts[:-1]]
+    gstarts = [0]
+    for t in range(1, len(alone)):
+        if t - gstarts[-1] == SPH_GROUP or alone[t] or alone[t - 1]:
+            gstarts.append(t)
+    gstarts.append(len(alone))
+    gboxes = torch.stack([torch.cat([boxes[a:e, 0:3].amin(dim=0),
+                                     boxes[a:e, 3:6].amax(dim=0)])
+                          for a, e in zip(gstarts[:-1], gstarts[1:])])
+    dev = table.device
+    return SphereTiles(boxes.to(dev, torch.float32),
+                       torch.tensor(starts, dtype=torch.int32, device=dev),
+                       gboxes.to(dev, torch.float32),
+                       torch.tensor(gstarts, dtype=torch.int32, device=dev),
+                       o_lim, n)
+
+
+def _box_entry(boxes, o, d, inv):
+    """Plain version of common.cuh trt_box_entry for the rays o, d [R,3]
+    (inv: 1 / d, 0 where d = 0) and the boxes [B,6] -> entry [R,B] f32:
+    where each ray enters each box, +inf where it surely misses (or the box
+    is empty), 0 where a NaN leaves it unsure."""
+    inf = float("inf")
+    o, d, inv = o[:, None, :], d[:, None, :], inv[:, None, :]
+    tl = torch.zeros((o.shape[0], boxes.shape[0]), dtype=o.dtype,
+                     device=o.device)
+    th = torch.full_like(tl, 3.0e38)
+    nan = torch.zeros_like(tl, dtype=torch.bool)
+    out = torch.zeros_like(nan)
+    for k in range(3):
+        lo, hi = boxes[None, :, k], boxes[None, :, 3 + k]
+        ok, dk = o[..., k], d[..., k]
+        par = dk == 0.0
+        out |= par & ~((ok >= lo) & (ok <= hi))
+        a0 = (lo - ok) * inv[..., k]
+        a1 = (hi - ok) * inv[..., k]
+        nan |= ~par & (torch.isnan(a0) | torch.isnan(a1))
+        tl = torch.where(par, tl, torch.maximum(tl, torch.minimum(a0, a1)))
+        th = torch.where(par, th, torch.minimum(th, torch.maximum(a0, a1)))
+    meet = (th >= tl) & (th >= 0.0)
+    entry = torch.where(nan, 0.0, torch.where(meet, tl, inf))
+    return torch.where(out | ~(boxes[None, :, 0] <= boxes[None, :, 3]), inf,
+                       entry)
+
+
+@torch.no_grad()
+def nearest_sphere_culled(st, table, sph: SphereTiles):
+    """Plain version of K2's culled sphere search (common.cuh
+    trt_fold_sph_tiles), lane for lane: the tiles in ascending order, a
+    live lane folding a tile only where its ray enters the tile's box at
+    no more than its best so far (every tile where its origin lies past
+    o_lim), and a group's tiles only where its ray enters the group's box
+    at no more than its best (a group of one tile is not tested apart).
+    -> (winner id [R] int64, -1 on a miss; counts [3] int64: boxes tested
+    (groups and tiles), tiles folded, ray-sphere pairs tested over the
+    live lanes). The winner is ``nearest_prim``'s (the test of the
+    culling). Every pair's t and every box entry are taken at once (the
+    same f32 values as one at a time); the tiles are then walked in
+    order."""
+    o, d = st[0:3].T, st[3:6].T
+    active = st[12] > 0.5
+    inv = torch.where(d != 0.0, torch.ones_like(d) / d, 0.0)
+    cull = active & (o.abs().amax(dim=1) <= sph.o_lim)
+    # ops/intersect.nearest_hit's pair values, every sphere at once
+    c, rad = table[:, 0:3], table[:, 3]
+    mx, my, mz = (c[None, :, k] - o[:, k:k + 1] for k in range(3))
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    tp = mx * dx + my * dy + mz * dz
+    px, py, pz = mx - dx * tp, my - dy * tp, mz - dz * tp
+    dsq = px * px + py * py + pz * pz
+    r2 = (rad * rad)[None, :]
+    x = safe_sqrt(r2 - dsq)
+    tn = tp - x
+    t_all = torch.where(tn < _EPS, tp + x, tn)
+    t_all = torch.where((dsq < r2) & (t_all > _EPS), t_all, _MAX)
+    entry = _box_entry(sph.boxes.to(st.device), o, d, inv)
+    gentry = _box_entry(sph.gboxes.to(st.device), o, d, inv)
+    best = torch.full_like(o[:, 0], _MAX)
+    bi = torch.zeros_like(best, dtype=torch.int64)
+    starts, gstarts = sph.starts.tolist(), sph.gstarts.tolist()
+    boxes_tested = torch.zeros_like(bi)
+    folded = torch.zeros_like(bi)
+    pairs = torch.zeros_like(bi)
+    for g, (t0, t1) in enumerate(zip(gstarts[:-1], gstarts[1:])):
+        in_g = active
+        if t1 - t0 > 1:
+            in_g = active & (~cull | (gentry[:, g] <= best))
+            boxes_tested += cull
+        for t in range(t0, t1):
+            j0, j1 = starts[t], starts[t + 1]
+            boxes_tested += in_g & cull
+            need = in_g & (~cull | (entry[:, t] <= best))
+            folded += need
+            pairs += need * (j1 - j0)
+            tmin, imin = torch.min(t_all[:, j0:j1], dim=1)
+            take = need & (tmin < best)
+            best = torch.where(take, tmin, best)
+            bi = torch.where(take, imin + j0, bi)
+    counts = torch.stack([boxes_tested.sum(), folded.sum(), pairs.sum()])
+    return torch.where(best < _MAX, bi, -1), counts
 
 
 class Records(NamedTuple):
@@ -203,7 +406,8 @@ def step_tail_plain(st, cam, table, idx, *, use_sky: bool, max_bounces: int,
 
 def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
                       max_bounces: int, width: int, height: int,
-                      seg: int | None = None, tri=None, boxes=None):
+                      seg: int | None = None, tri=None, boxes=None,
+                      sph: SphereTiles | None = None, stats=None):
     """``steps`` wavefront steps over the [24, R] state, in place. A dead
     lane only advances its bounce row, so once every lane is dead the
     remaining steps are applied to that row at once. With ``seg``, also
@@ -214,7 +418,12 @@ def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
     lists every BLOCK_R-lane block's reachable tiles from that step's
     state (``tri_block_lists``) and each live lane folds only its block's
     (a slice of lanes lists as whole blocks of its own); None for the
-    sweep of every triangle."""
+    sweep of every triangle. sph: a sphere scene's tiles (``sphere_tiles``)
+    for the mirror of K2's culled search (``nearest_sphere_culled``, the
+    same winners), stats then an int64 [3] tensor its counts are added
+    to; None folds every sphere."""
+    if sph is not None and tri is not None:
+        raise ValueError("sphere tiles are for sphere scenes")
     r = state.shape[1]
     dev = state.device
     blk = torch.arange(r, device=dev) // BLOCK_R
@@ -233,10 +442,15 @@ def regen_steps_plain(state, cam, table, steps: int, *, use_sky: bool,
             break
         if seg is not None and k % seg == 0:
             recs.chk[k // seg] = state
-        tiles = None if boxes is None else _block_reach(boxes, state)[blk]
-        new, rec = step_tail_plain(state, cam, table,
-                                   nearest_prim(state, table, tri, tiles),
-                                   **kw)
+        if sph is not None:
+            idx, cnt = nearest_sphere_culled(state, table, sph)
+            if stats is not None:
+                stats += cnt.to(stats.device)
+        else:
+            tiles = (None if boxes is None
+                     else _block_reach(boxes, state)[blk])
+            idx = nearest_prim(state, table, tri, tiles)
+        new, rec = step_tail_plain(state, cam, table, idx, **kw)
         if seg is not None:
             recs.rec[k] = rec.to(torch.int16)
             recs.t_end.add_(alive.to(torch.int32))
@@ -289,23 +503,75 @@ def _tri_args(tri, boxes, stats, table, dev):
             None if stats is None else stats.data_ptr())
 
 
+def _check_sph(sph: SphereTiles, table, tri, stats, dev):
+    """Check the sphere tiles and counters of the culled sphere mode."""
+    if tri is not None:
+        raise ValueError("sphere tiles are for sphere scenes")
+    if sph.n != table.shape[0]:
+        raise ValueError(f"sphere tiles of {sph.n} spheres for a table of "
+                         f"{table.shape[0]}")
+    n_t, n_g = sph.boxes.shape[0], sph.gboxes.shape[0]
+    build.require(sph.boxes, "sph.boxes", torch.float32, (n_t, 6), dev)
+    build.require(sph.starts, "sph.starts", torch.int32, (n_t + 1,), dev)
+    build.require(sph.gboxes, "sph.gboxes", torch.float32, (n_g, 6), dev)
+    build.require(sph.gstarts, "sph.gstarts", torch.int32, (n_g + 1,), dev)
+    if stats is not None:
+        build.require(stats, "stats", torch.int64, (3,), dev)
+
+
+def _regen_sph(state, cam, table, steps: int, sph: SphereTiles, tri, stats,
+               use_sky: bool, max_bounces: int, width: int, height: int,
+               recs=None) -> None:
+    """K2's sphere mode with the culled search, forward or (recs) the
+    recording mode, on CUDA tensors."""
+    dev = _check_regen_args(state, cam, table)
+    _check_sph(sph, table, tri, stats, dev)
+    film_w, film_h = film_extent(width, height)
+    rec_args = ((None, None, None, 1) if recs is None else
+                (recs.rec.data_ptr(), recs.chk.data_ptr(),
+                 recs.t_end.data_ptr(), int(recs.seg)))
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.trt_regen_sph(
+            state.data_ptr(), state.shape[1], cam.data_ptr(),
+            table.data_ptr(), table.shape[0], sph.boxes.data_ptr(),
+            sph.starts.data_ptr(), sph.boxes.shape[0], sph.gboxes.data_ptr(),
+            sph.gstarts.data_ptr(), sph.gboxes.shape[0], float(sph.o_lim),
+            None if stats is None else stats.data_ptr(),
+            int(steps), int(bool(use_sky)), int(max_bounces), int(width),
+            int(height), float(film_w), float(film_h), *rec_args,
+            build.stream_of(state))
+    build.check("trt_regen_sph", err)
+
+
 def regen_steps(state, cam, table, steps: int, *, use_sky: bool,
                 max_bounces: int, width: int, height: int, tri=None,
-                boxes=None, stats=None):
+                boxes=None, stats=None, sph: SphereTiles | None = None):
     """K2: ``steps`` persistent-wavefront steps over the [24, R] f32 state,
     updated in place (search + shade + in-lane regeneration). cam: [13]
     f32 (``cam13``), table [P,12] f32, tri [M,9] f32 or None, boxes [T,6]
     f32 (the listed mode) or None (the sweep; see module docstring).
+    sph: a sphere scene's tiles (``sphere_tiles``): the culled search,
+    which the route takes on every sphere scene; without them the sphere
+    mode folds every sphere (the sweep it replaced, kept to time against).
     stats: None, or an int64 [3] CUDA tensor that the listed mode adds its
     counts to: listed tiles summed over the live block-steps, live
-    block-steps, ray-triangle pairs tested. CPU tensors take
-    ``regen_steps_plain``."""
+    block-steps, ray-triangle pairs tested; the culled sphere mode: tile
+    boxes tested, tiles folded, ray-sphere pairs tested over the live
+    lane-steps. CPU tensors take ``regen_steps_plain``, which folds every
+    sphere (the culled search gives its winners)."""
     if not state.is_cuda:
         if stats is not None:
             raise ValueError("stats are counted by the kernel only")
         return regen_steps_plain(state, cam, table, steps, use_sky=use_sky,
                                  max_bounces=max_bounces, width=width,
                                  height=height, tri=tri, boxes=boxes)
+    if sph is not None:
+        _regen_sph(state, cam, table, steps, sph, tri, stats, use_sky,
+                   max_bounces, width, height)
+        regen_steps.launches += 1
+        regen_steps.culled_launches += 1
+        return state
     dev = _check_regen_args(state, cam, table)
     tri_ptr, m, box_ptr, n_t, st_ptr = _tri_args(tri, boxes, stats, table,
                                                  dev)
@@ -324,14 +590,17 @@ def regen_steps(state, cam, table, steps: int, *, use_sky: bool,
     return state
 
 
-# launches of every mode, and of the listed mode among them
+# launches of every mode, and of the listed and culled sphere modes among
+# them
 regen_steps.launches = 0
 regen_steps.listed_launches = 0
+regen_steps.culled_launches = 0
 
 
 def regen_record(state, cam, table, steps: int, seg: int, *, use_sky: bool,
                  max_bounces: int, width: int, height: int, tri=None,
-                 boxes=None, stats=None) -> Records:
+                 boxes=None, stats=None,
+                 sph: SphereTiles | None = None) -> Records:
     """K2 in recording mode: as ``regen_steps``, and also writes the
     winner records, the checkpoints every ``seg`` steps and t_end
     (``Records``). The state advances bit for bit as without recording.
@@ -345,14 +614,20 @@ def regen_record(state, cam, table, steps: int, seg: int, *, use_sky: bool,
                                  height=height, seg=seg, tri=tri,
                                  boxes=boxes)[1]
     dev = _check_regen_args(state, cam, table)
-    tri_ptr, m, box_ptr, n_t, st_ptr = _tri_args(tri, boxes, stats, table,
-                                                 dev)
     r = state.shape[1]
     recs = Records(
         rec=torch.empty((steps, r), dtype=torch.int16, device=dev),
         chk=torch.empty((-(-steps // seg), 24, r), dtype=torch.float32,
                         device=dev),
         t_end=torch.empty(r, dtype=torch.int32, device=dev), seg=seg)
+    if sph is not None:
+        _regen_sph(state, cam, table, steps, sph, tri, stats, use_sky,
+                   max_bounces, width, height, recs)
+        regen_record.launches += 1
+        regen_record.culled_launches += 1
+        return recs
+    tri_ptr, m, box_ptr, n_t, st_ptr = _tri_args(tri, boxes, stats, table,
+                                                 dev)
     film_w, film_h = film_extent(width, height)
     lib = build.load()
     with torch.cuda.device(dev):
@@ -372,6 +647,7 @@ def regen_record(state, cam, table, steps: int, seg: int, *, use_sky: bool,
 
 regen_record.launches = 0
 regen_record.listed_launches = 0
+regen_record.culled_launches = 0
 
 
 def _step_vjp_plain(st, consts, idx, d_st, cam, table, *, use_sky: bool,
@@ -479,7 +755,7 @@ def regen_bwd(recs: Records, d_out, cam, table, *, use_sky: bool,
         raise ValueError("chk holds ceil(steps/seg) checkpoints")
     lib = build.load()
     n = table.shape[0]
-    parts = lib.trt_regen_bwd_parts(r)
+    parts = lib.trt_regen_bwd_parts(r, n)
     part = torch.empty((parts, n, 12), dtype=torch.float32, device=dev)
     part_cam = torch.empty((parts, 12), dtype=torch.float32, device=dev)
     d_state = d_out.clone()
@@ -503,11 +779,29 @@ def regen_bwd(recs: Records, d_out, cam, table, *, use_sky: bool,
 regen_bwd.launches = 0
 
 
+def regen_bwd_info(n: int, device=None) -> dict:
+    """K3's launch-1 kernel for a table of n rows as the card runs it:
+    registers and local memory a thread (bytes: the stash and any spills),
+    blocks an SM holds (the occupancy calculator), threads and dynamic
+    shared memory a block, warps an SM, and the card's SMs. Needs a CUDA
+    device."""
+    lib = build.load()
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        build.check("trt_regen_bwd_info",
+                    lib.trt_regen_bwd_info(int(n), ctypes.addressof(out)))
+    regs, local, blocks, threads, smem, sms = list(out)
+    return dict(registers=regs, local_bytes=local, blocks_per_sm=blocks,
+                threads=threads, smem_bytes=smem, sms=sms,
+                warps_per_sm=blocks * threads // 32)
+
+
 def regen_tables(scene: Scene):
     """The regen route's tables of the Morton-permuted scene ->
     (table [P,12], differentiable through the permutation; tri [M,9] or
     None; n_tri). The listed mode's tile boxes are
-    ``bounce_step.tab_tile_boxes(tri)``."""
+    ``bounce_step.tab_tile_boxes(tri)``; a sphere scene's tiles, with
+    their boxes, ``sphere_tiles(table, camera bound)`` (``_search_of``)."""
     sp = permute_scene(scene)
     table = prim_table(sp)
     if sp.tris is None:
@@ -515,10 +809,15 @@ def regen_tables(scene: Scene):
     return table, tri_search_table(sp.tris), sp.tris.n_pad
 
 
-def _boxes_of(tri):
-    """The listed mode's tile boxes of the triangle search table, None for
-    a sphere scene."""
-    return None if tri is None else tab_tile_boxes(tri)
+def _search_of(table, tri, camera: Camera):
+    """The route's search tables beyond the winner table: a triangle
+    scene's tile boxes (the listed mode), or a sphere scene's tiles (the
+    culled sphere mode, its origins bounded by the camera's) -> (boxes,
+    sph), one of them None."""
+    if tri is not None:
+        return tab_tile_boxes(tri), None
+    bound = float(camera.position.detach().abs().max())
+    return None, sphere_tiles(table, bound)
 
 
 def trace_regen(scene: Scene, camera: Camera, pixel, *, width: int,
@@ -527,16 +826,17 @@ def trace_regen(scene: Scene, camera: Camera, pixel, *, width: int,
     """All ``spp`` samples of the pixel set through the persistent
     wavefront -> (color_sum [R,3], rays_cast int). One regen_steps call of
     spp * max_bounces steps: a sample takes at most max_bounces steps, so
-    the cap never cuts a lane. A triangle scene takes the listed mode. No
-    autograd history."""
+    the cap never cuts a lane. A triangle scene takes the listed mode, a
+    sphere scene the culled sphere mode. No autograd history."""
     with torch.no_grad():
         table, tri, _ = regen_tables(scene)
+        boxes, sph = _search_of(table, tri, camera)
         st, cam, _ = wave_init(camera, pixel, spp, seed, sample_start,
                                width, height)
         regen_steps(st, cam, table, spp * max_bounces,
                     use_sky=scene.use_sky, max_bounces=max_bounces,
-                    width=width, height=height, tri=tri,
-                    boxes=_boxes_of(tri))
+                    width=width, height=height, tri=tri, boxes=boxes,
+                    sph=sph)
     return st[16:19].T, int(st[22].to(torch.int64).sum())
 
 
@@ -549,13 +849,15 @@ class RegenTrace(torch.autograd.Function):
     s0's primary origins/directions [R,3]; autograd carries their
     cotangents on through ``prim_table``, the permutation,
     ``Camera.basis`` and ``camera_rays``. The triangle search table and
-    its tile boxes ride along without a gradient (the search is a
-    discrete choice). Forward: K2 in recording mode (the listed mode on a
-    triangle scene). Backward: K3. The records live in ``ctx`` until the
+    its tile boxes, or a sphere scene's tiles, ride along without a
+    gradient (the search is a discrete choice). Forward: K2 in recording
+    mode (the listed mode on a triangle scene, the culled sphere mode on a
+    sphere scene). Backward: K3. The records live in ``ctx`` until the
     backward has run."""
 
     @staticmethod
-    def forward(ctx, table, rows, o0, d0, base0, pixel, tri, boxes, cfg):
+    def forward(ctx, table, rows, o0, d0, base0, pixel, tri, boxes, sph,
+                cfg):
         width, height, seed, max_bounces, spp, s0, seg, use_sky = cfg
         st = _init_state(o0, d0, base0, pixel, seed, s0, width)
         cam = torch.cat([rows, rows.new_tensor([float(s0 + spp)])])
@@ -563,7 +865,7 @@ class RegenTrace(torch.autograd.Function):
         recs = regen_record(st, cam, table, spp * max_bounces, seg,
                             use_sky=use_sky, max_bounces=max_bounces,
                             width=width, height=height, tri=tri,
-                            boxes=boxes)
+                            boxes=boxes, sph=sph)
         ctx.save_for_backward(table, cam, recs.rec, recs.chk, recs.t_end)
         ctx.cfg = cfg
         ctx.n_tri = 0 if tri is None else tri.shape[0]
@@ -583,7 +885,7 @@ class RegenTrace(torch.autograd.Function):
             use_sky=use_sky, max_bounces=max_bounces, width=width,
             height=height, n_tri=ctx.n_tri)
         return (d_tab, d_cam[0:12], d_st[0:3].T, d_st[3:6].T, None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -616,8 +918,9 @@ def make_regen_trace(width: int, height: int, seed: int, max_bounces: int,
         o, d, base0 = camera_rays(camera, width, height, pixel, s0, seed)
         cfg = (width, height, seed, max_bounces, spp, int(s0), seg,
                scene.use_sky)
+        boxes, sph = _search_of(table, tri, camera)
         color, rays = RegenTrace.apply(table, rows, o, d, base0, pixel, tri,
-                                       _boxes_of(tri), cfg)
+                                       boxes, sph, cfg)
         return color, int(rays)
 
     return trace
