@@ -24,13 +24,18 @@ autograd at 320x180; two make_train_step steps at full size. Then the
 per-sample fused route (backend fused without regen) at the same size:
 K4, K5 and K6 at
 the route's own inputs (the main camera's sample 0, 1 lane in 32, and K6
-also on all lanes) against their plain versions, a forward pass as the
-CLI drives it (and the same samples without the Morton permutation, which
-must give the regen route's image bit for bit), three forward+backward
-steps as a user differentiates it, one more of each under torch.profiler
-for the kernels' device times and the device's idle share (the kernels'
-bounds are counted from the same samples outside those calls), and the
-route's gradients against the regen route's at 320x180. Then the triangle
+also on all lanes) against their plain versions (K4 culled by the Morton
+sphere tiles as the route runs it, by the host masks and not at all, its
+counters against the plain mirror's), a forward pass as the CLI drives
+it (which must give the regen route's image bit for bit), K4 over the
+pass's own states with its counters (boxes, tiles and pairs tested) and
+on 1 lane in 32 of every bounce against its plain version, the pass's K4
+launches culled and with the host mask it replaced timed in turns, three
+forward+backward steps as a user differentiates it, one more of each
+under torch.profiler for the kernels' device times and the device's idle
+share (the kernels' bounds are counted from the same samples outside
+those calls), and the route's gradients against the regen route's at
+320x180. Then the triangle
 scenes: K7 (the triangle search of backend cuda) against its plain version
 on trimesh's primary rays and backend cuda's trimesh render against
 backend torch's; the triangle main path, trimesh (10,242 triangles) at
@@ -47,12 +52,20 @@ own records against its plain version on 1 lane in 32, two K3 launches
 bit-equal), and its gradients (and the per-sample route's) against
 backend cuda autograd at 320x180. Then the per-sample route on trimesh
 at 1920x1080, 2 spp: K8 (bounce_fwd_list) and the triangle modes of K5
-and K6 at the route's own inputs (sample 0: 1 lane in 32 of every
-bounce's state against the plain versions, K6 also on all lanes, two K6
-launches bit-equal), the forward pass as the CLI drives it (two calls;
-its image against the regen route's, the differing pixels counted), the
-list pass rate and K8's bound counted on the pass's own states, three
-forward+backward steps, and one pass and one step under torch.profiler.
+and K6 at the route's own inputs (sample 0: K8 on every 32nd 256-lane
+block of every bounce's state against its plain version and the whole
+launch, with its counters, K5 and K6 on 1 lane in 32, K6 also on all
+lanes, two K6 launches bit-equal), the forward pass as the CLI drives it
+(two calls; its image against the regen route's, the differing pixels
+counted), the list pass rate and K8's bounds (over the pairs its
+counters say it tested, the listed pairs and every triangle) counted on
+the pass's own states, three forward+backward steps, and one pass and
+one step under torch.profiler; and the same pass with tri_list=False
+(make_fused_sample's sweep of every triangle, K4's triangle mode): two
+calls and a profiled one, its image within 20 pixels of the listed
+route's, K4's triangle mode on 1 lane in 32 of sample 0 against its
+plain version, its bound over the pairs an exact culled search tests on
+those rays (K8's counters on the same states) and over every triangle.
 Then the flat and Lambert+shadow estimators on the fused route (K9,
 csrc/simple_shade.cu), each configuration at its own size: BASELINE.md
 config 2 (sixteen, Lambert, 512x512, 4 spp: K9 bit-equal to its plain
@@ -249,24 +262,6 @@ def pair_flops(shares) -> float:
 
 def bits_equal(torch, a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
-
-
-def k4_work(torch, state, table, mask, block_r, block_n):
-    """(fp32 operations, bytes) K4's launch must spend on these inputs:
-    each alive lane tests the real spheres of the tiles its block keeps
-    (FLOPS_PER_PAIR each); the state is read and written once, the ids
-    written, the table read. Device scalars (no synchronisation)."""
-    r = state.shape[1]
-    alive = torch.nn.functional.pad((state[12] > 0.5).double(),
-                                    (0, -r % block_r))
-    per_block = alive.view(-1, block_r).sum(1)
-    real = torch.nn.functional.pad((table[:, 3] > 0).double(),
-                                   (0, -table.shape[0] % block_n))
-    per_tile = real.view(-1, block_n).sum(1)
-    kept = (per_tile.sum().expand_as(per_block) if mask is None
-            else mask.double() @ per_tile)
-    flops = (per_block * kept).sum() * FLOPS_PER_PAIR
-    return flops, (2 * BOUNCE_STATE_BYTES + 4) * r + table.numel() * 4
 
 
 # the CUDA kernels of each bounce wrapper, as torch.profiler names them
@@ -1100,12 +1095,13 @@ def main() -> int:
     from tpu_ray_torch.grad import image_mse, make_train_step, render_mean
     from tpu_ray_torch.kernels import build
     from tpu_ray_torch.kernels.bounce_step import (
-        BLOCK_N, BLOCK_R, TRI_BLOCK_M, _block_reach, bounce_bwd,
+        BLOCK_R, TRI_BLOCK_M, _block_reach, bounce_bwd,
         bounce_bwd_plain, bounce_cull_mask, bounce_cull_mask_octant,
         bounce_fwd, bounce_fwd_list, bounce_fwd_list_plain, bounce_fwd_plain,
-        bounce_replay, bounce_replay_plain, fused_tables, init_state,
-        morton_perm, permute_spheres, tab_tile_boxes, tri_block_lists,
-        tri_morton_perm)
+        bounce_replay, bounce_replay_plain, cull_mask, fused_tables,
+        init_state, make_fused_sample, morton_perm, origin_bound,
+        permute_spheres, ray_block_bounds, tab_tile_boxes, tile_bounds,
+        tri_block_lists, tri_morton_perm)
     from tpu_ray_torch.kernels.regen import (
         SEG_MAX, regen_bwd, regen_bwd_info, regen_bwd_plain, regen_record,
         regen_steps, regen_steps_plain, regen_tables, sphere_tiles,
@@ -1133,6 +1129,7 @@ def main() -> int:
             fn.launches = 0
         regen_steps.listed_launches = regen_record.listed_launches = 0
         regen_steps.culled_launches = regen_record.culled_launches = 0
+        bounce_fwd.culled_launches = bounce_fwd.tri_launches = 0
 
     def counts():
         return {fn.__name__: fn.launches for fn in counted}
@@ -1707,37 +1704,56 @@ def main() -> int:
 
     # 13. K4, K5 and K6 at the per-sample route's own inputs: the main
     # camera's sample 0 on 1 lane in 32 of the tile-ordered pixels, bounce
-    # after bounce (launches not counted). K4 bit-equal to plain, culled
-    # (the primary mask at bounce 0, the octant mask after) and not; K5
-    # bit-equal to K4; K6's d_state equal to plain, d_table within 1e-4 of
-    # each group's max of the plain f64 sum, two launches bit-equal
+    # after bounce (launches not counted). K4 bit-equal to plain: culled by
+    # the Morton sphere tiles as the route runs it (its counters the plain
+    # mirror's), by the host masks (the primary mask at bounce 0, the
+    # octant mask after) and not culled; K5 bit-equal to K4; K6's d_state
+    # equal to plain, d_table within 1e-4 of each group's max of the plain
+    # f64 sum, two launches bit-equal
     t0 = time.perf_counter()
-    ftb = fused_tables(scene)
+    ftb = fused_tables(scene, origin_bound(tracer.camera.position[None]))
     scene_p = permute_spheres(scene, morton_perm(scene))
     use_sky = scene.use_sky
     px_sl = torch.as_tensor(perm[::SLICE_STRIDE].copy(), device=dev)
     st = init_state(*camera_rays(tracer.camera, MAIN_W, MAIN_H, px_sl, 0,
                                  SEED))
     slice_ms = {"bounce_fwd": [0.0, 0.0], "bounce_replay": [0.0, 0.0],
-                "bounce_bwd": [0.0, 0.0]}     # kernel, plain
+                "bounce_bwd": [0.0, 0.0],      # kernel, plain
+                "bounce_fwd_unculled": [0.0, 0.0]}
+    sl_k4_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    sl_k4_mirror = torch.zeros_like(sl_k4_stats)
     states, idxs = [], []
     for b in range(MAX_BOUNCES):
         mask = (bounce_cull_mask if b == 0 else bounce_cull_mask_octant)(
             scene_p, st)
         (out_k, idx_k), _, by_key, _ = profiled(torch, lambda: bounce_fwd(
-            st, ftb.table, b, use_sky=use_sky))
+            st, ftb.table, b, use_sky=use_sky, sph=ftb.sph,
+            stats=sl_k4_stats))
         ms_k = kernel_ms(by_key, BOUNCE_KERNELS["bounce_fwd"])
         (out_p, idx_p), ms_p = timed(torch, lambda: bounce_fwd_plain(
+            st, ftb.table, b, use_sky=use_sky, sph=ftb.sph,
+            stats=sl_k4_mirror))
+        (out_ku, idx_ku), _, by_key, _ = profiled(torch, lambda: bounce_fwd(
+            st, ftb.table, b, use_sky=use_sky))
+        ms_ku = kernel_ms(by_key, BOUNCE_KERNELS["bounce_fwd"])
+        (out_pu, idx_pu), ms_pu = timed(torch, lambda: bounce_fwd_plain(
             st, ftb.table, b, use_sky=use_sky))
         out_kc, idx_kc = bounce_fwd(st, ftb.table, b, mask, use_sky=use_sky)
         out_pc, idx_pc = bounce_fwd_plain(st, ftb.table, b, mask,
                                           use_sky=use_sky)
         torch.cuda.synchronize()
-        for name, o_, i_ in (("plain", out_p, idx_p), ("culled", out_kc,
-                                                         idx_kc),
-                             ("plain culled", out_pc, idx_pc)):
+        for name, o_, i_ in (("plain", out_p, idx_p), ("unculled", out_ku,
+                                                         idx_ku),
+                             ("plain unculled", out_pu, idx_pu),
+                             ("masked", out_kc, idx_kc),
+                             ("plain masked", out_pc, idx_pc)):
             require(torch.equal(i_, idx_k) and bits_equal(torch, o_, out_k),
                     f"K4 bounce {b}: {name} differs from the kernel")
+        require(torch.equal(sl_k4_stats, sl_k4_mirror),
+                f"K4 culled counts {sl_k4_stats.tolist()} differ from the "
+                f"plain mirror's {sl_k4_mirror.tolist()}")
+        slice_ms["bounce_fwd_unculled"][0] += ms_ku
+        slice_ms["bounce_fwd_unculled"][1] += ms_pu
         rep, _, by_key, _ = profiled(torch, lambda: bounce_replay(
             st, ftb.table, idx_k, b, use_sky=use_sky))
         ms_rk = kernel_ms(by_key, BOUNCE_KERNELS["bounce_replay"])
@@ -1782,11 +1798,14 @@ def main() -> int:
         d = d_k
     n_sl = px_sl.shape[0]
     print(f"K4/K5/K6 at the per-sample route's inputs, 1 lane in "
-          f"{SLICE_STRIDE} ({n_sl} lanes), sample 0: K4 bit-equal to plain "
-          f"culled and unculled, K5 bit-equal to K4, K6 d_state equal to "
+          f"{SLICE_STRIDE} ({n_sl} lanes), sample 0: K4 culled by the "
+          f"sphere tiles bit-equal to plain, unculled and masked (counts: "
+          f"{sl_k4_stats.tolist()} boxes, tiles, pairs tested, the plain "
+          f"mirror's), K5 bit-equal to K4, K6 d_state equal to "
           f"plain and d_table within 1e-4 (max |d| {k6_err}), two K6 "
           f"launches bit-equal; kernel / plain ms {slice_ms}", flush=True)
     del states, idxs, st, d, out_k, out_p, out_kc, out_pc, rep, rep_p
+    del out_ku, out_pu
 
     # the same at the route's full width, sample 0: all 2,073,600 lanes,
     # so each of K6's blocks sums some 32 lane tiles into its partials
@@ -1798,11 +1817,11 @@ def main() -> int:
                                  SEED))
     states, idxs = [], []
     for b in range(MAX_BOUNCES):
-        masks = ([bounce_cull_mask(scene_p, st)] if b == 0 else
-                 [None, bounce_cull_mask_octant(scene_p, st)])
-        out_k, idx_k = bounce_fwd(st, ftb.table, b, masks[0],
-                                  use_sky=use_sky)
-        for mask in ([None] if b == 0 else []) + masks[1:]:
+        masks = [None, (bounce_cull_mask if b == 0 else
+                        bounce_cull_mask_octant)(scene_p, st)]
+        out_k, idx_k = bounce_fwd(st, ftb.table, b, use_sky=use_sky,
+                                  sph=ftb.sph)
+        for mask in masks:
             out_m, idx_m = bounce_fwd(st, ftb.table, b, mask,
                                       use_sky=use_sky)
             require(torch.equal(idx_m, idx_k) and bits_equal(torch, out_m,
@@ -1844,7 +1863,7 @@ def main() -> int:
     k6_parts = build.load().trt_bounce_bwd_parts(px_all.shape[0])
     print(f"K4/K5/K6 at the per-sample route's full width, sample 0 "
           f"({px_all.shape[0]} lanes, {k6_parts} K6 blocks): K4 culled "
-          f"equal to unculled, K5 "
+          f"equal to unculled and masked, K5 "
           f"bit-equal to K4, K6 d_state equal to plain and d_table within "
           f"1e-4 (max |d| {k6_full_err}, {k6_full_rel} of its group's "
           f"max), two K6 launches bit-equal",
@@ -1873,6 +1892,8 @@ def main() -> int:
         k4_launches = bounce_fwd.launches
         require(k4_launches == MAIN_SPP * MAX_BOUNCES,
                 f"per-sample forward launched K4 {k4_launches} times")
+        require(bounce_fwd.culled_launches == k4_launches,
+                "per-sample forward did not take K4's culled sphere search")
         require(sum(counts().values()) == k4_launches,
                 f"per-sample forward launched others: {counts()}")
     mean_s = state_s.mean
@@ -1891,27 +1912,54 @@ def main() -> int:
           f"= {[rays_s / t for t in fwd_secs]} rays/s on {card}; K4 launches "
           f"{k4_launches}; image bit-equal to fused+regen's", flush=True)
     # the work of this pass's K4, K5 and K6 launches on this run's data,
-    # counted outside the profiled calls: the route's bounces (the primary
-    # culled, the rest not) of every sample again, each launch's alive
-    # lanes per block against the real spheres of the tiles it keeps, and
-    # the live lanes that K5 (bounces 0..B-2) and K6 (all) shade
+    # counted outside the profiled calls: the route's bounces of every
+    # sample again, K4 with its counters on (the sphere pairs and tile
+    # boxes its culled search tested) and on 1 lane in 32 of every
+    # bounce's input state held bit for bit against its plain version,
+    # the counters against the plain mirror's; beside them every real
+    # sphere of each alive lane (the bound of a search without the cull);
+    # and the live lanes that K5 (bounces 0..B-2) and K6 (all) shade
     work = {n: [0.0, 0.0, 0] for n in ("bounce_fwd", "bounce_replay",
                                        "bounce_bwd")}   # flops, bytes, n
     tab_bytes = ftb.table.numel() * 4
-    acc_rays = 0
+    sph_bytes = 4 * sum(t.numel() for t in (ftb.sph.boxes, ftb.sph.starts,
+                                            ftb.sph.gboxes, ftb.sph.gstarts))
+    k4_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    k4_sl_stats = torch.zeros_like(k4_stats)
+    k4_sl_mirror = torch.zeros_like(k4_stats)
+    k4_sl_ms = [0.0, 0.0]             # kernel, plain on the slices
+    acc_rays = every_flops = 0
     with torch.no_grad():
         for k in range(MAIN_SPP):
             st = init_state(*camera_rays(tracer_s.camera, MAIN_W, MAIN_H,
                                          px_all, k, SEED))
             for b in range(MAX_BOUNCES):
-                acc_rays = acc_rays + (st[12] > 0.5).sum()
-                mask = bounce_cull_mask(scene_p, st) if b == 0 else None
-                flops, nbytes = k4_work(torch, st, ftb.table, mask, BLOCK_R,
-                                        BLOCK_N)
-                st, idx = bounce_fwd(st, ftb.table, b, mask,
-                                     use_sky=use_sky)
+                n_alive = (st[12] > 0.5).sum()
+                acc_rays = acc_rays + n_alive
+                every_flops = (every_flops + n_alive.double() * n_real
+                               * FLOPS_PER_PAIR)
+                sl = st[:, cols].contiguous()
+                nbytes = ((2 * BOUNCE_STATE_BYTES + 4) * st.shape[1]
+                          + tab_bytes + sph_bytes)
+                st, idx = bounce_fwd(st, ftb.table, b, use_sky=use_sky,
+                                     sph=ftb.sph, stats=k4_stats)
+                (out_s, idx_s), ms_k = timed(torch, lambda: bounce_fwd(
+                    sl, ftb.table, b, use_sky=use_sky, sph=ftb.sph,
+                    stats=k4_sl_stats))
+                (out_p, idx_p), ms_p = timed(torch, lambda: bounce_fwd_plain(
+                    sl, ftb.table, b, use_sky=use_sky, sph=ftb.sph,
+                    stats=k4_sl_mirror))
+                require(torch.equal(idx_s, idx_p)
+                        and bits_equal(torch, out_s, out_p)
+                        and torch.equal(idx_s, idx[cols])
+                        and bits_equal(torch, out_s,
+                                       st[:, cols].contiguous()),
+                        f"K4 culled, sample {k} bounce {b}: 1 lane in "
+                        f"{SLICE_STRIDE} differs from plain or the launch")
+                k4_sl_ms[0] += ms_k
+                k4_sl_ms[1] += ms_p
                 live = (idx >= 0).double().sum()
-                todo = [("bounce_fwd", flops, nbytes),
+                todo = [("bounce_fwd", 0.0, nbytes),
                         ("bounce_bwd", live * K6_FLOPS_PER_LANE,
                          K6_LANE_BYTES * st.shape[1] + 2 * tab_bytes)]
                 if b < MAX_BOUNCES - 1:
@@ -1925,8 +1973,77 @@ def main() -> int:
     require(int(acc_rays) == rays_s,
             f"the bounds' bounce loop cast {int(acc_rays)} rays, the route "
             f"{rays_s}")
+    require(torch.equal(k4_sl_stats, k4_sl_mirror),
+            f"K4 culled counts on the slices {k4_sl_stats.tolist()} differ "
+            f"from the plain mirror's {k4_sl_mirror.tolist()}")
+    k4_boxes, k4_folded, k4_pairs = k4_stats.tolist()
+    work["bounce_fwd"][0] = (k4_pairs * FLOPS_PER_PAIR
+                             + k4_boxes * FLOPS_PER_BOX)
+    k4_bound_all = bound(float(every_flops), work["bounce_fwd"][1])[0]
     work = {n: (int(w[2]),) + bound(float(w[0]), float(w[1]))
             for n, w in work.items()}
+    del out_s, out_p, sl
+
+    # K4 culled against the search it replaced, in turns in this call:
+    # the pass's K4 launches as the route makes them (every sample's
+    # raygen, then its bounces) with the sphere tiles, and with the host's
+    # primary cull mask at bounce 0 and no mask after (the route before the
+    # cull; its tile boxes taken once, as the route took them); culled,
+    # host mask, host mask, culled
+    mask_lo, mask_hi = tile_bounds(scene_p)
+
+    def k4_pass(culled):
+        """-> (wall s to a synchronize, K4 ms by CUDA events summed over
+        the launches, the samples' colours summed)."""
+        evs = []
+        col = torch.zeros((3, px_all.shape[0]), device=dev)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter()
+        with torch.no_grad():
+            for k in range(MAIN_SPP):
+                st = init_state(*camera_rays(tracer_s.camera, MAIN_W,
+                                             MAIN_H, px_all, k, SEED))
+                for b in range(MAX_BOUNCES):
+                    mask = None
+                    if not culled and b == 0:
+                        mask = cull_mask(*ray_block_bounds(st), mask_lo,
+                                         mask_hi)
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                    st, _ = bounce_fwd(st, ftb.table, b, mask,
+                                       use_sky=use_sky,
+                                       sph=ftb.sph if culled else None)
+                    ev[1].record()
+                    evs.append(ev)
+                col += st[9:12]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_p
+        return wall, sum(a.elapsed_time(e) for a, e in evs), col
+
+    k4_turns = {True: [], False: []}
+    col_ref = None
+    for culled in (True, False, False, True):
+        wall, ms, col = k4_pass(culled)
+        k4_turns[culled].append((wall, ms))
+        col_ref = col if col_ref is None else col_ref
+        require(bits_equal(torch, col, col_ref),
+                "K4 culled and host-masked passes end in other colours")
+    del col, col_ref
+    print(f"K4 over the per-sample rtweekend pass: {k4_launches} launches "
+          f"culled by {ftb.sph.boxes.shape[0]} sphere tiles: "
+          f"{k4_boxes} boxes tested, {k4_folded} tiles folded, {k4_pairs} "
+          f"ray-sphere pairs tested of {rays_s * n_real} "
+          f"({k4_pairs / (rays_s * n_real):.4f}); bound "
+          f"{work['bounce_fwd'][1]:.3f} ms by {work['bounce_fwd'][2]} over "
+          f"what it tested, {k4_bound_all:.3f} ms over every sphere; in "
+          f"turns (wall s, K4 ms by CUDA events): culled "
+          f"{k4_turns[True]}, host mask at bounce 0 and none after "
+          f"{k4_turns[False]}, the same colours; 1 lane in {SLICE_STRIDE} "
+          f"of all {MAIN_SPP * MAX_BOUNCES} bounces bit-equal to plain, "
+          f"counts {k4_sl_stats.tolist()} the plain mirror's, "
+          f"{k4_sl_ms[0]:.3f} ms kernel / {k4_sl_ms[1]:.3f} ms plain",
+          flush=True)
     del st, idx
     before = counts()
     (state_t, _), fwd_prof_secs, by_key, busy = profiled(
@@ -1934,6 +2051,9 @@ def main() -> int:
     require(counts()["bounce_fwd"] - before["bounce_fwd"]
             == work["bounce_fwd"][0], "the profiled pass launched K4 "
             "another number of times than the bounds count")
+    k4_keys = [k for k in by_key if "bounce_fwd_kernel" in k]
+    require(k4_keys and not any("<true>" in k for k in k4_keys),
+            f"the profiled pass's K4 was not the sphere mode: {k4_keys}")
     require(torch.equal(state_t.mean, mean_s), "profiled pass image differs")
     k4_ms = kernel_ms(by_key, BOUNCE_KERNELS["bounce_fwd"])
     require(k4_ms > 0, "torch.profiler recorded no K4 device time")
@@ -1976,6 +2096,8 @@ def main() -> int:
             and launches_s["bounce_replay"] == MAIN_SPP * (MAX_BOUNCES - 1)
             and launches_s["bounce_bwd"] == MAIN_SPP * MAX_BOUNCES,
             f"per-sample fwd+bwd launches {launches_s}")
+    require(bounce_fwd.culled_launches == launches_s["bounce_fwd"],
+            "per-sample fwd+bwd did not take K4's culled sphere search")
     require(sum(launches_s.values()) == launches_s["bounce_fwd"]
             + launches_s["bounce_replay"] + launches_s["bounce_bwd"],
             f"per-sample fwd+bwd launched other kernels: {launches_s}")
@@ -2031,10 +2153,20 @@ def main() -> int:
         plain_ms=slice_ms["bounce_fwd"][1], bound_ms=k4_bound[0],
         bound_by=k4_bound[1], library_ms=None, path=path_s,
         shape=f"{MAIN_SPP * MAX_BOUNCES} launches of {r2} lanes x "
-              f"{scene.n_pad} spheres ({n_real} real); ms and bound: the "
-              f"whole pass",
+              f"{scene.n_pad} spheres ({n_real} real) culled by "
+              f"{ftb.sph.boxes.shape[0]} sphere tiles; ms and bound: the "
+              f"whole pass, the bound over the pairs and boxes tested",
         plain_lanes=n_sl, ms_same_lanes=slice_ms["bounce_fwd"][0],
-        same_lanes="sample 0, 5 bounces")
+        same_lanes="sample 0, 5 bounces", culled_launches=k4_launches,
+        bound_every_sphere_ms=k4_bound_all, tile_boxes_tested=k4_boxes,
+        tiles_folded=k4_folded, pairs_tested=k4_pairs,
+        pairs_every_sphere=rays_s * n_real,
+        culled_turns_s_ms=k4_turns[True],
+        host_mask_turns_s_ms=k4_turns[False],
+        unculled_ms_same_lanes=slice_ms["bounce_fwd_unculled"][0],
+        unculled_plain_ms=slice_ms["bounce_fwd_unculled"][1],
+        all_bounces_ms_same_lanes=k4_sl_ms[0],
+        all_bounces_plain_ms=k4_sl_ms[1])
     kernels["bounce_replay"] = dict(
         name="bounce_replay", route="cuda",
         source="tpu_ray_torch/csrc/bounce.cu",
@@ -2585,17 +2717,20 @@ def main() -> int:
 
     # 22. K8 and the triangle modes of K5 and K6 at the triangle
     # per-sample route's own inputs: trimesh's main camera, sample 0 at
-    # full width, bounce after bounce (launches not counted). On 1 lane
-    # in 32 of each bounce's input state K8 is bit-equal to its plain
+    # full width, bounce after bounce (launches not counted). On every
+    # 32nd 256-lane block of each bounce's input state (whole blocks, so
+    # each lists as in the whole launch) K8 is bit-equal to its plain
     # version (whose lists come from the plain tri_block_lists at 256-lane
-    # blocks), K5 to K8 and to its plain version; at full width K5
-    # replays K8. K6 at the route's own records, the cotangent of
+    # blocks) and to the whole launch, K5 to K8 and to its plain version;
+    # at full width K5 replays K8, and K8's counters (listed tiles, live
+    # blocks, pairs tested) are read. K6 at the route's own records, the cotangent of
     # sum(color^2) / 2: at full width two launches bit-equal (P = 10,496:
     # the accumulator rows in global memory), and on all lanes and on the
     # slice d_state equal to plain, d_table within 1e-4 of each group's
     # max (sphere rows and triangle rows apart) of the plain f64 sum
     t0 = time.perf_counter()
-    ttb = fused_tables(tscene)
+    ttb = fused_tables(tscene,
+                       origin_bound(default_camera(tscene).position[None]))
     tkw = dict(n_sph=ttb.n_sph, use_sky=tscene.use_sky)
     t_groups = [(f"{part} rows, cols {c.start}-{c.stop - 1}", sl_, c)
                 for part, sl_ in (("sphere", slice(0, ttb.n_sph)),
@@ -2614,23 +2749,27 @@ def main() -> int:
 
     tslice_ms = {"bounce_fwd_list": [0.0, 0.0], "bounce_replay": [0.0, 0.0],
                  "bounce_bwd": [0.0, 0.0]}     # kernel, plain
+    k8s_stats = torch.zeros(3, dtype=torch.int64, device=dev)
     st = init_state(*camera_rays(tracer_t.camera, MAIN_W, MAIN_H, px_all, 0,
                                  SEED))
     states, idxs = [], []
     for b in range(MAX_BOUNCES):
         out_k, idx_k = bounce_fwd_list(st, ttb.table, ttb.tri, ttb.boxes, b,
-                                       **tkw)
+                                       stats=k8s_stats, **tkw)
         rep = bounce_replay(st, ttb.table, idx_k, b, **tkw)
         require(bits_equal(torch, rep, out_k),
                 f"K5 triangle mode, bounce {b}: not K8's state bit for bit")
-        sl = st[:, cols].contiguous()
+        sl = st[:, bcols].contiguous()
         (out_s, idx_s), ms_k = timed(torch, lambda: bounce_fwd_list(
             sl, ttb.table, ttb.tri, ttb.boxes, b, **tkw))
         (out_p, idx_p), ms_p = timed(torch, lambda: bounce_fwd_list_plain(
             sl, ttb.table, ttb.tri, ttb.boxes, b, **tkw))
         require(torch.equal(idx_s, idx_p) and bits_equal(torch, out_s, out_p),
-                f"K8 bounce {b}: the slice differs from plain on "
+                f"K8 bounce {b}: the block slice differs from plain on "
                 f"{int((idx_s != idx_p).sum())} winners")
+        require(torch.equal(idx_s, idx_k[bcols])
+                and bits_equal(torch, out_s, out_k[:, bcols].contiguous()),
+                f"K8 bounce {b}: the block slice differs from the launch")
         rep_s, ms_rk = timed(torch, lambda: bounce_replay(
             sl, ttb.table, idx_s, b, **tkw))
         rep_p, ms_rp = timed(torch, lambda: bounce_replay_plain(
@@ -2683,9 +2822,14 @@ def main() -> int:
         tslice_ms["bounce_bwd"][1] += ms_p
         d = d_k
     k6t_parts = build.load().trt_bounce_bwd_parts(px_all.shape[0])
+    k8s_listed, k8s_live, k8s_pairs = k8s_stats.tolist()
+    tsl_lanes = sl.shape[1]
     print(f"K8/K5/K6 triangle modes at the per-sample trimesh route's "
-          f"inputs, sample 0: 1 lane in {SLICE_STRIDE} ({sl.shape[1]} "
-          f"lanes) K8 bit-equal to plain, K5 bit-equal to K8 (and at full "
+          f"inputs, sample 0: 1 256-lane block in {SLICE_STRIDE} "
+          f"({sl.shape[1]} lanes) K8 bit-equal to plain and to the launch, "
+          f"K8's counters over the 5 launches: {k8s_listed} listed tiles "
+          f"over {k8s_live} live blocks x {ttb.boxes.shape[0]} tiles, "
+          f"{k8s_pairs} pairs tested; K5 bit-equal to K8 (and at full "
           f"width); K6 ({k6t_parts} blocks, {ttb.table.shape[0]} table "
           f"rows) two launches bit-equal, d_state equal to plain on all "
           f"lanes and the slice, d_table within 1e-4 (max |d| {k6t_err}); "
@@ -2747,6 +2891,8 @@ def main() -> int:
     tab_bytes_t = ttb.table.numel() * 4
     folds = live_blocks = alive_all = alive_sl = 0
     tri_flops_sl, k8_ev_ms = 0, 0.0
+    k8_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    k8_exits = []                    # (alive lanes of the slice, exit mix)
     twork = {n: [0.0, 0.0, 0] for n in ("bounce_fwd_list", "bounce_replay",
                                         "bounce_bwd")}  # flops, bytes, n
     with torch.no_grad():
@@ -2765,12 +2911,15 @@ def main() -> int:
                 folds += int(cnt[blk].sum())
                 live_blocks += int(blk.sum())
                 a_sl = alive[lanes_sl]
-                f, _ = mt_work(torch, ttb.tri, st[0:3, lanes_sl][:, a_sl].T,
-                               st[3:6, lanes_sl][:, a_sl].T,
-                               reach[lanes_sl[a_sl] // BLOCK_R])
+                f, sh = mt_work(torch, ttb.tri, st[0:3, lanes_sl][:, a_sl].T,
+                                st[3:6, lanes_sl][:, a_sl].T,
+                                reach[lanes_sl[a_sl] // BLOCK_R])
                 tri_flops_sl += f
+                k8_exits.append((int(a_sl.sum()), sh))
                 alive_sl += int(a_sl.sum())
                 alive_all += int(alive.sum())
+                bounce_fwd_list(st, ttb.table, ttb.tri, ttb.boxes, b,
+                                stats=k8_stats, **tkw)
                 (st, idx), ms = timed(torch, lambda: bounce_fwd_list(
                     st, ttb.table, ttb.tri, ttb.boxes, b, **tkw))
                 k8_ev_ms += ms
@@ -2793,9 +2942,22 @@ def main() -> int:
             f"rays, the route {rays_ts}")
     del st, idx, cnt, lst, reach
     pass_rate = folds / max(live_blocks * n_tiles_t, 1)
-    k8_flops = (alive_all * n_sph_real * FLOPS_PER_PAIR
-                + tri_flops_sl * alive_all / max(alive_sl, 1))
-    twork["bounce_fwd_list"][0] = k8_flops
+    k8_listed, k8_live, k8_pairs = k8_stats.tolist()
+    require((k8_listed, k8_live) == (folds, live_blocks),
+            f"K8's counters list {k8_listed} tiles over {k8_live} live "
+            f"blocks, the plain lists {folds} over {live_blocks}")
+    # the bound over the pairs K8's front-to-back fold tested (its
+    # counters), each priced by the listed pairs' exit mix; beside it the
+    # bound over every listed pair and over every triangle (the regen
+    # route's rays of phase 18, the same rays, every triangle's exit mix)
+    k8_mix = {k: sum(n * sh.get(k, 0.0) for n, sh in k8_exits)
+              / max(alive_sl, 1) for k in ("det", "u", "whole")}
+    sph_flops_ts = alive_all * n_sph_real * FLOPS_PER_PAIR
+    k8_flops = sph_flops_ts + tri_flops_sl * alive_all / max(alive_sl, 1)
+    k8_tested_flops = sph_flops_ts + k8_pairs * pair_flops(k8_mix)
+    k8_every_flops = sph_flops_ts + alive_all * slice_all_flops / slice_rays
+    twork["bounce_fwd_list"][0] = k8_tested_flops
+    twork_bytes_fwd = twork["bounce_fwd_list"][1]
     twork = {n: (int(w[2]),) + bound(float(w[0]), float(w[1]))
              for n, w in twork.items()}
     before = counts()
@@ -2809,13 +2971,20 @@ def main() -> int:
     require(k8_ms > 0, "torch.profiler recorded no K8 device time")
     tfwd_idle = 1.0 - busy / 1e3 / tfwd_prof_secs
     k8_bound = twork["bounce_fwd_list"][1:]
+    k8_bytes = twork_bytes_fwd
+    k8_bound_listed = bound(k8_flops, k8_bytes)[0]
+    k8_bound_every = bound(k8_every_flops, k8_bytes)[0]
     print(f"K8 over the per-sample trimesh pass: {k8_launches} launches, "
           f"{k8_ev_ms:.3f} ms by CUDA events, {k8_ms:.3f} ms under "
-          f"torch.profiler (bound {k8_bound[0]:.3f} ms by {k8_bound[1]}: "
-          f"{alive_all} alive lane-bounces x {n_sph_real} real spheres, "
-          f"{tri_flops_sl * alive_all / max(alive_sl, 1):.6e} triangle "
-          f"flops); list pass rate {pass_rate:.4f} ({folds} tile folds over "
-          f"{live_blocks} live block-bounces x {n_tiles_t} tiles); "
+          f"torch.profiler (bound {k8_bound[0]:.3f} ms by {k8_bound[1]} "
+          f"over the {k8_pairs} pairs tested and {alive_all} alive "
+          f"lane-bounces x {n_sph_real} real spheres; "
+          f"{k8_bound_listed:.3f} ms over the "
+          f"{tri_flops_sl * alive_all / max(alive_sl, 1):.6e} flops of the "
+          f"listed pairs, {k8_bound_every:.3f} ms over every triangle); "
+          f"list pass rate {pass_rate:.4f} ({folds} tile folds over "
+          f"{live_blocks} live block-bounces x {n_tiles_t} tiles, the "
+          f"kernel's counters the same); "
           f"profiled pass {tfwd_prof_secs:.3f} s wall, device busy "
           f"{busy:.3f} ms (idle share {tfwd_idle:.3f})", flush=True)
     phase("tri_sample_forward", t0)
@@ -2893,6 +3062,161 @@ def main() -> int:
                       for n, v in tstep_tot.items()), flush=True)
     phase("tri_sample_fwd_bwd", t0)
 
+    # 24b. the per-sample route on trimesh with tri_list=False, as a caller
+    # names it (make_fused_sample(..., tri_list=False), the JAX package's
+    # streamed sweep; the CLI has no flag for it): 1920x1080, 2 spp through
+    # K4's triangle mode (the spheres culled by their tiles, then every
+    # triangle), two calls timed and one under torch.profiler; its image
+    # against the listed route's (make_fused_sample's default, the same
+    # pixels), at most 20 pixels apart (a list may skip a grazing hit);
+    # K4's triangle mode on 1 lane in 32 of sample 0's every bounce
+    # against its plain version and the whole launch; its bound over the
+    # pairs an exact culled search tests on these rays: the sphere pairs
+    # and boxes its own culled search tested (its counters) and the
+    # triangle pairs K8's front-to-back fold tests on the same input
+    # states (K8's counters; the same winners), priced by the exit mix of
+    # phase 22's listed pairs; beside it the bound over every real
+    # triangle's pairs, priced by every triangle's exit mix on the regen
+    # route's rays (phase 18: the same rays)
+    t0 = time.perf_counter()
+    ttb_s = fused_tables(tscene,
+                         origin_bound(tracer_ts.camera.position[None]))
+    tkw4 = dict(use_sky=tscene.use_sky, tri=ttb_s.tri, n_sph=ttb_s.n_sph,
+                sph=ttb_s.sph)
+
+    def tri_sample_pass(tri_list):
+        fn = make_fused_sample(MAIN_W, MAIN_H, SEED, MAX_BOUNCES,
+                               tri_list=tri_list)
+        col = torch.zeros((px_all.shape[0], 3), device=dev)
+        n = 0
+        with torch.no_grad():
+            for s_ in range(TRI_SPP):
+                c, rc = fn(tscene, tracer_ts.camera, px_all, s_, ttb_s)
+                col = col + c
+                n = n + rc.sum()
+        return col, int(n)
+
+    sweep_secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_counts()
+        t_main = time.perf_counter()
+        col_off, rays_off = tri_sample_pass(False)
+        torch.cuda.synchronize()
+        sweep_secs.append(time.perf_counter() - t_main)
+        k4t_launches = bounce_fwd.tri_launches
+        require(k4t_launches == TRI_SPP * MAX_BOUNCES
+                and bounce_fwd.culled_launches == k4t_launches
+                and sum(counts().values()) == k4t_launches,
+                f"the tri_list=False pass launched {counts()}, "
+                f"{k4t_launches} in K4's triangle mode")
+    col_on, rays_on = tri_sample_pass(True)
+    n_px_off = int((col_off != col_on).any(-1).sum())
+    max_px_off = (col_off - col_on).abs().max().item()
+    require(bool(torch.isfinite(col_off).all())
+            and col_off.mean().item() > 0.01,
+            "the tri_list=False image is not finite and non-black")
+    require(n_px_off <= 20, f"the tri_list=False image differs from the "
+            f"listed route's on {n_px_off} pixels (max {max_px_off}), rays "
+            f"{rays_off} vs {rays_on}")
+    before = counts()
+    (col_pp, _), sweep_prof_secs, by_key, busy = profiled(
+        torch, lambda: tri_sample_pass(False))
+    require(counts()["bounce_fwd"] - before["bounce_fwd"]
+            == TRI_SPP * MAX_BOUNCES, "the profiled tri_list=False pass "
+            "launched K4 another number of times")
+    require(bits_equal(torch, col_pp, col_off),
+            "the profiled tri_list=False pass differs")
+    k4t_keys = [k for k in by_key if "bounce_fwd_kernel" in k]
+    require(k4t_keys and all("<true>" in k for k in k4t_keys),
+            f"the profiled pass's K4 was not the triangle mode: {k4t_keys}")
+    k4t_ms = kernel_ms(by_key, BOUNCE_KERNELS["bounce_fwd"])
+    require(k4t_ms > 0, "torch.profiler recorded no K4 triangle-mode time")
+    sweep_idle = 1.0 - busy / 1e3 / sweep_prof_secs
+    k4t_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    k4t_k8_stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    k4t_sl_ms = [0.0, 0.0]           # kernel, plain on the slices
+    alive_k4t = k4t_k8_diff = 0
+    with torch.no_grad():
+        for k in range(TRI_SPP):
+            st = init_state(*camera_rays(tracer_ts.camera, MAIN_W, MAIN_H,
+                                         px_all, k, SEED))
+            for b in range(MAX_BOUNCES):
+                alive_k4t += int((st[12] > 0.5).sum())
+                sl = st[:, cols].contiguous()
+                _, idx_k8 = bounce_fwd_list(st, ttb.table, ttb.tri,
+                                            ttb.boxes, b, stats=k4t_k8_stats,
+                                            **tkw)
+                st, idx = bounce_fwd(st, ttb_s.table, b, stats=k4t_stats,
+                                     **tkw4)
+                k4t_k8_diff += int((idx_k8 != idx).sum())
+                if k:
+                    continue
+                (out_s, idx_s), ms_k = timed(torch, lambda: bounce_fwd(
+                    sl, ttb_s.table, b, **tkw4))
+                (out_p, idx_p), ms_p = timed(torch, lambda: bounce_fwd_plain(
+                    sl, ttb_s.table, b, **tkw4))
+                require(torch.equal(idx_s, idx_p)
+                        and bits_equal(torch, out_s, out_p),
+                        f"K4 triangle mode, bounce {b}: 1 lane in "
+                        f"{SLICE_STRIDE} differs from plain on "
+                        f"{int((idx_s != idx_p).sum())} winners")
+                require(torch.equal(idx_s, idx[cols])
+                        and bits_equal(torch, out_s,
+                                       st[:, cols].contiguous()),
+                        f"K4 triangle mode, bounce {b}: the slice differs "
+                        f"from the launch")
+                require(bool((idx_s >= ttb_s.n_sph).any()) or b > 0,
+                        "K4's triangle mode found no triangle winner")
+                k4t_sl_ms[0] += ms_k
+                k4t_sl_ms[1] += ms_p
+    require(alive_k4t == rays_off, f"the bounds' bounce loop cast "
+            f"{alive_k4t} rays, the tri_list=False pass {rays_off}")
+    del st, idx, idx_k8, sl, out_s, out_p
+    k4t_boxes, _, k4t_sph_pairs = k4t_stats.tolist()
+    k4t_tri_pairs = k4t_k8_stats.tolist()[2]
+    k4t_sph_flops = k4t_sph_pairs * FLOPS_PER_PAIR + k4t_boxes * FLOPS_PER_BOX
+    k4t_flops = k4t_sph_flops + k4t_tri_pairs * pair_flops(k8_mix)
+    k4t_every_flops = k4t_sph_flops + alive_k4t * slice_all_flops / slice_rays
+    k4t_bytes = (TRI_SPP * MAX_BOUNCES * (2 * BOUNCE_STATE_BYTES + 4) * r2
+                 + ttb_s.table.numel() * 4 + ttb_s.tri.numel() * 4)
+    k4t_bound, k4t_by = bound(k4t_flops, k4t_bytes)
+    k4t_bound_every = bound(k4t_every_flops, k4t_bytes)[0]
+    print(f"per-sample trimesh with tri_list=False (K4's triangle mode): "
+          f"{rays_off} rays in {sweep_secs} s on {card}; {k4t_launches} "
+          f"launches, K4 {k4t_ms:.3f} ms under torch.profiler (bound "
+          f"{k4t_bound:.3f} ms by {k4t_by} over an exact culled search: "
+          f"{k4t_tri_pairs} triangle pairs K8 tests on the same states "
+          f"(its winners differ on {k4t_k8_diff} lane-bounces), "
+          f"{k4t_sph_pairs} sphere pairs and {k4t_boxes} boxes tested; "
+          f"{k4t_bound_every:.3f} ms over every real triangle of "
+          f"{alive_k4t} alive lane-bounces), idle share {sweep_idle:.3f}; "
+          f"against the listed route: rays {rays_off} vs {rays_on}, "
+          f"{n_px_off} pixels differ (max |d| {max_px_off}); 1 lane in "
+          f"{SLICE_STRIDE} of sample 0 bit-equal to plain and the launch, "
+          f"{k4t_sl_ms[0]:.3f} ms kernel / {k4t_sl_ms[1]:.3f} ms plain",
+          flush=True)
+    phase("tri_sample_sweep", t0)
+    kernels["bounce_fwd_tri"] = dict(
+        name="bounce_fwd_tri", route="cuda",
+        source="tpu_ray_torch/csrc/bounce.cu",
+        replaces="tpu_ray/kernels/bounce_step.py:1548",
+        launches=k4t_launches, max_abs_err=0.0, ms=k4t_ms,
+        plain_ms=k4t_sl_ms[1], bound_ms=k4t_bound, bound_by=k4t_by,
+        library_ms=None,
+        path=f"make_fused_sample(tri_list=False) trimesh {MAIN_W}x{MAIN_H} "
+             f"{TRI_SPP} spp",
+        shape=f"{TRI_SPP * MAX_BOUNCES} launches of {r2} lanes x "
+              f"{ttb_s.n_sph} spheres ({n_sph_real} real, culled) and "
+              f"{ttb_s.tri.shape[0]} triangles ({n_tri_real} real), every "
+              f"one swept; ms and bound: the whole pass",
+        plain_lanes=int(px_all[::SLICE_STRIDE].shape[0]),
+        ms_same_lanes=k4t_sl_ms[0], same_lanes="sample 0, 5 bounces",
+        bound_every_triangle_ms=k4t_bound_every,
+        triangle_pairs_culled=k4t_tri_pairs,
+        winners_differing_from_k8=k4t_k8_diff,
+        pixels_differing_from_listed=n_px_off)
+
     path_ts = (f"triangle per-sample: render --scene trimesh fused "
                f"--no-regen {MAIN_W}x{MAIN_H} {TRI_SPP} spp")
     path_tsg = (f"triangle per-sample fwd+bwd: render_mean trimesh fused "
@@ -2910,9 +3234,11 @@ def main() -> int:
               f"{ttb.tri.shape[0]} triangles ({n_tri_real} real) in "
               f"{n_tiles_t} tiles; ms and bound: the whole pass",
         ms_events=k8_ev_ms, list_pass_rate=pass_rate,
-        plain_lanes=sl.shape[1],
+        bound_listed_pairs_ms=k8_bound_listed,
+        bound_every_triangle_ms=k8_bound_every, pairs_tested=k8_pairs,
+        pairs_leaving_at=k8_mix, plain_lanes=tsl_lanes,
         ms_same_lanes=tslice_ms["bounce_fwd_list"][0],
-        same_lanes="sample 0, 5 bounces")
+        same_lanes="sample 0, 5 bounces, every 32nd 256-lane block")
     kernels["bounce_replay_tri"] = dict(
         name="bounce_replay_tri", route="cuda",
         source="tpu_ray_torch/csrc/bounce.cu",
@@ -2922,7 +3248,7 @@ def main() -> int:
         bound_ms=k5t_step[2], bound_by=k5t_step[3], library_ms=None,
         path=path_tsg,
         shape=f"{k5t_step[1]} launches of {r2} lanes; ms and bound: one "
-              f"step", plain_lanes=sl.shape[1],
+              f"step", plain_lanes=tsl_lanes,
         ms_same_lanes=tslice_ms["bounce_replay"][0],
         same_lanes="sample 0, 4 bounces")
     kernels["bounce_bwd_tri"] = dict(
@@ -2935,7 +3261,7 @@ def main() -> int:
         path=path_tsg,
         shape=f"{k6t_step[1]} launches of {r2} lanes, {ttb.table.shape[0]} "
               f"table rows; ms and bound: one step",
-        plain_lanes=sl.shape[1], ms_same_lanes=tslice_ms["bounce_bwd"][0],
+        plain_lanes=tsl_lanes, ms_same_lanes=tslice_ms["bounce_bwd"][0],
         same_lanes="sample 0, 5 bounces",
         k8_ms_in_step=tstep_tot["bounce_fwd_list"][0])
 
@@ -2968,6 +3294,8 @@ def main() -> int:
         "fwd_bwd_peak_bytes": peak,
         "per_sample": {
             "seconds": fwd_secs, "rays_per_s": [rays_s / t for t in fwd_secs],
+            "k4_turns_s_ms": {"culled": k4_turns[True],
+                              "host_mask": k4_turns[False]},
             "fwd_bwd_seconds": sample_secs,
             "fwd_bwd_rays_per_s": [rays_sg / t for t in sample_secs],
             "fwd_bwd_peak_bytes": peak_s,
@@ -2991,7 +3319,12 @@ def main() -> int:
                 "fwd_bwd_rays_per_s": [rays_tsg / t for t in tsample_secs],
                 "fwd_bwd_peak_bytes": peak_ts,
                 "device_idle_share": {"forward": tfwd_idle,
-                                      "fwd_bwd": tstep_idle}}},
+                                      "fwd_bwd": tstep_idle},
+                "tri_list_off": {
+                    "rays_cast": rays_off, "seconds": sweep_secs,
+                    "rays_per_s": [rays_off / t for t in sweep_secs],
+                    "pixels_differing_from_listed": n_px_off,
+                    "device_idle_share": sweep_idle}}},
         "estimators": est, "bigmesh": big}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

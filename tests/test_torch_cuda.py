@@ -17,7 +17,7 @@ from tpu_ray_torch.kernels.bounce_step import (
     bounce_bwd, bounce_bwd_plain, bounce_cull_mask, bounce_cull_mask_octant,
     bounce_fwd, bounce_fwd_list, bounce_fwd_list_plain, bounce_fwd_plain,
     bounce_replay, bounce_replay_plain, fused_tables, init_state,
-    morton_perm, permute_spheres, scene_table)
+    morton_perm, origin_bound, permute_spheres, scene_table)
 from tpu_ray_torch.kernels.regen import (nearest_sphere_culled, regen_bwd,
                                          regen_bwd_info, regen_bwd_plain,
                                          regen_record, regen_steps,
@@ -189,6 +189,107 @@ def test_k5_replays_k4_on_card(cuda_device):
         torch.cuda.synchronize()
         assert torch.equal(_bits(rep), _bits(out))
         assert torch.equal(_bits(rep), _bits(want))
+
+
+def _k4_chain(dev, w, h, name, sparse):
+    """A scene's per-sample tables (with the sphere tiles) and the input
+    states of 5 bounces of its route's plain K4 (the culled search, and on
+    trimesh the triangle mode) from a tile-ordered camera wavefront;
+    sparse: only the lanes i % 32 < 3 alive at the start, a few a warp."""
+    ts = make_scene(name, device=dev)
+    px = torch.as_tensor(tile_order(w, h)[0], device=dev)
+    o, d, base = camera_rays(default_camera(ts), w, h, px, 0, 0)
+    tb = fused_tables(ts, origin_bound(o))
+    st = init_state(o, d, base)
+    if sparse:
+        st[12] = (torch.arange(w * h, device=dev) % 32 < 3).float()
+    states = []
+    for b in range(5):
+        states.append(st)
+        st, _ = bounce_fwd_plain(st, tb.table, b, use_sky=True, tri=tb.tri,
+                                 n_sph=tb.n_sph, sph=tb.sph)
+    return tb, states
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,sparse", [(64, 48, False), (100, 37, True)])
+def test_k4_culled_matches_plain_on_card(cuda_device, w, h, sparse):
+    """K4's culled sphere search on rtweekend, on all lanes, bit-equal to
+    its plain version and to the kernel's fold over every sphere, its
+    counters the plain mirror's; at 100x37 the last block is ragged and a
+    few lanes a warp are alive (the warp shares their tiles' folds)."""
+    tb, states = _k4_chain(cuda_device, w, h, "rtweekend", sparse)
+    for b, st in enumerate(states):
+        stats = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+        mirror = torch.zeros_like(stats)
+        n0 = (bounce_fwd.culled_launches, bounce_fwd.tri_launches)
+        got = bounce_fwd(st, tb.table, b, use_sky=True, sph=tb.sph,
+                         stats=stats)
+        full = bounce_fwd(st, tb.table, b, use_sky=True)
+        want = bounce_fwd_plain(st, tb.table, b, use_sky=True, sph=tb.sph,
+                                stats=mirror)
+        torch.cuda.synchronize()
+        assert (bounce_fwd.culled_launches - n0[0],
+                bounce_fwd.tri_launches - n0[1]) == (1, 0)
+        for x in (got, full):
+            assert torch.equal(x[1], want[1])
+            assert torch.equal(_bits(x[0]), _bits(want[0]))
+        assert torch.equal(stats, mirror)
+        alive = int((st[12] > 0.5).sum())
+        assert 0 < stats[2] < alive * tb.table.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,sparse", [(64, 48, False), (100, 37, True)])
+def test_k4_tri_mode_matches_plain_on_card(cuda_device, w, h, sparse):
+    """K4's triangle mode on trimesh, on all lanes, with the spheres
+    culled and whole, bit-equal to its plain version (winners, triangle
+    ones among them, and state), counted as triangle launches, and equal
+    to K8's plain version (the block lists) on these states."""
+    tb, states = _k4_chain(cuda_device, w, h, "trimesh", sparse)
+    kw = dict(use_sky=True, tri=tb.tri, n_sph=tb.n_sph)
+    wins = []
+    for b, st in enumerate(states):
+        n0 = bounce_fwd.tri_launches
+        got = bounce_fwd(st, tb.table, b, sph=tb.sph, **kw)
+        whole = bounce_fwd(st, tb.table, b, **kw)
+        want = bounce_fwd_plain(st, tb.table, b, sph=tb.sph, **kw)
+        listed = bounce_fwd_list_plain(st, tb.table, tb.tri, tb.boxes, b,
+                                       n_sph=tb.n_sph, use_sky=True)
+        torch.cuda.synchronize()
+        assert bounce_fwd.tri_launches - n0 == 2
+        for x in (got, whole, listed):
+            assert torch.equal(x[1], want[1])
+            assert torch.equal(_bits(x[0]), _bits(want[0]))
+        wins.append(want[1])
+    assert (torch.stack(wins) >= tb.n_sph).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,sparse", [(64, 48, False), (100, 37, True)])
+def test_k8_ordered_fold_matches_plain_on_card(cuda_device, w, h, sparse):
+    """K8's front-to-back fold on trimesh bit-equal to its plain version
+    (the ascending fold of the block's listed tiles), on all lanes, at
+    64x48 and at a ragged 100x37 with a few lanes a warp alive; its
+    counters count listed tiles, live blocks and tested pairs within
+    their bounds."""
+    tb, states = _k4_chain(cuda_device, w, h, "trimesh", sparse)
+    kw = dict(n_sph=tb.n_sph, use_sky=True)
+    n_blocks, n_tiles = -(-w * h // 256), tb.boxes.shape[0]
+    for b, st in enumerate(states):
+        stats = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+        out, idx = bounce_fwd_list(st, tb.table, tb.tri, tb.boxes, b,
+                                   stats=stats, **kw)
+        want, want_idx = bounce_fwd_list_plain(st, tb.table, tb.tri,
+                                               tb.boxes, b, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, want_idx)
+        assert torch.equal(_bits(out), _bits(want))
+        listed, live, pairs = stats.tolist()
+        alive = int((st[12] > 0.5).sum())
+        assert live <= n_blocks and listed <= live * n_tiles
+        assert pairs <= alive * n_tiles * 128
+        assert (alive > 0) == (live > 0)
 
 
 def _check_k6(dev, w, h):
@@ -446,11 +547,18 @@ def test_k2_culled_exact_tie_on_card(cuda_device):
     recs = regen_record(st.clone(), cam, table, 1, 1, sph=sph, **kw)
     _, ref = regen_steps_plain(st.clone(), cam, table, 1, seg=1, **kw)
     want, _ = nearest_sphere_culled(st, table, sph)
+    # K4's culled search, the same fold, on the per-sample state
+    s16 = st[:16].contiguous()
+    k4, k4_idx = bounce_fwd(s16, table, 0, use_sky=True, sph=sph)
+    p4, p4_idx = bounce_fwd_plain(s16, table, 0, use_sky=True, sph=sph)
     torch.cuda.synchronize()
     assert torch.equal(recs.t_end, live.int())
     assert torch.equal(recs.rec[0][live], ref.rec[0][live])
     assert torch.equal(recs.rec[0][live].long(), want[live])
     assert set(want[live].tolist()) == {3, 12}
+    assert torch.equal(k4_idx, p4_idx)
+    assert torch.equal(k4_idx[live].long(), want[live])
+    assert torch.equal(_bits(k4), _bits(p4))
 
 
 @pytest.mark.cuda
@@ -608,10 +716,10 @@ def _tie_soup(dev):
 @pytest.mark.cuda
 def test_exact_tie_across_tiles_on_card(cuda_device):
     """An exact tie in t between two tiles, where the front-to-back order
-    folds the higher id's tile first: K10 and K2's listed mode keep the
-    lowest id, as their plain versions do, with every lane alive (each
-    lane folds the tile itself) and with 4 lanes a warp (the warp shares
-    each lane's fold)."""
+    folds the higher id's tile first: K10, K2's listed mode, K8 and K4's
+    triangle mode (its spheres culled) keep the lowest id, as their plain
+    versions do, with every lane alive (each lane folds the tile itself)
+    and with 4 lanes a warp (the warp shares each lane's fold)."""
     import dataclasses
 
     from tpu_ray_torch.core.scene import SceneBuilder
@@ -642,6 +750,7 @@ def test_exact_tie_across_tiles_on_card(cuda_device):
                      ior=z[:, 0], n_real=3)
     table = prim_table(dataclasses.replace(base, tris=tris))
     n_sph = table.shape[0] - 256
+    sph = sphere_tiles(table[:n_sph])
     st = torch.zeros((24, 512), device=cuda_device)
     st[0:3], st[3:6] = o.T, d.T
     st[6:9] = 1.0
@@ -661,6 +770,18 @@ def test_exact_tie_across_tiles_on_card(cuda_device):
         assert torch.equal(recs.t_end, ref.t_end)
         assert torch.equal(recs.rec[:, on], ref.rec[:, on])
         assert torch.equal(_bits(a), _bits(c))
+        # the per-sample route's kernels on the same rays
+        s16 = st[:16].contiguous()
+        bkw = dict(n_sph=n_sph, use_sky=True)
+        runs = [(bounce_fwd_list(s16, table, tab, boxes, 0, **bkw),
+                 bounce_fwd_list_plain(s16, table, tab, boxes, 0, **bkw)),
+                (bounce_fwd(s16, table, 0, tri=tab, sph=sph, **bkw),
+                 bounce_fwd_plain(s16, table, 0, tri=tab, sph=sph, **bkw))]
+        torch.cuda.synchronize()
+        for (out_k, idx_k), (out_p, idx_p) in runs:
+            assert bool((idx_p[on] == n_sph + 5).all())
+            assert torch.equal(idx_k, idx_p)
+            assert torch.equal(_bits(out_k), _bits(out_p))
 
 
 # ---------------------------------------------------------------------------
@@ -671,7 +792,7 @@ def _tri_fused_chain(dev, w=64, h=48):
     """trimesh's per-sample tables, and the per-bounce input states and
     winners of the plain route from a tile-ordered camera wavefront."""
     ts = make_scene("trimesh", device=dev)
-    tb = fused_tables(ts)
+    tb = fused_tables(ts, origin_bound(default_camera(ts).position[None]))
     px = torch.as_tensor(tile_order(w, h)[0], device=dev)
     st = init_state(*camera_rays(default_camera(ts), w, h, px, 0, 0))
     states, idxs = [], []

@@ -27,11 +27,13 @@ from tpu_ray_torch.core.scene import make_scene, trainable_scene
 from tpu_ray_torch.kernels.bounce_step import (
     bounce_bwd, bounce_bwd_plain, bounce_cull_mask, bounce_fwd,
     bounce_fwd_plain, bounce_replay, bounce_replay_plain, cull_mask,
-    fused_tables, init_state, make_fused_sample, morton_perm,
-    permute_spheres, ray_block_bounds, scene_table, trace_rays_fused)
+    fused_tables, init_state, make_fused_sample, morton_perm, origin_bound,
+    permute_scene, permute_spheres, ray_block_bounds, scene_table,
+    tile_bounds, trace_rays_fused)
 from tpu_ray_torch.models.path_tracer import render_pass, tile_order, \
     trace_rays
 from tpu_ray_torch.ops.raygen import camera_rays
+from test_torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
@@ -109,8 +111,9 @@ def test_trace_rays_fused_matches_trace_rays(scenes):
 
 def test_grad_forward_equals_forward_only(scenes):
     """Under autograd the sample renders the forward-only image, and its
-    saved records are the int16 winner ids K4 returned, bounce by bounce
-    (primary bounce culled, the others not)."""
+    saved records are the int16 winner ids K4 returned, bounce by bounce:
+    those of the plain fold with the host's primary cull mask (the
+    primary bounce culled, the others not)."""
     s, cam = scenes["rtweekend"]
     px = torch.as_tensor(tile_order(W, H)[0])
     sample = make_fused_sample(W, H, 0, MB)
@@ -121,10 +124,11 @@ def test_grad_forward_equals_forward_only(scenes):
     assert torch.equal(c0, c1.detach()) and torch.equal(r0, r1)
     stack = c1.grad_fn.saved_tensors[4]
     assert stack.dtype == torch.int16 and stack.shape == (MB, W * H)
-    tb = fused_tables(s)
+    tb = fused_tables(s, origin_bound(cam.position[None]))
+    lo, hi = tile_bounds(permute_scene(s))
     st = init_state(*camera_rays(cam, W, H, px, 2, 0))
     for b in range(MB):
-        mask = (cull_mask(*ray_block_bounds(st), tb.lo, tb.hi) if b == 0
+        mask = (cull_mask(*ray_block_bounds(st), lo, hi) if b == 0
                 else None)
         st, idx = bounce_fwd_plain(st, tb.table, b, mask, use_sky=True)
         assert torch.equal(stack[b], idx.to(torch.int16))

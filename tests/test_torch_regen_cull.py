@@ -38,18 +38,9 @@ from tpu_ray_torch.kernels.regen import (SPH_GROUP, SPH_PAD, SPH_TILE,
 from tpu_ray_torch.kernels.bounce_step import nearest_prim
 from tpu_ray_torch.models.path_tracer import tile_order
 from tpu_ray_torch.ops.intersect import nearest_hit
+from test_torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 W, H, SPP, MB = 32, 16, 2, 5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These tensors are small (512 lanes): one intra-op thread a worker
-    keeps several test workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup(name):

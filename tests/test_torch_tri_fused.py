@@ -49,12 +49,13 @@ from tpu_ray_torch.core.scene import make_scene, make_trimesh_scene
 from tpu_ray_torch.kernels.bounce_step import (
     TRI_BLOCK_M, bounce_bwd, bounce_bwd_plain, bounce_fwd_list,
     bounce_fwd_list_plain, bounce_replay, bounce_replay_plain, fused_tables,
-    init_state, permute_scene, tri_block_lists, tri_tile_bounds,
-    tri_tile_boxes)
+    init_state, origin_bound, permute_scene, tri_block_lists,
+    tri_tile_bounds, tri_tile_boxes)
 from tpu_ray_torch.models.path_tracer import render_pass, tile_order
 from tpu_ray_torch.ops.intersect import nearest_hit
 from tpu_ray_torch.ops.intersect_tri import nearest_hit_tri
 from tpu_ray_torch.ops.raygen import camera_rays
+from test_torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
@@ -71,6 +72,11 @@ def _scenes(name):
                 make_trimesh_scene(subdivisions=2, device="cpu"))
     full = f"obj:{OBJ}" if name == "objico" else name
     return jmake_scene(full), make_scene(full, device="cpu")
+
+
+def _cam_bound(ts):
+    """fused_tables' origin bound: the default camera's |position|_inf."""
+    return origin_bound(default_camera(ts).position[None])
 
 
 @pytest.fixture(scope="module")
@@ -94,9 +100,10 @@ def jax_chain():
                 tb["t48"], tb["stab_full"], st, jnp.int32(b), tb["tri_full"],
                 lists, use_sky=js.use_sky, exact_argmin=True)
             idxs.append(np.asarray(idx)[:r])
+        ts = _scenes(name)[1]
         out[name] = dict(js=js, tb=tb, r=r, states=states, idxs=idxs,
                          final=np.asarray(st)[:, :r], use_sky=js.use_sky,
-                         ftb=fused_tables(_scenes(name)[1]))
+                         ftb=fused_tables(ts, _cam_bound(ts)))
     return out
 
 
@@ -111,7 +118,8 @@ def test_tri_tile_boxes_match_jax(name):
     assert boxes.shape == (tt.n_pad // TRI_BLOCK_M, 6)
     np.testing.assert_array_equal(boxes.numpy(),
                                   np.asarray(J.tri_tile_boxes(jt)))
-    np.testing.assert_array_equal(fused_tables(ts).boxes.numpy(),
+    np.testing.assert_array_equal(fused_tables(ts, _cam_bound(ts)).boxes
+                                  .numpy(),
                                   boxes.numpy())
 
 
@@ -121,7 +129,7 @@ def trimesh_states():
     of a 128x64 tile-ordered wavefront (8 blocks of JAX's 1024 lanes),
     bounced by the port's plain K8."""
     ts = make_scene("trimesh", device="cpu")
-    tb = fused_tables(ts)
+    tb = fused_tables(ts, _cam_bound(ts))
     px = torch.as_tensor(tile_order(128, 64)[0])
     st0 = init_state(*camera_rays(default_camera(ts), 128, 64, px, 0, 0))
     st1, _ = bounce_fwd_list_plain(st0, tb.table, tb.tri, tb.boxes, 0,

@@ -38,7 +38,8 @@ from tpu_ray_torch.core.trimesh import TRI_LEAVES
 from tpu_ray_torch.grad import image_mse, make_train_step, render_mean
 from tpu_ray_torch.kernels.bounce_step import (
     bounce_bwd, bounce_bwd_plain, bounce_fwd_list_plain, bounce_replay,
-    bounce_replay_plain, fused_tables, init_state, make_fused_sample)
+    bounce_replay_plain, fused_tables, init_state, make_fused_sample,
+    origin_bound)
 from tpu_ray_torch.models.path_tracer import render_pixels, tile_order
 from tpu_ray_torch.ops.raygen import camera_rays
 
@@ -149,7 +150,7 @@ def test_k6_tri_plain_matches_autograd(bounces):
     0-11 and d_table within 3e-5 of each group's max, triangle rows
     reached."""
     ts = make_scene("trimesh", device="cpu")
-    tb = fused_tables(ts)
+    tb = fused_tables(ts, origin_bound(default_camera(ts).position[None]))
     kw = dict(n_sph=tb.n_sph, use_sky=True)
     px = torch.as_tensor(tile_order(32, 16)[0])
     st = init_state(*camera_rays(default_camera(ts), 32, 16, px, 0, 0))

@@ -56,8 +56,9 @@ def _add_common(ap: argparse.ArgumentParser):
                     help="accepted for the JAX command lines; the port's "
                          "search is always exact")
     ap.add_argument("--cull-secondary", action="store_true",
-                    help="fused backend without regen: octant-split tile "
-                         "culling on bounces 1.. (bit-identical)")
+                    help="accepted for the JAX command lines (its "
+                         "octant-split culling of bounces 1..); the port "
+                         "culls every bounce in K4, bit-identically")
     ap.add_argument("--regen", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="fused backend: persistent-wavefront sample "

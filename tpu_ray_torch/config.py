@@ -40,9 +40,9 @@ class RenderConfig:
     exact_srgb: bool = False          # the reference ships the sqrt curve
     exact_argmin: bool = False        # accepted; the port's search is exact
     regen: bool = False               # fused backend: persistent wavefront
-    cull_secondary: bool = False      # fused without regen: octant-split
-                                      # tile culling on bounces 1..
-                                      # (bit-identical)
+    cull_secondary: bool = False      # accepted (JAX's octant-split
+                                      # culling of bounces 1..); K4 culls
+                                      # every bounce (bit-identical)
 
     def __post_init__(self):
         if self.backend not in BACKENDS:

@@ -11,52 +11,67 @@
 // keyed by bterm = b * TRT_MIX_BOUNCE.
 //
 // K4 bounce_fwd replaces tpu_ray/kernels/bounce_step.py::bounce_fwd
-// (_fwd_kernel, pallas_call at :1548): the nearest-hit search, optionally
-// culled by a conservative (ray block x sphere tile) mask, then the
+// (_fwd_kernel, pallas_call at :1548): the nearest-hit search, then the
 // shading (shade.cuh trt_shade, K2's own). -> the new state and the
 // winner id (-1 on a miss or a dead lane). Plain version:
-// bounce_fwd_plain.
-//   Bound on the H100: fp32 ALU. Each alive lane tests every sphere of
-//   every tile its block's mask row keeps (~20 flops a pair, 482 real
-//   spheres on rtweekend) against 128 B of state in and out.
-//   Design: one thread per lane, the block's 256 lanes are the mask's ray
-//   block, so a culled tile is skipped by the whole block at once. The
-//   sphere (centre, radius) table sits in shared memory (16 B a sphere)
-//   and every thread reads the same sphere at once, a broadcast; the
-//   winner's materials come from the [n,12] table in global memory
-//   through L1. A dead lane skips the search and copies its state, so a
-//   warp whose lanes are all dead costs one load and one store. The TPU
-//   kernel's (ray block x tile) grid, bf16x6 search tables, packed
+// bounce_fwd_plain. Three ways to search the spheres, named by the
+// caller: the route's culled search (the sphere tiles of
+// kernels/regen.py sphere_tiles), a conservative (ray block x sphere
+// tile) mask, or every sphere. Its triangle mode (a triangle table, the
+// JAX kernel's tri_tab) then folds every triangle in ascending id with
+// strict < (ids offset by n_sph), as K2's triangle sweep does, and shades
+// a triangle winner with the triangle branch.
+//   Bound on the H100: fp32 ALU in the search (~20 flops a sphere pair
+//   and a tile box, 14-46 a triangle pair) against 132 B of state and id
+//   a lane. Culled, a lane-bounce of rtweekend tests ~40 sphere pairs
+//   and ~18 boxes, where every sphere is 482 pairs: the floor is then the
+//   state's bytes.
+//   Design: one thread per lane, 256-lane blocks. The sphere (centre,
+//   radius) table sits in shared memory (16 B a sphere), and with it the
+//   sphere tiles' boxes, group boxes and starts. The culled search is
+//   K2's (common.cuh trt_fold_sph_tiles): a lane folds a 16-sphere tile
+//   only where its ray enters the tile's inflated box (and its group's) at
+//   no more than its best so far, in ascending order with strict <, so the
+//   winner is the full fold's bit for bit; a tile that few lanes of a warp
+//   need is folded by the warp. The lanes of a warp stay together for its
+//   shuffles: a dead lane, or one past r, stays in the fold inactive, and
+//   a warp with no alive lane skips it. The masked and full searches fold
+//   the broadcast spheres one by one (the mask's 128-sphere tiles skipped
+//   by the whole block). The triangle table (36 B a triangle) is read
+//   through L1/L2, the lanes of a warp reading the same triangle at once.
+//   The winner's materials come from the [n,12] table in global memory.
+//   The TPU kernel's (ray block x tile) grid, bf16x6 search tables, packed
 //   argmin and one-hot MXU gather are not carried over.
 //
 // K8 bounce_fwd_list replaces bounce_fwd_list (_fwd_list_kernel,
 // pallas_call at :1824), with exact_argmin: one bounce of a triangle
 // scene. Each alive lane folds every sphere, then the triangles of the
-// tiles its block can reach, in ascending tile id with strict < (ids
-// offset by n_sph), then shades with the triangle branch on triangle
-// winners. Plain version: bounce_fwd_list_plain.
+// tiles its block can reach (ids offset by n_sph), then shades with the
+// triangle branch on triangle winners. Plain version:
+// bounce_fwd_list_plain.
 //   Bound on the H100: fp32 ALU. Real sphere pairs x 20 flops plus each
-//   listed ray-triangle pair charged by the stage at which it leaves
-//   trt_tri_hit (14, 24 or 46 flops), against 128 B of state a lane.
-//   Design: one thread per lane, 256-lane blocks. The block builds its
-//   own list in the launch: each alive lane slab-tests its ray against
-//   the T inflated tile boxes (staged in shared memory) in the op order
-//   of bounce_step.tri_block_lists, warp votes OR the lanes into bit
-//   words, and a popc prefix compacts the reached ids in ascending order
-//   (common.cuh trt_block_list): the JAX package's
-//   tri_block_lists at block_r = 256, group 1, with no [B, T] list in
-//   HBM, no second launch and no host sync. The whole block then folds
-//   the same tile, so each listed tile (block_m triangles, 4.6 KB) is
-//   staged into shared memory by all threads and every thread reads the
-//   same triangle at once, a broadcast (as K7). Staging, not reads
-//   through L1, where a warp's 32 lanes each load the same 36 B per
-//   triangle with L1's hit latency in the fold's dependency chain: on an
-//   H100 80GB HBM3 at 700 W, K8 took 213-214 ms a trimesh pass staged
-//   and 227 ms reading through L1 (chip_smoke.py). A block with no alive
-//   lane builds no list and writes its state back with idx -1
-//   (block_alive in the TPU kernel).
-//   The TPU kernel's SMEM list table, list_group, bf16 split tables and
-//   packed argmin are not carried over.
+//   ray-triangle pair tested charged by the stage at which it leaves
+//   trt_tri_hit (14, 24 or 46 flops), against 132 B of state a lane.
+//   Design: K2's listed fold (regen.cu regen_list_kernel) for one bounce.
+//   One thread per lane, 256-lane blocks; the tile boxes (24 B a tile)
+//   and their 32-tile group boxes sit in shared memory. The block lists
+//   the tiles its alive lanes' rays reach and sorts them by the least
+//   entry distance (common.cuh trt_block_list_ordered: tri_block_lists at
+//   block_r = 256, group 1, ordered front to back, with no [B, T] list in
+//   HBM and no host sync). It then walks them front to back
+//   (trt_fold_tiles_ordered): a tile is staged into shared memory only
+//   when a lane's ray enters its box before that lane's best hit, a tile
+//   that few lanes of a warp need is tested by the whole warp for each of
+//   them in turn, the walk stops once no lane's best reaches the next
+//   tile, and the winner is compared by (t, id), so an exact tie keeps the
+//   lowest id as the ascending fold does. The block's threads run
+//   together: every barrier and vote is reached by all of them, a dead
+//   lane or one past r staying inactive. A block with no alive lane
+//   builds no list and writes its state back with idx -1 (block_alive in
+//   the TPU kernel). A lane folds ~10% of its block's listed pairs this
+//   way; the ascending fold of every listed tile for every lane was 5.9x
+//   slower on an H100 (PERF.md). The TPU kernel's SMEM list table,
+//   list_group, bf16 split tables and packed argmin are not carried over.
 //
 // K5 bounce_replay replaces bounce_replay (_replay_kernel, pallas_call at
 // :1871): the same shading from a saved winner id, no search. Given K4's
@@ -138,62 +153,131 @@ __device__ __forceinline__ void store_lane(float* st, size_t r, size_t i,
 #undef ROW
 }
 
+// The sphere tiles of K4's culled search (kernels/regen.py sphere_tiles;
+// boxes nullptr: none): tile t holds spheres [starts[t], starts[t + 1])
+// with the inflated box boxes[6 t .. 6 t + 6), group g the tiles
+// [gstarts[g], gstarts[g + 1]) with the union of their boxes.
+struct TrtSphTiles {
+  const float* boxes;
+  const int* starts;
+  int n_tiles;
+  const float* gboxes;
+  const int* gstarts;
+  int n_groups;
+  float o_lim;
+};
+
 // mask: nullptr, or [gridDim.x, n_tiles] i32 (nonzero = search the tile);
-// tile t holds spheres [t * block_n, min((t + 1) * block_n, n)).
-__global__ void bounce_fwd_kernel(const float* __restrict__ st,
-                                  float* __restrict__ out, int r,
-                                  const float* __restrict__ table, int n,
-                                  uint32_t bterm, const int* __restrict__ mask,
-                                  int n_tiles, int block_n, int use_sky,
-                                  int* __restrict__ idx_out) {
+// tile t holds spheres [t * block_n, min((t + 1) * block_n, n_sph)). sp:
+// the culled search's tiles (not with a mask). TRI: the triangle mode,
+// tri [m, 9] v0|e1|e2 with ids n_sph + j. stats (nullptr, or 3 u64 added
+// to, with sp): boxes tested (groups and tiles), tiles folded, ray-sphere
+// pairs tested over the alive lanes. Dynamic shared memory: n_sph spheres
+// (float4), then with sp the tile and group boxes (6 floats each) and
+// starts (n_tiles + 1 and n_groups + 1 ints).
+template <bool TRI>
+__global__ void __launch_bounds__(TRT_BOUNCE_THREADS)
+bounce_fwd_kernel(const float* __restrict__ st, float* __restrict__ out,
+                  int r, const float* __restrict__ table, int n_sph,
+                  uint32_t bterm, const int* __restrict__ mask, int n_tiles,
+                  int block_n, TrtSphTiles sp, const float* __restrict__ tri,
+                  int m, int use_sky, int* __restrict__ idx_out,
+                  unsigned long long* __restrict__ stats) {
   extern __shared__ float4 sph[];
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+  float* box = reinterpret_cast<float*>(sph + n_sph);
+  float* gbox = box + 6 * sp.n_tiles;
+  int* tst = reinterpret_cast<int*>(gbox + 6 * sp.n_groups);
+  int* gst = tst + sp.n_tiles + 1;
+  for (int k = threadIdx.x; k < n_sph; k += blockDim.x) {
     const float* w = table + 12 * (size_t)k;
     sph[k] = make_float4(w[0], w[1], w[2], w[3]);
   }
+  if (sp.boxes) {
+    for (int k = threadIdx.x; k < 6 * sp.n_tiles; k += blockDim.x) {
+      box[k] = sp.boxes[k];
+    }
+    for (int k = threadIdx.x; k < 6 * sp.n_groups; k += blockDim.x) {
+      gbox[k] = sp.gboxes[k];
+    }
+    for (int k = threadIdx.x; k <= sp.n_tiles; k += blockDim.x) {
+      tst[k] = sp.starts[k];
+    }
+    for (int k = threadIdx.x; k <= sp.n_groups; k += blockDim.x) {
+      gst[k] = sp.gstarts[k];
+    }
+  }
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= r) return;
-  TrtBounceLane L = load_lane(st, r, i);
-  int idx = -1;
-  if (L.alive > 0.5f) {
-    float best = TRT_F32_MAX;
-    int bi = 0;
+  const bool in = i < r;
+  TrtBounceLane L = {};
+  if (in) L = load_lane(st, r, i);
+  const bool alive = in && L.alive > 0.5f;
+  float best = TRT_F32_MAX;
+  int bi = 0;
+  unsigned counts[3] = {0u, 0u, 0u};
+  if (sp.boxes) {
+    // every lane of the warp runs the fold (its shuffles), the inactive
+    // ones folding nothing; a warp with no alive lane passes it by
+    if (__any_sync(0xffffffffu, alive)) {
+      trt_fold_sph_tiles(sph, box, tst, gbox, gst, sp.n_groups, sp.o_lim,
+                         alive, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, best, bi,
+                         counts);
+    }
+  } else if (alive) {
     const int* row = mask ? mask + (size_t)blockIdx.x * n_tiles : nullptr;
     for (int t = 0; t < n_tiles; ++t) {
       if (row && row[t] == 0) continue;
-      trt_fold_spheres(sph, t * block_n, min((t + 1) * block_n, n), L.ox,
+      trt_fold_spheres(sph, t * block_n, min((t + 1) * block_n, n_sph), L.ox,
                        L.oy, L.oz, L.dx, L.dy, L.dz, best, bi);
     }
+  }
+  if (TRI && alive) {
+    trt_fold_tris(tri, 0, m, n_sph, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, best,
+                  bi);
+  }
+  int idx = -1;
+  if (alive) {
     if (best < TRT_F32_MAX) idx = bi;
     trt_shade(L, idx >= 0 ? table + 12 * (size_t)idx : nullptr, bterm,
-              use_sky != 0);
+              use_sky != 0, TRI && idx >= n_sph);
   }
+  if (stats) {
+    for (int q = 0; q < 3; ++q) {
+      const unsigned v = __reduce_add_sync(0xffffffffu, counts[q]);
+      if ((threadIdx.x & 31) == 0 && v) {
+        atomicAdd(stats + q, (unsigned long long)v);
+      }
+    }
+  }
+  if (!in) return;
   L.alive = idx >= 0 ? 1.0f : 0.0f;
   store_lane(out, r, i, L);
   idx_out[i] = idx;
 }
 
 // tri [m, 9] v0|e1|e2 (ids n_sph + j); boxes [n_tiles, 6], tile t holds
-// triangles [t * block_m, min((t + 1) * block_m, m)). Dynamic shared
-// memory: n_sph spheres (float4), block_m * 9 floats of staged tile,
-// n_tiles * 6 floats of boxes, trt_list_scratch(n_tiles) ints of list
-// scratch and n_tiles ints of list.
-__global__ void bounce_fwd_list_kernel(const float* __restrict__ st,
-                                       float* __restrict__ out, int r,
-                                       const float* __restrict__ table,
-                                       int n_sph,
-                                       const float* __restrict__ tri, int m,
-                                       const float* __restrict__ boxes,
-                                       int n_tiles, int block_m,
-                                       uint32_t bterm, int use_sky,
-                                       int* __restrict__ idx_out) {
-  extern __shared__ float4 smem4[];
-  float4* sph = smem4;
-  float* tile = reinterpret_cast<float*>(sph + n_sph);
-  float* box = tile + 9 * block_m;
-  int* scratch = reinterpret_cast<int*>(box + 6 * n_tiles);
-  int* lst = scratch + trt_list_scratch(n_tiles);
+// triangles [t * block_m, min((t + 1) * block_m, m)). stats (nullptr, or
+// 3 u64 added to): listed tiles summed over the live blocks, live blocks,
+// ray-triangle pairs tested (block_m a tile a lane tested). Dynamic shared
+// memory: n_sph spheres (float4), the ordered list
+// (trt_pow2_at_least(n_tiles) u64), the boxes (6 * n_tiles floats), a
+// staged tile (9 * block_m floats) and the group boxes (6 floats a group
+// of 32 tiles).
+__global__ void __launch_bounds__(TRT_BOUNCE_THREADS, 2)
+bounce_fwd_list_kernel(const float* __restrict__ st, float* __restrict__ out,
+                       int r, const float* __restrict__ table, int n_sph,
+                       const float* __restrict__ tri, int m,
+                       const float* __restrict__ boxes, int n_tiles,
+                       int block_m, uint32_t bterm, int use_sky,
+                       int* __restrict__ idx_out,
+                       unsigned long long* __restrict__ stats) {
+  extern __shared__ float4 sph[];
+  unsigned long long* ord = reinterpret_cast<unsigned long long*>(sph + n_sph);
+  float* box = reinterpret_cast<float*>(ord + trt_pow2_at_least(n_tiles));
+  float* tile = box + 6 * n_tiles;
+  float* gbox = tile + 9 * block_m;
+  __shared__ int s_cnt;
+  __shared__ unsigned s_wmax[32];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in = i < r;
   TrtBounceLane L = {};
@@ -211,17 +295,30 @@ __global__ void bounce_fwd_list_kernel(const float* __restrict__ st,
       box[k] = boxes[k];
     }
     __syncthreads();
-    // the block's list: tile t is reached if a lane's ray meets its box
-    const int cnt = trt_block_list(alive, L.ox, L.oy, L.oz, L.dx, L.dy,
-                                   L.dz, box, n_tiles, scratch, lst);
+    trt_group_boxes(box, n_tiles, gbox);
     float best = TRT_F32_MAX;
     int bi = 0;
     if (alive) {
       trt_fold_spheres(sph, 0, n_sph, L.ox, L.oy, L.oz, L.dx, L.dy, L.dz,
                        best, bi);
     }
-    trt_fold_tiles_staged(tri, m, block_m, lst, cnt, tile, n_sph, alive,
-                          L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, best, bi);
+    const TrtRay ray = trt_ray(L.ox, L.oy, L.oz, L.dx, L.dy, L.dz);
+    const int cnt = trt_block_list_ordered(alive, ray, box, gbox, n_tiles,
+                                           ord, &s_cnt);
+    int tested = 0;
+    trt_fold_tiles_ordered(tri, m, block_m, ord, cnt, box, tile, s_wmax,
+                           n_sph, alive, ray, best, bi, tested);
+    if (stats) {
+      if (threadIdx.x == 0) {
+        atomicAdd(stats, (unsigned long long)cnt);
+        atomicAdd(stats + 1, 1ull);
+      }
+      const unsigned pairs = __reduce_add_sync(
+          0xffffffffu, (unsigned)tested * (unsigned)block_m);
+      if ((threadIdx.x & 31) == 0 && pairs) {
+        atomicAdd(stats + 2, (unsigned long long)pairs);
+      }
+    }
     if (alive && best < TRT_F32_MAX) idx = bi;
   }
   if (alive) {
@@ -355,55 +452,86 @@ extern "C" int trt_bounce_bwd_parts(int r) {
   return blocks < TRT_BWD_PARTS ? blocks : TRT_BWD_PARTS;
 }
 
-// state, out [16, r]; table [n, 12]; bounce b; mask nullptr or
-// [ceil(r / 256), n_tiles] i32; idx_out [r] i32.
+// state, out [16, r]; table [n_sph + m, 12]; bounce b; mask nullptr or
+// [ceil(r / 256), n_tiles] i32 over the spheres; the sphere tiles boxes
+// [n_stiles, 6], starts [n_stiles + 1], gboxes [n_groups, 6], gstarts
+// [n_groups + 1] and o_lim, boxes nullptr for none (not with a mask); tri
+// [m, 9] for the triangle mode, nullptr with m = 0; stats nullptr or 3
+// u64 (with the sphere tiles, see bounce_fwd_kernel); idx_out [r] i32.
 extern "C" int trt_bounce_fwd(const float* state, float* out, int r,
-                              const float* table, int n, int bounce,
+                              const float* table, int n_sph, int bounce,
                               const int* mask, int n_tiles, int block_n,
-                              int use_sky, int* idx_out,
+                              const float* boxes, const int* starts,
+                              int n_stiles, const float* gboxes,
+                              const int* gstarts, int n_groups, float o_lim,
+                              const float* tri, int m, int use_sky,
+                              unsigned long long* stats, int* idx_out,
                               cudaStream_t stream) {
-  const size_t smem = (size_t)n * sizeof(float4);
+  if (n_sph < 0 || m < 0 || (m > 0) != (tri != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TrtSphTiles sp{nullptr, nullptr, 0, nullptr, nullptr, 0, 0.0f};
+  if (boxes != nullptr) {
+    if (mask != nullptr || starts == nullptr || gboxes == nullptr ||
+        gstarts == nullptr || n_stiles < 1 || n_groups < 1 ||
+        n_groups > n_stiles) {
+      return (int)cudaErrorInvalidValue;
+    }
+    sp = TrtSphTiles{boxes, starts, n_stiles, gboxes, gstarts, n_groups,
+                     o_lim};
+  } else if (stats != nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem =
+      (size_t)n_sph * sizeof(float4) +
+      (size_t)6 * (sp.n_tiles + sp.n_groups) * sizeof(float) +
+      (boxes ? (size_t)(sp.n_tiles + sp.n_groups + 2) * sizeof(int) : 0);
   if (smem > TRT_MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   if (mask == nullptr) {
     n_tiles = 1;
-    block_n = n;
+    block_n = n_sph;
   }
-  if (n_tiles < 1 || block_n < 1 || (long)n_tiles * block_n < n) {
+  if (n_tiles < 1 || (block_n < 1 && n_sph > 0) ||
+      (long)n_tiles * block_n < n_sph) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = trt_set_smem(bounce_fwd_kernel, smem);
+  auto kernel = m > 0 ? bounce_fwd_kernel<true> : bounce_fwd_kernel<false>;
+  cudaError_t err = trt_set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (r == 0) return 0;
-  bounce_fwd_kernel<<<blocks_of(r), TRT_BOUNCE_THREADS, smem, stream>>>(
-      state, out, r, table, n, (uint32_t)bounce * TRT_MIX_BOUNCE, mask,
-      n_tiles, block_n, use_sky, idx_out);
+  kernel<<<blocks_of(r), TRT_BOUNCE_THREADS, smem, stream>>>(
+      state, out, r, table, n_sph, (uint32_t)bounce * TRT_MIX_BOUNCE, mask,
+      n_tiles, block_n, sp, tri, m, use_sky, idx_out, stats);
   return (int)cudaGetLastError();
 }
 
 // state, out [16, r]; table [n, 12] (n_sph sphere rows, then
 // triangles); tri [m, 9] with n_sph + m = n; boxes [n_tiles, 6], tile t
-// holding triangles [t * block_m, (t + 1) * block_m); idx_out [r] i32.
+// holding triangles [t * block_m, (t + 1) * block_m); stats nullptr or 3
+// u64 (see bounce_fwd_list_kernel); idx_out [r] i32.
 extern "C" int trt_bounce_fwd_list(const float* state, float* out, int r,
                                    const float* table, int n_sph,
                                    const float* tri, int m,
                                    const float* boxes, int n_tiles,
                                    int block_m, int bounce, int use_sky,
-                                   int* idx_out, cudaStream_t stream) {
+                                   unsigned long long* stats, int* idx_out,
+                                   cudaStream_t stream) {
   if (n_sph < 0 || m < 1 || n_tiles < 1 || block_m < 1 ||
       (long)n_tiles * block_m < m) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)n_sph * sizeof(float4) +
-                      ((size_t)9 * block_m + 6 * n_tiles) * sizeof(float) +
-                      (size_t)(trt_list_scratch(n_tiles) + n_tiles) *
-                          sizeof(int);
+  const size_t smem =
+      (size_t)n_sph * sizeof(float4) +
+      (size_t)trt_pow2_at_least(n_tiles) * 8 +
+      ((size_t)6 * n_tiles + 9 * block_m + 6 * ((n_tiles + 31) / 32)) *
+          sizeof(float);
   if (smem > TRT_MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
   cudaError_t err = trt_set_smem(bounce_fwd_list_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (r == 0) return 0;
   bounce_fwd_list_kernel<<<blocks_of(r), TRT_BOUNCE_THREADS, smem, stream>>>(
       state, out, r, table, n_sph, tri, m, boxes, n_tiles, block_m,
-      (uint32_t)bounce * TRT_MIX_BOUNCE, use_sky, idx_out);
+      (uint32_t)bounce * TRT_MIX_BOUNCE, use_sky, idx_out, stats);
   return (int)cudaGetLastError();
 }
 

@@ -84,10 +84,10 @@
 //   enters its box before that lane's best hit, a tile that few lanes of
 //   a warp need tested by the whole warp for each of them in turn, and
 //   the winner compared by (t, id). On trimesh this fold tests about a
-//   tenth of the listed pairs and measured 4.5x faster than K8's
-//   ascending one (trt_block_list and trt_fold_tiles_staged), which
-//   tools/fold_order.py builds into a copy of this kernel to compare
-//   (PERF.md).
+//   tenth of the listed pairs and measured 4.5x faster than the ascending
+//   fold of every listed tile (trt_block_list and trt_fold_tiles_staged,
+//   which K9 keeps), which tools/fold_order.py builds into a copy of this
+//   kernel to compare (PERF.md). K8 folds its bounce the same way.
 #include "regen_step.cuh"
 
 namespace {

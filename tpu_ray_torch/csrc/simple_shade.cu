@@ -37,10 +37,10 @@
 // nothing but the output leaves the chip. The sphere (centre, radius)
 // table sits in shared memory, a broadcast. On a triangle scene the
 // primary fold of each sample builds the block's tile list in the launch
-// (common.cuh trt_block_list: K8's slab test, warp votes and ascending
-// compaction) and folds the listed tiles staged through shared memory;
-// shadow folds sweep every tile, staged the same way, and a block with no
-// hit lane skips them. The TPU kernel's K-stacked bf16 search, packed
+// (common.cuh trt_block_list: the slab test of tri_block_lists, warp
+// votes and ascending compaction) and folds the listed tiles staged
+// through shared memory; shadow folds sweep every tile, staged the same
+// way, and a block with no hit lane skips them. The TPU kernel's K-stacked bf16 search, packed
 // argmin, one-hot winner gather, host-side frustum lists grouped for
 // SMEM and origin-box shadow lists are not carried over.
 #include "regen_step.cuh"

@@ -14,7 +14,7 @@
 //
 // The TPU kernel's SMEM lists built by XLA outside the kernel, its
 // double-buffered HBM->VMEM DMA of bf16 coefficient tiles and its bf16x6
-// MXU form are TPU mechanism and are not carried over: as K8 and K9 do,
+// MXU form are TPU mechanism and are not carried over: as K2, K8 and K9 do,
 // each block builds its own list in the launch, with the plain version's
 // f32 op order (trt_tri_hit), so kernel and plain version agree bit for
 // bit. A block with no alive lane leaves at once.

@@ -51,9 +51,9 @@ def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
     estimator never reuses RNG streams); fixed_samples=True pins
     sample_start=0, a deterministic loss for fitting a target rendered
     with the same streams. The optimizer updates the leaves in place.
-    remat and cull_secondary go to ``render_mean``; exact_argmin changes
-    nothing (the port's search is always exact)."""
-    del exact_argmin
+    remat goes to ``render_mean``; exact_argmin and cull_secondary change
+    nothing (the port's search is always exact, and always culled)."""
+    del exact_argmin, cull_secondary
     make_opt = optimizer or (
         lambda params: torch.optim.Adam(list(params.values()), lr=1e-2))
 
@@ -74,8 +74,7 @@ def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
                             height=height, spp=spp,
                             sample_start=sample_start, seed=seed,
                             max_bounces=max_bounces, backend=backend,
-                            ray_chunk=ray_chunk, remat=remat,
-                            cull_secondary=cull_secondary, regen=regen)
+                            ray_chunk=ray_chunk, remat=remat, regen=regen)
         loss = image_mse(image, target)
         loss.backward()
         state.optimizer.step()

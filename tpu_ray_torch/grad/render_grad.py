@@ -36,13 +36,15 @@ def render_mean(scene: Scene, camera: Camera, *, width: int, height: int,
     order, so the lanes of a warp stay coherent in both sweeps) ignores
     remat: with regen=True the persistent-wavefront trace with its K2
     recording forward and K3 backward; without, the per-sample route (K4
-    forward, K5 replay, K6 backward), its later bounces culled by the
-    octant mask when cull_secondary. Past the residency rule (bigmesh)
+    forward, K5 replay, K6 backward), every bounce's sphere search culled
+    in K4 by the Morton sphere tiles. Past the residency rule (bigmesh)
     "fused" falls back to the eager route of backend "cuda", which takes
-    remat (``models/path_tracer.render_pixels``). exact_argmin changes nothing (the
-    port's search is always exact). return_rays=True also returns the
-    rays-cast count (an int, no gradient)."""
-    del exact_argmin
+    remat (``models/path_tracer.render_pixels``). exact_argmin and
+    cull_secondary are accepted for the JAX package's signature and change
+    nothing (the port's search is always exact, and always culled).
+    return_rays=True also returns the rays-cast count (an int, no
+    gradient)."""
+    del exact_argmin, cull_secondary
     dev = scene.device
     fused = backend == "fused"
     if fused:
@@ -53,8 +55,7 @@ def render_mean(scene: Scene, camera: Camera, *, width: int, height: int,
     color_sum, rays = render_pixels(
         scene, camera, pixel, width=width, height=height, spp=spp,
         sample_start=sample_start, seed=seed, max_bounces=max_bounces,
-        backend=backend, ray_chunk=ray_chunk, regen=regen, remat=remat,
-        cull_secondary=cull_secondary)
+        backend=backend, ray_chunk=ray_chunk, regen=regen, remat=remat)
     if fused:
         img = untile_image(color_sum, width, height, inv)
     else:

@@ -66,13 +66,15 @@ SIGNATURES = {
     # n, out[6]: K3's registers, local bytes, blocks an SM, threads, shared
     # bytes, SMs
     "trt_regen_bwd_info": [_I, _P],
-    # state, out, r, table, n, bounce, mask, n_tiles, block_n, use_sky,
-    # idx_out, stream
-    "trt_bounce_fwd": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P],
+    # state, out, r, table, n_sph, bounce, mask, n_tiles, block_n, boxes,
+    # starts, n_stiles, gboxes, gstarts, n_groups, o_lim, tri, m, use_sky,
+    # stats, idx_out, stream
+    "trt_bounce_fwd": [_P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P,
+                       _P, _I, _F, _P, _I, _I, _P, _P, _P],
     # state, out, r, table, n_sph, tri, m, boxes, n_tiles, block_m,
-    # bounce, use_sky, idx_out, stream
+    # bounce, use_sky, stats, idx_out, stream
     "trt_bounce_fwd_list": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I,
-                            _P, _P],
+                            _P, _P, _P],
     # state, out, r, table, n_sph, idx, bounce, use_sky, stream
     "trt_bounce_replay": [_P, _P, _I, _P, _I, _P, _I, _I, _P],
     # state, idx, table, n, n_sph, d_state, r, bounce, use_sky, part,

@@ -97,7 +97,8 @@ __all__ = ["regen_steps", "regen_steps_plain", "regen_record",
            "regen_bwd", "regen_bwd_plain", "step_tail_plain", "wave_init",
            "cam13", "trace_regen", "make_regen_trace", "RegenTrace",
            "Records", "SEG_MAX", "regen_tables", "SphereTiles",
-           "sphere_tiles", "nearest_sphere_culled", "regen_bwd_info"]
+           "sphere_tiles", "nearest_sphere_culled", "culled_sphere_fold",
+           "regen_bwd_info"]
 
 _EPS, _MAX = float(F32_EPS), float(F32_MAX)
 
@@ -251,9 +252,19 @@ def nearest_sphere_culled(st, table, sph: SphereTiles):
     -> (winner id [R] int64, -1 on a miss; counts [3] int64: boxes tested
     (groups and tiles), tiles folded, ray-sphere pairs tested over the
     live lanes). The winner is ``nearest_prim``'s (the test of the
-    culling). Every pair's t and every box entry are taken at once (the
-    same f32 values as one at a time); the tiles are then walked in
-    order."""
+    culling)."""
+    best, bi, counts = culled_sphere_fold(st, table, sph)
+    return torch.where(best < _MAX, bi, -1), counts
+
+
+@torch.no_grad()
+def culled_sphere_fold(st, table, sph: SphereTiles):
+    """``nearest_sphere_culled``'s fold -> (best t [R] f32, F32_MAX on a
+    miss or a dead lane; its sphere id [R] int64, 0 there; counts [3]
+    int64), the running (best, bi) that K4's triangle mode goes on to
+    fold the triangles into. Every pair's t and every box entry are taken
+    at once (the same f32 values as one at a time); the tiles are then
+    walked in order."""
     o, d = st[0:3].T, st[3:6].T
     active = st[12] > 0.5
     inv = torch.where(d != 0.0, torch.ones_like(d) / d, 0.0)
@@ -294,7 +305,7 @@ def nearest_sphere_culled(st, table, sph: SphereTiles):
             best = torch.where(take, tmin, best)
             bi = torch.where(take, imin + j0, bi)
     counts = torch.stack([boxes_tested.sum(), folded.sum(), pairs.sum()])
-    return torch.where(best < _MAX, bi, -1), counts
+    return best, bi, counts
 
 
 class Records(NamedTuple):

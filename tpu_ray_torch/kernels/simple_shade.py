@@ -24,7 +24,7 @@ for bit and with the eager route within rounding.
 
 On a triangle scene the primary fold of each sample searches only the
 tiles its 256-lane block can reach (``bounce_step.tri_block_lists`` of the
-sample's primary rays, built in the launch as K8 builds its lists);
+sample's primary rays, built in the launch as K2 and K8 build theirs);
 shadow folds sweep every tile. A lane whose grazing hit Möller-Trumbore
 accepts outside its tile's inflated box can differ from a full sweep, as
 on the per-sample route.

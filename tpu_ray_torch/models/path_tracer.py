@@ -13,15 +13,15 @@ Backends: "torch" searches with the plain ``ops/intersect.nearest_hit``
 (the JAX ``probe_jnp``/``probe_pallas``: the two hits merged into one
 primitive id space); "fused" with regen runs the K2 persistent-wavefront
 kernel (spheres and triangles), and without it the per-sample fused route
-(one sample at a time through the K4 bounce kernel, or K8 on a triangle
+(one sample at a time through the K4 bounce kernel, its sphere search
+culled in the kernel by the Morton sphere tiles, or K8 on a triangle
 scene, ``kernels/bounce_step.make_fused_sample``).
 
 ``shading`` picks the estimator: "path" (the reference algorithm), or the
 "flat" and "lambert_shadow" estimators of ``ops/shading_modes``, which
 "torch" and "cuda" run eagerly per sample and "fused" runs through the K9
 kernel (``kernels/simple_shade.make_simple_trace``, all spp samples in
-one launch; it ignores regen, cull_secondary and max_bounces, as the JAX
-package does).
+one launch; it ignores regen and max_bounces, as the JAX package does).
 
 Triangle scenes take these routes within the JAX package's residency
 rule (``kernels/bounce_step.resident_tables_fit``: trimesh and small
@@ -61,6 +61,7 @@ from tpu_ray_torch.core.camera import Camera, default_camera
 from tpu_ray_torch.core.scene import F32_MAX, Scene, make_scene
 from tpu_ray_torch.kernels.bounce_step import (fused_tables,
                                                make_fused_sample,
+                                               origin_bound,
                                                resident_tables_fit,
                                                tri_tile_boxes)
 from tpu_ray_torch.kernels.regen import make_regen_trace
@@ -271,23 +272,20 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
                   max_bounces: int = 5, backend: str = "torch",
                   ray_chunk: Optional[int] = None, shading: str = "path",
                   lights: tuple = (), regen: bool = False,
-                  remat: Union[bool, str] = False,
-                  cull_secondary: bool = False):
+                  remat: Union[bool, str] = False):
     """``spp`` jittered samples for a flat pixel subset [R] ->
     (color_sum [R,3] summed over spp, rays_cast int). Differentiable.
 
     shading "flat"/"lambert_shadow" (lights: the global indices of the
     light spheres, ``ops/shading_modes.scene_light_indices``) run the
     estimator of ``ops/shading_modes``; on "fused" through K9, which
-    ignores max_bounces, regen and cull_secondary. remat=True (backends
+    ignores max_bounces and regen. remat=True (backends
     "torch"/"cuda") recomputes each sample in the backward instead of
     keeping its activations (``torch.utils.checkpoint``); remat=
     "save_hits" does too, but its forward records each search's hit mask
     and winner (``HitTape``) and the recompute replays them, so the
     backward searches nothing. "fused" ignores remat, since its backward
     keeps only the winner records or, for the estimators, nothing.
-    cull_secondary (fused path without regen) culls bounces 1.. by the
-    octant mask, bit-identically.
 
     Past the residency rule "fused" (with or without regen, and its
     estimators, which warn) falls back to the probe route of backend
@@ -329,9 +327,8 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
 
     color_sum = torch.zeros((n, 3), dtype=torch.float32, device=pixel.device)
     if backend == "fused":
-        sample = make_fused_sample(width, height, seed, max_bounces,
-                                   cull_secondary=cull_secondary)
-        tb = fused_tables(scene)
+        sample = make_fused_sample(width, height, seed, max_bounces)
+        tb = fused_tables(scene, origin_bound(camera.position[None]))
         rays = torch.zeros((), dtype=torch.int64, device=pixel.device)
         for s in range(sample_start, sample_start + spp):
             parts = [sample(scene, camera, pixel[k:k + chunk], s, tb)
@@ -389,7 +386,11 @@ def render_pass(scene: Scene, camera: Camera, *, width: int, height: int,
     (image_sum [H,W,3] linear radiance summed over spp, rays_cast int).
     ``shading`` picks the estimator: "path", "flat" or "lambert_shadow"
     (with ``lights``, see ``ops/shading_modes.scene_light_indices``).
-    Runs on the scene's device."""
+    Runs on the scene's device. cull_secondary is accepted for the JAX
+    package's signature (its octant mask for bounces 1..) and changes
+    nothing: K4 culls every bounce's sphere search by the Morton sphere
+    tiles, bit-identically."""
+    del cull_secondary
     dev = scene.device
     fused = backend == "fused"
     if fused:
@@ -401,7 +402,7 @@ def render_pass(scene: Scene, camera: Camera, *, width: int, height: int,
         scene, camera, pixel, width=width, height=height, spp=spp,
         sample_start=sample_start, seed=seed, max_bounces=max_bounces,
         backend=backend, ray_chunk=ray_chunk, shading=shading,
-        lights=lights, regen=regen, cull_secondary=cull_secondary)
+        lights=lights, regen=regen)
     if fused:
         return untile_image(color_sum, width, height, inv), rays
     return color_sum.reshape(height, width, 3), rays
@@ -433,7 +434,7 @@ class PathTracer:
             height=cfg.height, spp=cfg.spp, sample_start=state.samples,
             seed=cfg.seed, max_bounces=cfg.max_bounces, backend=cfg.backend,
             ray_chunk=cfg.ray_chunk, shading=cfg.shading, lights=self.lights,
-            regen=cfg.regen, cull_secondary=cfg.cull_secondary)
+            regen=cfg.regen)
         return accumulate(state, img_sum, cfg.spp), rays
 
     def srgb_image(self, state: AccumState):

@@ -1,15 +1,15 @@
-"""Time K2's listed triangle mode with K8's ascending fold in its place.
+"""Time K2's listed triangle mode with an ascending fold in its place.
 
     python -m tpu_ray_torch.tools.fold_order [--reps 3]
 
 K2's listed mode (``csrc/regen.cu``) folds each block's tiles front to
 back with an early exit (``common.cuh`` ``trt_fold_tiles_ordered``, K10's
 fold). This script copies the package into the git-ignored
-``.chip_check/fold_order/`` with that fold replaced by K8's, in ascending
-tile id over every listed tile (``trt_block_list`` and
-``trt_fold_tiles_staged``), and times both builds at trimesh 1920x1080,
-2 spp, the triangle route's own state, in turns (this build, the copy,
-the copy, this build), one process each: the forward, the recording and
+``.chip_check/fold_order/`` with that fold replaced by the one K8 ran
+before it took this fold too, in ascending tile id over every listed tile
+(``trt_block_list`` and ``trt_fold_tiles_staged``, K9's fold), and times
+both builds at trimesh 1920x1080, 2 spp, the triangle route's own state,
+in turns (this build, the copy, the copy, this build), one process each: the forward, the recording and
 a launch with the counters on. Each process prints one JSON line; the
 last line is a summary with the card's name and power limit. Both folds
 must end in the same state bit for bit. Needs a CUDA device.
@@ -25,7 +25,7 @@ import sys
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
-# the listed kernel's fold, and K8's ascending one in its place (its list
+# the listed kernel's fold, and the ascending one in its place (its list
 # scratch fits in the ordered list's shared memory for 4 tiles or more)
 ORDERED = """\
     const TrtRay ray = trt_ray(L.ox, L.oy, L.oz, L.dx, L.dy, L.dz);
