@@ -37,11 +37,13 @@ share (the kernels' bounds are counted from the same samples outside
 those calls), and the route's gradients against the regen route's at
 320x180. Then the triangle
 scenes: K7 (the triangle search of backend cuda) against its plain version
-on trimesh's primary rays and backend cuda's trimesh render against
-backend torch's; the triangle main path, trimesh (10,242 triangles) at
-1920x1080, 2 spp on fused + regen as the CLI drives it (two calls,
-through K2's listed triangle mode; at the path's own state, every 32nd
-256-lane block bit for bit against the listed plain version over all
+on trimesh's primary rays (320x180 on every lane, 1920x1080 on 1 lane in
+32, its time and the triangle slices it chose at both) and backend cuda's
+trimesh render against backend torch's; the triangle main path, trimesh
+(10,242 triangles) at 1920x1080, 2 spp on fused + regen as the CLI
+drives it (two calls, through K2's listed triangle mode; at the path's
+own state, every 32nd 256-lane block bit for bit against the listed
+plain version over all
 steps, the regen list pass rate and the pairs tested from the kernel's
 counters; the sweep of every triangle, as a caller names it: its image
 within 20 pixels of the listed route's, 1 lane in 32 bit for bit against
@@ -67,21 +69,27 @@ route's, K4's triangle mode on 1 lane in 32 of sample 0 against its
 plain version, its bound over the pairs an exact culled search tests on
 those rays (K8's counters on the same states) and over every triangle.
 Then the flat and Lambert+shadow estimators on the fused route (K9,
-csrc/simple_shade.cu), each configuration at its own size: BASELINE.md
-config 2 (sixteen, Lambert, 512x512, 4 spp: K9 bit-equal to its plain
-version on all lanes, two passes as the CLI drives them, three
-forward+backward steps whose gradients must match backend cuda autograd),
-config 1 (single, flat, 256x256, 1 spp: K9 on all lanes, the image equal
-to backend cuda's), trimesh flat at 1920x1080, 4 spp (the block lists on;
-K9 on 1 lane in 32, the image against backend cuda's at 320x180) and
-trilight (Lambert over triangles, 1920x1080, 4 spp: K9 on 1 lane in 32,
-gradients against backend cuda autograd at 320x180), and one profiled
-pass each of config 2 and trimesh flat. Then the route past the
-residency rule: bigmesh (163,842 triangles in 1,281 tiles) at 1920x1080,
+csrc/simple_shade.cu: its spheres folded over their Morton tiles, its
+triangles over primary and shadow block lists folded front to back), each
+configuration at its own size, its counters held to the plain version's
+and its bound over what it tested beside the bound over the listed pairs:
+BASELINE.md config 2 (sixteen, Lambert, 512x512, 4 spp: K9 bit-equal to
+its plain version on all lanes, two passes as the CLI drives them, three
+forward+backward steps
+whose gradients must match backend cuda autograd), config 1 (single,
+flat, 256x256, 1 spp: K9 on all lanes, the image equal to backend
+cuda's), trimesh flat at 1920x1080, 4 spp (K9 on 1 lane in 32 and on
+every 32nd 256-lane block, the sweep of every tile timed, the image
+against backend cuda's at 320x180) and trilight (Lambert over triangles,
+1920x1080, 4 spp: K9 on every 32nd 256-lane block, the shadow winners of
+its lists against the sweep of every tile, gradients against backend cuda
+autograd at 320x180), and one profiled pass of each. Then the route past
+the residency rule: bigmesh (163,842 triangles in 1,281 tiles) at 1920x1080,
 1 spp. K10 (csrc/tri_stream.cu, the listed triangle search) at the pass's
 own primary rays and sorted bounce-1 state, bit for bit against its plain
 version on 1 lane in 32 and against K7 on every alive lane (differing
-lanes counted; none where K7's hit lies inside its tile's box), and its
+lanes counted; none where K7's hit lies inside its tile's box; K7's time,
+slices and bound there recorded), and its
 bound counted on every bounce's state, beside each bounce's time, the
 time of a launch that only builds the lists, and the pairs tested
 against the pairs listed (the kernel's counters, its lists held to the
@@ -303,9 +311,14 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
                                           trainable_scene)
     from tpu_ray_torch.grad import image_mse
     from tpu_ray_torch.kernels.regen import cam13
-    from tpu_ray_torch.kernels.simple_shade import (lane_rows, simple_tables,
+    from tpu_ray_torch.kernels.bounce_step import (BLOCK_R, TRI_BLOCK_M,
+                                                   init_state, nearest_prim,
+                                                   origin_bound)
+    from tpu_ray_torch.kernels.simple_shade import (N_STATS, lane_rows,
+                                                    simple_tables,
                                                     simple_trace,
                                                     simple_trace_plain)
+    from tpu_ray_torch.ops.intersect_tri import nearest_hit_tri
     from tpu_ray_torch.models.path_tracer import (render_pass,
                                                   render_pixels, tile_order,
                                                   untile_image)
@@ -322,13 +335,15 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
         sc = (make_trilight_scene(device=dev) if name == "trilight"
               else make_scene(name, device=dev))
         lights = scene_light_indices(sc) if shading != "flat" else ()
-        tb = simple_tables(sc, lights)
+        cam = default_camera(sc)
+        tb = simple_tables(sc, lights, origin_bound(cam.position[None]))
         perm, inv = tile_order(w, h)
         px = torch.as_tensor(perm, device=dev)
-        args = (lane_rows(px, w, SEED), cam13(default_camera(sc), spp),
+        args = (lane_rows(px, w, SEED), cam13(cam, spp),
                 tb["table"], tb["tri"], tb["boxes"], tb["lidx"], tb["ldat"])
         kw = dict(n_sph=tb["n_sph"], spp=spp, s0=0, width=w, height=h,
-                  use_sky=tb["use_sky"], flat=shading == "flat")
+                  use_sky=tb["use_sky"], flat=shading == "flat",
+                  sph=tb["sph"])
         return sc, lights, args, kw, inv
 
     def drive(cfg, sc, calls):
@@ -356,27 +371,68 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
                 f"{name} {shading} image is not finite and non-black")
         return tracer, state, rays, secs
 
-    def work(args, kw, n_real_sph, lanes=None):
-        """(fp32 operations, bytes) K9 must spend on these inputs, counted
-        on the plain version's own searches of the lanes ``lanes`` (all
-        when None) and scaled to the launch's lanes: every cast ray tests
-        every real sphere (FLOPS_PER_PAIR), and each ray-triangle pair of
-        its listed or swept tiles is charged by where it leaves the test
-        (mt_work); the lanes' bytes in and out and the tables read once.
-        -> also the plain version's output."""
+    def work(args, kw, n_real_sph, lanes=None, r_full=None, stats=None):
+        """(fp32 operations, bytes) K9 must spend on these inputs over the
+        listed pairs, counted on the plain version's own searches of the
+        lanes ``lanes`` (all when None) and scaled to r_full lanes (the
+        launch's when None): every cast ray tests every real sphere
+        (FLOPS_PER_PAIR), and each ray-triangle pair of its listed or swept
+        tiles is charged by where it leaves the test (mt_work); the lanes'
+        bytes in and out and the tables read once. -> also the plain
+        version's output, its searches (``folds``: each sample's primary
+        search, then one a light) and the mean operations of a listed real
+        pair (0 without triangles). stats: the plain version's counters."""
         folds = []
-        out = simple_trace_plain(*args, **kw, lanes=lanes, folds=folds)
-        r = args[0].shape[1]
+        out = simple_trace_plain(*args, **kw, lanes=lanes, folds=folds,
+                                 stats=stats)
+        r = args[0].shape[1] if r_full is None else r_full
         scale = r / out.shape[1]
         flops = float(out[3].double().sum()) * n_real_sph * FLOPS_PER_PAIR
+        tri_flops = tri_pairs = 0.0
         if args[3] is not None:
             for o, d, tiles, act in folds:
-                f, _ = mt_work(torch, args[3], o[:, act].T, d[:, act].T,
-                               None if tiles is None else tiles[act])
+                f, shares = mt_work(torch, args[3], o[:, act].T, d[:, act].T,
+                                    None if tiles is None else tiles[act])
                 flops += f
+                tri_flops += f
+                tri_pairs += f / pair_flops(shares) if shares else 0.0
         nbytes = r * K9_LANE_BYTES + sum(
             t.numel() * 4 for t in args[1:] if t is not None)
-        return flops * scale, nbytes, out, folds
+        return (flops * scale, nbytes, out, folds,
+                tri_flops / tri_pairs if tri_pairs else 0.0)
+
+    def counted(args, kw, per_pair):
+        """K9's counters on a launch of args (an int64 [N_STATS] tensor)
+        and its bound over what it tested: the triangle pairs its walk
+        reached at per_pair operations each (the listed real pairs' exit
+        mix), the sphere pairs and sphere boxes at FLOPS_PER_PAIR and
+        FLOPS_PER_BOX."""
+        st = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
+        simple_trace(*args, **kw, stats=st)
+        torch.cuda.synchronize()
+        c = st.tolist()
+        flops = (c[4] * per_pair + c[7] * FLOPS_PER_PAIR
+                 + c[5] * FLOPS_PER_BOX)
+        nbytes = args[0].shape[1] * K9_LANE_BYTES + sum(
+            t.numel() * 4 for t in args[1:] if t is not None)
+        return st, bound(flops, nbytes)
+
+    def stats_agree(key, sk, sp):
+        """K9's counters equal the plain version's, but the pairs tested
+        (index 4), which the front-to-back walk cuts short of every
+        listed pair, at most the plain version's."""
+        k, p = sk.tolist(), sp.tolist()
+        require(k[:4] == p[:4] and k[5:] == p[5:] and k[4] <= p[4],
+                f"{key}: K9's counters {k} against the plain version's {p}")
+
+    def block_slice(args, r):
+        """args on every 32nd 256-lane block (whole blocks, so each lists
+        as in the full launch) -> (lanes, the sliced args)."""
+        lanes = (torch.arange(0, -(-r // BLOCK_R), SLICE_STRIDE,
+                              device=dev)[:, None] * BLOCK_R
+                 + torch.arange(BLOCK_R, device=dev)).flatten()
+        lanes = lanes[lanes < r]
+        return lanes, (args[0][:, lanes].contiguous(),) + args[1:]
 
     def grads_of(sc, cam, cfg_g, backend, lights):
         """image_mse(render_pass(...), 0).backward() w.r.t. every scene
@@ -428,8 +484,9 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
 
     # 25. BASELINE.md config 2: sixteen, Lambert+shadow (2 lights),
     # 512x512, 4 spp. K9 against its plain version on all 262,144 lanes
-    # (colour and rays bit-equal; launches not counted), the pass as the
-    # CLI drives it (two calls), three forward+backward steps
+    # (colour and rays bit-equal, the counters equal; launches not
+    # counted), the pass
+    # as the CLI drives it (two calls), three forward+backward steps
     # (image_mse(render_pass(...), 0).backward() w.r.t. every scene leaf
     # and the camera: K9 forward, the eager estimator on K1 backward), the
     # gradients within 1e-5 of each group's max of backend cuda autograd
@@ -440,11 +497,14 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
     require(l16 == (1, 2), f"sixteen's lights are {l16}")
     n_real16 = int((s16.radius > 0).sum())
     out_k2 = simple_trace(*args2, **kw2)
-    flops2, bytes2, out_p2, _ = work(args2, kw2, n_real16)
+    sp2 = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
+    flops2, bytes2, out_p2, _, _ = work(args2, kw2, n_real16, stats=sp2)
     torch.cuda.synchronize()
     require(bits_equal(torch, out_k2, out_p2),
             f"K9 (sixteen Lambert) differs from plain by max "
             f"{(out_k2 - out_p2).abs().max().item()}")
+    sk2, bt2 = counted(args2, kw2, 0.0)
+    stats_agree("sixteen", sk2, sp2)
     k9_ev2 = cuda_ms(torch, lambda: simple_trace(*args2, **kw2), 10)
     plain2 = cuda_ms(torch, lambda: simple_trace_plain(*args2, **kw2), 2)
     b2 = bound(flops2, bytes2)
@@ -482,27 +542,33 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
     print(f"estimator config 2: sixteen lambert_shadow {w2}x{h2} {spp2} spp "
           f"fused: {rays2} rays in {secs2} s = "
           f"{[rays2 / t for t in secs2]} rays/s on {card}; K9 bit-equal to "
-          f"plain on all lanes, {k9_ev2:.4f} ms by CUDA events (bound "
-          f"{b2[0]:.4f} ms by {b2[1]}) / plain {plain2:.3f} ms; fwd+bwd "
-          f"steps {step_secs2} s, launches {step_launches2}, peak "
-          f"{peak2} B above {mem0} B; gradients against backend cuda "
-          f"autograd within {max(err2.values()):.3e} of each group's max",
-          flush=True)
+          f"plain on all lanes, counters {sk2.tolist()} equal to plain's, "
+          f"{k9_ev2:.4f} ms by CUDA events (bound {b2[0]:.4f} ms by {b2[1]} "
+          f"over every real sphere, {bt2[0]:.4f} ms by {bt2[1]} over what it "
+          f"tested) / plain {plain2:.3f} ms; fwd+bwd steps {step_secs2} s, "
+          f"launches "
+          f"{step_launches2}, peak {peak2} B above {mem0} B; gradients "
+          f"against backend cuda autograd within {max(err2.values()):.3e} "
+          f"of each group's max", flush=True)
     phase("est_config2", t0)
 
     # 26. BASELINE.md config 1: single, flat, 256x256, 1 spp. K9 against
-    # its plain version on all lanes, the pass as the CLI drives it, and
-    # its image against backend cuda's (K1 in the eager estimator), rays
-    # equal
+    # its plain version on all lanes (output and counters), the pass as the
+    # CLI drives it, and its image against backend cuda's (K1 in the eager
+    # estimator), rays equal
     t0 = time.perf_counter()
     cfg1 = EST_CONFIG1
     _, _, w1, h1, spp1 = cfg1
     s1, _, args1, kw1, inv1 = setup(cfg1)
     out_k1 = simple_trace(*args1, **kw1)
-    flops1, bytes1, out_p1, _ = work(args1, kw1, int((s1.radius > 0).sum()))
+    sp1 = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
+    flops1, bytes1, out_p1, _, _ = work(args1, kw1,
+                                        int((s1.radius > 0).sum()), stats=sp1)
     torch.cuda.synchronize()
     require(bits_equal(torch, out_k1, out_p1),
             "K9 (single flat) differs from plain")
+    sk1, bt1 = counted(args1, kw1, 0.0)
+    stats_agree("single", sk1, sp1)
     k9_ev1 = cuda_ms(torch, lambda: simple_trace(*args1, **kw1), 10)
     plain1 = cuda_ms(torch, lambda: simple_trace_plain(*args1, **kw1), 2)
     b1 = bound(flops1, bytes1)
@@ -518,17 +584,22 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
             f"config 1 image differs from backend cuda's on {npx1} pixels")
     print(f"estimator config 1: single flat {w1}x{h1} {spp1} spp fused: "
           f"{rays1} rays in {secs1} s on {card}; K9 bit-equal to plain, "
-          f"{k9_ev1:.4f} ms (bound {b1[0]:.4f} ms by {b1[1]}) / plain "
-          f"{plain1:.3f} ms; image equal to backend cuda's", flush=True)
+          f"counters {sk1.tolist()} equal to plain's, {k9_ev1:.4f} ms "
+          f"(bound {b1[0]:.4f} ms by {b1[1]}; {bt1[0]:.4f} ms by {bt1[1]} "
+          f"over what it tested) / plain {plain1:.3f} ms; image equal to "
+          f"backend cuda's", flush=True)
     phase("est_config1", t0)
 
     # 27. trimesh flat (BASELINE.md's r5 row): 1920x1080, 4 spp, the block
     # lists on. The pass as the CLI drives it (two calls; rays exactly
     # 4 x 1920 x 1080), K9 against its plain version on 1 lane in 32 (each
-    # lane with its full-width block's list), the bound counted on that
-    # slice's own searches, and the image against backend cuda's (K1 +
-    # K7) at 320x180, differing pixels counted (the lists' grazing
-    # acceptance fuzz)
+    # lane with its full-width block's list), the bound over the listed
+    # pairs counted on that slice's own searches, K9's counters on every
+    # 32nd 256-lane block's own launch against the plain version's (and
+    # that launch's output against the full one's), the whole launch's
+    # counters and its bound over what it tested, the image against
+    # backend cuda's (K1 + K7) at 320x180, differing pixels counted (the
+    # lists' grazing acceptance fuzz)
     t0 = time.perf_counter()
     cfgt = EST_TRIMESH
     _, _, wt, ht, sppt = cfgt
@@ -539,15 +610,26 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
     rt = argst[0].shape[1]
     lanes_t = torch.arange(0, rt, SLICE_STRIDE, device=dev)
     out_kt = simple_trace(*argst, **kwt)
-    flopst, bytest, out_pt, foldst = work(argst, kwt,
-                                          int((st_.radius > 0).sum()),
-                                          lanes_t)
+    flopst, bytest, out_pt, foldst, per_pair_t = work(
+        argst, kwt, int((st_.radius > 0).sum()), lanes_t)
     torch.cuda.synchronize()
     require(bits_equal(torch, out_kt[:, lanes_t], out_pt),
             "K9 (trimesh flat) differs from plain on 1 lane in 32")
     reach = torch.cat([f[2] for f in foldst]).float().mean().item()
     _, plaint = timed(torch, lambda: simple_trace_plain(*argst, **kwt,
                                                         lanes=lanes_t))
+    sub_t, args_tsub = block_slice(argst, rt)
+    sp_t = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
+    out_tsub_p = simple_trace_plain(*args_tsub, **kwt, stats=sp_t)
+    sk_tsub = torch.zeros_like(sp_t)
+    out_tsub_k = simple_trace(*args_tsub, **kwt, stats=sk_tsub)
+    torch.cuda.synchronize()
+    require(bits_equal(torch, out_tsub_k, out_tsub_p)
+            and bits_equal(torch, out_tsub_k, out_kt[:, sub_t]),
+            "K9 (trimesh flat) on every 32nd block differs from plain or "
+            "from the full launch")
+    stats_agree("trimesh flat, every 32nd block", sk_tsub, sp_t)
+    skt, btt = counted(argst, kwt, per_pair_t)
     k9_evt = cuda_ms(torch, lambda: simple_trace(*argst, **kwt), 3)
     bt = bound(flopst, bytest)
     # the same launch with every tile swept (no lists): its time, and the
@@ -571,19 +653,28 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
             f" on {npxt} pixels")
     print(f"estimator trimesh: flat {wt}x{ht} {sppt} spp fused: {rayst} "
           f"rays in {secst} s = {[rayst / t for t in secst]} rays/s on "
-          f"{card}; K9 bit-equal to plain on 1 lane in 32, {k9_evt:.3f} ms "
-          f"by CUDA events (bound {bt[0]:.3f} ms by {bt[1]}; list pass rate "
-          f"{reach:.4f}; every tile swept {k9_swept:.3f} ms, {n_lanes_fuzz} "
-          f"lanes differ) / plain {plaint:.1f} ms on the slice; "
-          f"{CHECK_W}x{CHECK_H} image against backend cuda: {npxt} pixels "
-          f"differ", flush=True)
+          f"{card}; K9 bit-equal to plain on 1 lane in 32 and on every 32nd "
+          f"block (counters {sk_tsub.tolist()} against plain's "
+          f"{sp_t.tolist()}), {k9_evt:.3f} ms by CUDA events (bound "
+          f"{bt[0]:.3f} ms by {bt[1]} over the listed pairs, {btt[0]:.3f} ms "
+          f"by {btt[1]} over what it tested; counters {skt.tolist()}; list "
+          f"pass rate {reach:.4f}; every tile swept {k9_swept:.3f} ms, "
+          f"{n_lanes_fuzz} lanes differ) / plain {plaint:.1f} ms on the "
+          f"slice; {CHECK_W}x{CHECK_H} image against backend cuda: {npxt} "
+          f"pixels differ", flush=True)
     phase("est_trimesh", t0)
 
     # 28. trilight (triangle shadows): Lambert+shadow, 1920x1080, 4 spp.
-    # The pass as the CLI drives it, K9 against its plain version on 1
-    # lane in 32, and the gradients at 320x180 within 1e-5 of each group's
-    # max of backend cuda autograd (the fused backward runs the eager
-    # estimator on K1 and K7)
+    # The pass as the CLI drives it, K9 against its plain version on every
+    # 32nd 256-lane block (whole blocks: a shadow list is its block's) with
+    # their own launch's counters, the whole launch's counters and bound
+    # over what it tested; the shadow winners of those blocks' lists
+    # against the sweep of every tile (a lane may differ only where the
+    # sweep's hit lies outside its tile's inflated box), and the lanes
+    # whose output the lists change against K9 with every tile swept; and
+    # the gradients at 320x180 within 1e-5 of each group's max of backend
+    # cuda autograd (the fused backward runs the eager estimator on K1 and
+    # K7)
     t0 = time.perf_counter()
     cfgl = EST_TRILIGHT
     _, _, wl, hl, sppl = cfgl
@@ -592,17 +683,49 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
     tracerl, stl, raysl, secsl = drive(cfgl, sl_, 1)
     launchesl = counts()["simple_trace"]
     out_kl = simple_trace(*argsl, **kwl)
-    lanes_l = torch.arange(0, argsl[0].shape[1], SLICE_STRIDE, device=dev)
-    flopsl, bytesl, out_pl, _ = work(argsl, kwl,
-                                     int((sl_.radius > 0).sum()), lanes_l)
+    rl = argsl[0].shape[1]
+    lanes_l, args_lsub = block_slice(argsl, rl)
+    sp_l = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
+    flopsl, bytesl, out_pl, folds_l, per_pair_l = work(
+        args_lsub, kwl, int((sl_.radius > 0).sum()), r_full=rl, stats=sp_l)
+    sk_lsub = torch.zeros_like(sp_l)
+    out_lsub_k = simple_trace(*args_lsub, **kwl, stats=sk_lsub)
     torch.cuda.synchronize()
-    require(bits_equal(torch, out_kl[:, lanes_l], out_pl),
-            "K9 (trilight Lambert) differs from plain on 1 lane in 32")
+    require(bits_equal(torch, out_kl[:, lanes_l], out_pl)
+            and bits_equal(torch, out_lsub_k, out_pl),
+            "K9 (trilight Lambert) differs from plain on every 32nd block")
+    stats_agree("trilight, every 32nd block", sk_lsub, sp_l)
     require(raysl == int(out_kl[3].double().sum()), "trilight pass rays")
-    _, plainl = timed(torch, lambda: simple_trace_plain(*argsl, **kwl,
-                                                        lanes=lanes_l))
+    _, plainl = timed(torch, lambda: simple_trace_plain(*args_lsub, **kwl))
+    skl, btl = counted(argsl, kwl, per_pair_l)
     k9_evl = cuda_ms(torch, lambda: simple_trace(*argsl, **kwl), 3)
     bl = bound(flopsl, bytesl)
+    # the shadow folds' winners (each sample's second search) on the
+    # block lists against the sweep of every tile
+    tab_l, boxes_l, n_sph_l = argsl[2], argsl[4], kwl["n_sph"]
+    n_shadow = n_shadow_diff = 0
+    for o, d, tiles, act in folds_l[1::2]:
+        ray = init_state(o.T, d.T, torch.zeros_like(act, dtype=torch.int64))
+        w_list = nearest_prim(ray, tab_l, argsl[3], tiles)
+        w_sweep = nearest_prim(ray, tab_l, argsl[3], None)
+        th = nearest_hit_tri(argsl[3], o.T, d.T)
+        pt_ = o.T + d.T * th.t[:, None]
+        bx = boxes_l[(th.idx.long() // TRI_BLOCK_M).clamp(
+            max=boxes_l.shape[0] - 1)]
+        inside = (w_sweep >= n_sph_l) & ((pt_ >= bx[:, 0:3])
+                                         & (pt_ <= bx[:, 3:6])).all(1)
+        diff = act & (w_list != w_sweep)
+        require(not bool((diff & inside).any()),
+                f"trilight: {int((diff & inside).sum())} shadow winners "
+                f"differ from the sweep where its hit lies inside its box")
+        n_shadow += int(act.sum())
+        n_shadow_diff += int(diff.sum())
+    swept_l = argsl[:4] + (None,) + argsl[5:]
+    out_swl = simple_trace(*swept_l, **kwl)
+    k9_swept_l = cuda_ms(torch, lambda: simple_trace(*swept_l, **kwl), 1)
+    n_lanes_fuzz_l = int((out_swl != out_kl).any(0).sum())
+    require(n_lanes_fuzz_l <= 20, f"K9's lists change {n_lanes_fuzz_l} "
+            f"lanes of trilight against the full sweep")
     cfgl_g = ("trilight", "lambert_shadow", CHECK_W, CHECK_H, sppl)
     caml = default_camera(sl_)
     g_fl, rays_gl, launches_gl, _ = grads_of(sl_, caml, cfgl_g, "fused", ll)
@@ -619,20 +742,29 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
         require(g_fl[k].abs().max().item() > 0,
                 f"trilight gradient of {k} is zero")
     print(f"estimator trilight: lambert_shadow {wl}x{hl} {sppl} spp fused: "
-          f"{raysl} rays in {secsl} s on {card}; K9 bit-equal to plain on 1 "
-          f"lane in 32, {k9_evl:.3f} ms (bound {bl[0]:.3f} ms by {bl[1]}) "
-          f"/ plain {plainl:.1f} ms on the slice; {CHECK_W}x{CHECK_H} "
+          f"{raysl} rays in {secsl} s on {card}; K9 bit-equal to plain on "
+          f"every 32nd block (counters {sk_lsub.tolist()} against plain's "
+          f"{sp_l.tolist()}), {k9_evl:.3f} ms (bound {bl[0]:.3f} ms by "
+          f"{bl[1]} over the listed pairs, {btl[0]:.3f} ms by {btl[1]} over "
+          f"what it tested; counters {skl.tolist()}; every tile swept "
+          f"{k9_swept_l:.3f} ms, {n_lanes_fuzz_l} lanes differ) / plain "
+          f"{plainl:.1f} ms on the slice; shadow winners on the lists "
+          f"against the sweep: {n_shadow_diff} of {n_shadow} differ (none "
+          f"with the sweep's hit inside its tile's box); {CHECK_W}x{CHECK_H} "
           f"fwd+bwd launches {launches_gl}, gradients against backend cuda "
           f"autograd within {max(errl.values()):.3e} of each group's max",
           flush=True)
     phase("est_trilight", t0)
 
-    # 29. one profiled pass each of config 2 and trimesh flat: K9's device
-    # time (torch.profiler) and the device's idle share
+    # 29. one profiled pass of each configuration: K9's device time
+    # (torch.profiler; CUDA events around a launch this short time the
+    # host's calls too) and the device's idle share
     t0 = time.perf_counter()
     prof = {}
     for key, tracer, state in (("config2", tracer2, st2),
-                               ("trimesh", tracert, stt)):
+                               ("config1", tracer1, st1),
+                               ("trimesh", tracert, stt),
+                               ("trilight", tracerl, stl)):
         before = counts()["simple_trace"]
         (state_p, _), wall, by_key, busy = profiled(
             torch, lambda: tracer.step(tracer.init_state()))
@@ -652,26 +784,36 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
     entry("simple_trace", cfg2, launches2,
           (out_k2 - out_p2).abs().max().item(), prof["config2"][0], plain2,
           b2, shape=f"{w2 * h2} lanes x {spp2} samples, 2 lights, "
-          f"{n_real16} real spheres; ms: torch.profiler, one pass",
-          ms_events=k9_ev2, fwd_bwd_launches=step_launches2)
+          f"{n_real16} real spheres; ms: torch.profiler, one pass; bound: "
+          f"every real sphere", ms_events=k9_ev2,
+          fwd_bwd_launches=step_launches2, bound_tested_ms=bt2[0],
+          stats=sk2.tolist())
     entry("simple_trace_flat", cfg1, launches1,
-          (out_k1 - out_p1).abs().max().item(), k9_ev1, plain1, b1,
-          shape=f"{w1 * h1} lanes x {spp1} sample; ms: CUDA events")
+          (out_k1 - out_p1).abs().max().item(), prof["config1"][0], plain1,
+          b1, shape=f"{w1 * h1} lanes x {spp1} sample; ms: torch.profiler, "
+          f"one pass", ms_events=k9_ev1, bound_tested_ms=bt1[0],
+          stats=sk1.tolist())
     entry("simple_trace_tri", cfgt, launchest,
           (out_kt[:, lanes_t] - out_pt).abs().max().item(),
           prof["trimesh"][0], plaint, bt,
           shape=f"{rt} lanes x {sppt} samples x {st_.tris.n_real} "
           f"triangles in {argst[4].shape[0]} tiles; ms: torch.profiler, "
-          f"one pass; plain: 1 lane in 32", ms_events=k9_evt,
-          list_pass_rate=reach, ms_swept=k9_swept,
+          f"one pass; plain: 1 lane in 32; bound: the listed pairs",
+          ms_events=k9_evt, list_pass_rate=reach, ms_swept=k9_swept,
           lanes_changed_by_lists=n_lanes_fuzz,
-          plain_lanes=int(out_pt.shape[1]))
+          plain_lanes=int(out_pt.shape[1]), bound_tested_ms=btt[0],
+          stats=skt.tolist())
     entry("simple_trace_trilight", cfgl, launchesl,
-          (out_kl[:, lanes_l] - out_pl).abs().max().item(), k9_evl, plainl,
-          bl, shape=f"{argsl[0].shape[1]} lanes x {sppl} samples, 1 light, "
-          f"{sl_.tris.n_real} triangles; ms: CUDA events; plain: 1 lane in "
-          f"32", plain_lanes=int(out_pl.shape[1]),
-          fwd_bwd_launches=launches_gl)
+          (out_kl[:, lanes_l] - out_pl).abs().max().item(),
+          prof["trilight"][0], plainl, bl, shape=f"{rl} lanes x {sppl} "
+          f"samples, 1 light, {sl_.tris.n_real} triangles; ms: "
+          f"torch.profiler, one pass; plain: every 32nd 256-lane block; "
+          f"bound: the listed pairs", ms_events=k9_evl,
+          plain_lanes=int(out_pl.shape[1]), fwd_bwd_launches=launches_gl,
+          bound_tested_ms=btl[0], stats=skl.tolist(), ms_swept=k9_swept_l,
+          lanes_changed_by_lists=n_lanes_fuzz_l,
+          shadow_winners_differing=n_shadow_diff,
+          shadow_searches_checked=n_shadow)
     summary.update(
         config2=dict(width=w2, height=h2, spp=spp2, rays_cast=rays2,
                      seconds=secs2, rays_per_s=[rays2 / t for t in secs2],
@@ -680,7 +822,7 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
                      fwd_bwd_peak_bytes=peak2, grad_max_rel_err=err2,
                      device_idle_share=prof["config2"][3]),
         config1=dict(width=w1, height=h1, spp=spp1, rays_cast=rays1,
-                     seconds=secs1),
+                     seconds=secs1, device_idle_share=prof["config1"][3]),
         trimesh_flat=dict(width=wt, height=ht, spp=sppt, rays_cast=rayst,
                           seconds=secst,
                           rays_per_s=[rayst / t for t in secst],
@@ -688,7 +830,9 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
                           pixels_differing_from_cuda=npxt,
                           device_idle_share=prof["trimesh"][3]),
         trilight=dict(width=wl, height=hl, spp=sppl, rays_cast=raysl,
-                      seconds=secsl, grad_max_rel_err=errl))
+                      seconds=secsl, grad_max_rel_err=errl,
+                      shadow_winners_differing=n_shadow_diff,
+                      device_idle_share=prof["trilight"][3]))
     return kernels, summary
 
 
@@ -710,6 +854,7 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts):
                                                    tri_tile_boxes)
     from tpu_ray_torch.kernels.tri_intersect import (tri_nearest_hit,
                                                      tri_nearest_hit_stream,
+                                                     tri_slices,
                                                      tri_stream_plain)
     from tpu_ray_torch.models.path_tracer import (past_residency, probe_for,
                                                   render_pixels, tile_order,
@@ -783,20 +928,28 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts):
                 f"from K7 where K7's hit lies inside its tile's box")
         ms_k = cuda_ms(torch, lambda: tri_nearest_hit_stream(
             tab, boxes, o, d, al), 3)
+        # K7, K10's reference here: its time, its slices, and its bound
+        # over every pair (counted on 1 lane in 1024)
         ms_7 = cuda_ms(torch, lambda: tri_nearest_hit(tab, o, d), 1)
+        sl7 = torch.arange(0, r, 1024, device=dev)
+        f7, _ = mt_work(torch, tab, o[sl7], d[sl7])
+        b7 = bound(f7 * r / sl7.shape[0], r * 32 + n_tri_real * TRI_BYTES)
         _, ms_p = timed(torch, lambda: tri_stream_plain(tab, boxes, o, d, al,
                                                         lanes=lanes))
         checks[b] = dict(alive=int(al.sum()), hits=int((k.t < 1e29).sum()),
                          lanes_differing_from_k7=n_diff, k10_ms=ms_k,
-                         k7_ms=ms_7, plain_ms=ms_p,
+                         k7_ms=ms_7, k7_slices=tri_slices(r, tab.shape[0],
+                                                          dev),
+                         k7_bound_ms=b7[0], plain_ms=ms_p,
                          plain_lanes=int(lanes.shape[0]))
         print(f"K10 check, bigmesh bounce {b} ({w}x{h}, sample 0, "
               f"{'sorted' if b else 'primary'}): {checks[b]['alive']} alive "
               f"lanes, {checks[b]['hits']} hits; bit-equal to plain on 1 "
               f"lane in 32, two launches bit-equal, {n_diff} alive lanes "
               f"differ from K7 (none with K7's hit inside its tile's box); "
-              f"K10 {ms_k:.3f} ms, K7 {ms_7:.3f} ms (CUDA events), plain "
-              f"{ms_p:.1f} ms on the slice", flush=True)
+              f"K10 {ms_k:.3f} ms, K7 {ms_7:.3f} ms (CUDA events; "
+              f"{checks[b]['k7_slices']} slice(s), bound {b7[0]:.3f} ms by "
+              f"{b7[1]}), plain {ms_p:.1f} ms on the slice", flush=True)
     flops = nbytes = tested_flops = 0.0
     reach_sum = live_blocks = 0
     listed = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
@@ -1109,7 +1262,8 @@ def main() -> int:
     from tpu_ray_torch.kernels.sphere_intersect import (nearest_hit_plain,
                                                         sphere_nearest_hit)
     from tpu_ray_torch.kernels.tri_intersect import (tri_hit_plain,
-                                                     tri_nearest_hit)
+                                                     tri_nearest_hit,
+                                                     tri_slices)
     from tpu_ray_torch.models.path_tracer import (render_pass, tile_order,
                                                   untile_image)
     from tpu_ray_torch.ops.accumulate import accumulate
@@ -2192,9 +2346,12 @@ def main() -> int:
 
     # 16. K7 at its path's inputs: trimesh's primary rays at 320x180 (one
     # sample: 57,600 rays x 10,368 triangles) bit-equal to the plain
-    # version, and the path itself: backend cuda's render of trimesh (K1
-    # for the sphere, K7 for the triangles, in the eager bounce loop) at
-    # 320x180, 4 spp, bit-equal to backend torch's
+    # version on every lane, and the path itself: backend cuda's render of
+    # trimesh (K1 for the sphere, K7 for the triangles, in the eager bounce
+    # loop) at 320x180, 4 spp, bit-equal to backend torch's; then trimesh's
+    # 1920x1080 primary rays (2,073,600), bit-equal to the plain version on
+    # 1 lane in 32. K7's time by CUDA events at both ray counts, beside the
+    # triangle slices it chose
     t0 = time.perf_counter()
     tscene = make_scene("trimesh", device=dev)
     tcam = default_camera(tscene)
@@ -2233,6 +2390,23 @@ def main() -> int:
     k7_plain = cuda_ms(torch, lambda: tri_hit_plain(ttab, o1, d1), 2)
     k7_flops, k7_exits = mt_work(torch, ttab, o1, d1)
     k7_bound, k7_by = bound(k7_flops, r7 * 32 + n_tri_real * TRI_BYTES)
+    k7_slices = tri_slices(r7, ttab.shape[0], dev)
+    o_hd, d_hd, _ = camera_rays(tcam, MAIN_W, MAIN_H, torch.arange(
+        MAIN_W * MAIN_H, device=dev), 0, SEED)
+    r_hd = o_hd.shape[0]
+    lanes_hd = torch.arange(0, r_hd, SLICE_STRIDE, device=dev)
+    hk_hd = tri_nearest_hit(ttab, o_hd, d_hd)
+    hp_hd, k7_plain_hd = timed(torch, lambda: tri_hit_plain(
+        ttab, o_hd[lanes_hd], d_hd[lanes_hd]))
+    require(torch.equal(hk_hd.idx[lanes_hd], hp_hd.idx)
+            and bits_equal(torch, hk_hd.t[lanes_hd], hp_hd.t),
+            f"K7: {MAIN_W}x{MAIN_H} primary rays differ from plain on 1 lane "
+            f"in 32")
+    k7_ms_hd = cuda_ms(torch, lambda: tri_nearest_hit(ttab, o_hd, d_hd), 3)
+    k7_slices_hd = tri_slices(r_hd, ttab.shape[0], dev)
+    f_hd, _ = mt_work(torch, ttab, o_hd[lanes_hd], d_hd[lanes_hd])
+    k7_bound_hd = bound(f_hd * r_hd / lanes_hd.shape[0],
+                        r_hd * 32 + n_tri_real * TRI_BYTES)
     kernels["tri_nearest_hit"] = dict(
         name="tri_nearest_hit", route="cuda",
         source="tpu_ray_torch/csrc/tri_intersect.cu",
@@ -2243,13 +2417,20 @@ def main() -> int:
         path=f"render backend=cuda trimesh {CHECK_W}x{CHECK_H} "
              f"{CHECK_SPP} spp",
         shape=f"{r7} rays x {tscene.tris.n_pad} triangles ({n_tri_real} "
-              f"real), {int(hit7.sum())} hits",
-        pairs_leaving_at=k7_exits)
+              f"real), {int(hit7.sum())} hits; ms: CUDA events",
+        pairs_leaving_at=k7_exits, slices=k7_slices,
+        ms_1080p=k7_ms_hd, slices_1080p=k7_slices_hd,
+        bound_1080p_ms=k7_bound_hd[0], plain_ms_1080p_slice=k7_plain_hd,
+        plain_lanes_1080p=int(lanes_hd.shape[0]))
     print(f"backend cuda, trimesh: {rays_c} rays, K7 launches {k7_launches},"
           f" image equal to backend torch; K7 at {r7} primary rays "
-          f"bit-equal to plain: {k7_ms:.4f} ms (bound {k7_bound:.4f} ms by "
-          f"{k7_by}; pairs leaving the test at {k7_exits}) / plain "
-          f"{k7_plain:.4f} ms", flush=True)
+          f"bit-equal to plain: {k7_ms:.4f} ms in {k7_slices} triangle "
+          f"slices (bound {k7_bound:.4f} ms by {k7_by}; pairs leaving the "
+          f"test at {k7_exits}) / plain {k7_plain:.4f} ms; at {r_hd} primary "
+          f"rays ({MAIN_W}x{MAIN_H}) bit-equal to plain on 1 lane in 32: "
+          f"{k7_ms_hd:.3f} ms in {k7_slices_hd} slice(s) (bound "
+          f"{k7_bound_hd[0]:.3f} ms by {k7_bound_hd[1]}) / plain "
+          f"{k7_plain_hd:.1f} ms on the slice; on {card}", flush=True)
     phase("k7_check", t0)
 
     # 17. the triangle main path as the CLI drives it (render --scene
@@ -3282,6 +3463,10 @@ def main() -> int:
     # 30-33. the route past the residency rule: bigmesh on K10
     big_kernels, big = bigmesh_phases(torch, dev, card, reset_counts, counts)
     kernels.update(big_kernels)
+    # K7 is K10's reference on bigmesh's states (phase 30)
+    kernels["tri_nearest_hit"]["bigmesh"] = {
+        f"bounce {b}": {k: c[k] for k in ("k7_ms", "k7_slices", "k7_bound_ms")}
+        for b, c in big_kernels["tri_nearest_hit_stream"]["checks"].items()}
 
     phase("total", t_all)
 

@@ -400,6 +400,92 @@ def test_k7_matches_plain_on_card(cuda_device):
         assert (a.t < 1e29).any()
 
 
+def _k7_rays(dev, n, seed):
+    """n random rays from inside trimesh's extent, unit directions."""
+    g = np.random.default_rng(seed)
+    o = torch.as_tensor(g.uniform(-0.3, 0.3, (n, 3)).astype(np.float32),
+                        device=dev)
+    d = torch.nn.functional.normalize(torch.as_tensor(
+        g.normal(size=(n, 3)).astype(np.float32), device=dev), dim=1)
+    return o, d
+
+
+def _k7_check(tab, o, d, slices):
+    a = tri_nearest_hit(tab, o, d, slices=slices)
+    b = tri_hit_plain(tab, o, d)
+    torch.cuda.synchronize()
+    assert torch.equal(a.idx, b.idx) and torch.equal(_bits(a.t), _bits(b.t))
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 37, 57600])
+def test_k7_slices_match_plain_on_card(cuda_device, r):
+    """K7 bit-equal to nearest_hit_tri on trimesh at ragged ray counts,
+    with the triangle axis in the slices it picks, in one slice and in
+    several (each merged by its 64-bit (t, id) key)."""
+    from tpu_ray_torch.kernels.tri_intersect import tri_slices
+    ts = make_scene("trimesh", device=cuda_device)
+    tab = tri_search_table(ts.tris)
+    o, d = _k7_rays(cuda_device, r, r)
+    picked = tri_slices(r, tab.shape[0], cuda_device)
+    assert picked > 1          # these counts do not fill the card alone
+    for slices in (None, 1, 3, 81):
+        hit = _k7_check(tab, o, d, slices)
+    assert r == 1 or (hit.t < 1e29).any()
+
+
+@pytest.mark.cuda
+def test_k7_single_slice_threshold_on_card(cuda_device):
+    """At the smallest ray count that K7 sweeps in one slice, and one ray
+    fewer (split again), bit-equal to the plain version, in the slices it
+    picks and forced to one and to four; 512 of trimesh's triangles keep
+    the plain sweep short."""
+    from tpu_ray_torch.kernels.tri_intersect import tri_slices
+    ts = make_scene("trimesh", device=cuda_device)
+    tab = tri_search_table(ts.tris)[:512].contiguous()
+    m = tab.shape[0]
+    lo, hi = 1, 1 << 24        # tri_slices(lo) > 1 == tri_slices(hi)
+    assert tri_slices(lo, m, cuda_device) > 1
+    assert tri_slices(hi, m, cuda_device) == 1
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if tri_slices(mid, m, cuda_device) == 1:
+            hi = mid
+        else:
+            lo = mid
+    o, d = _k7_rays(cuda_device, hi, 5)
+    assert tri_slices(hi - 1, m, cuda_device) == 2
+    for r in (hi - 1, hi):
+        for slices in (None, 1, 4):
+            _k7_check(tab, o[:r], d[:r], slices)
+
+
+@pytest.mark.cuda
+def test_k7_exact_tie_and_misses_across_slices_on_card(cuda_device):
+    """A triangle (id 5) and its copy in another slice (id 700) at the same
+    t: the lower id wins in any slice count; rays that meet nothing miss
+    (t = 1e30, idx 0) as the plain version does."""
+    tab = torch.zeros((1024, 9), device=cuda_device)
+    big = torch.tensor([-10.0, -10.0, 5.0, 40.0, 0.0, 0.0, 0.0, 40.0, 0.0],
+                       device=cuda_device)
+    tab[5] = big
+    tab[700] = big
+    g = np.random.default_rng(7)
+    o = torch.as_tensor(np.c_[g.uniform(-1, 1, (3000, 2)),
+                              np.zeros(3000)].astype(np.float32),
+                        device=cuda_device)
+    z = np.where(np.arange(3000) % 3 == 0, -1.0, 1.0)[:, None]
+    d = torch.nn.functional.normalize(torch.as_tensor(np.c_[
+        g.uniform(-0.05, 0.05, (3000, 2)), z].astype(np.float32),
+        device=cuda_device), dim=1)
+    up = d[:, 2] > 0
+    for slices in (None, 1, 2, 4, 7):
+        hit = _k7_check(tab, o, d, slices)
+        assert bool((hit.idx[up] == 5).all())
+        assert bool((hit.t[~up] == 1e30).all() and (hit.idx[~up] == 0).all())
+
+
 @pytest.mark.cuda
 def test_k2_triangle_mode_matches_plain_on_card(cuda_device):
     """K2 over trimesh, forward-only and recording, bit-equal to
@@ -716,10 +802,10 @@ def _tie_soup(dev):
 @pytest.mark.cuda
 def test_exact_tie_across_tiles_on_card(cuda_device):
     """An exact tie in t between two tiles, where the front-to-back order
-    folds the higher id's tile first: K10, K2's listed mode, K8 and K4's
-    triangle mode (its spheres culled) keep the lowest id, as their plain
-    versions do, with every lane alive (each lane folds the tile itself)
-    and with 4 lanes a warp (the warp shares each lane's fold)."""
+    folds the higher id's tile first: K10, K2's listed mode, K8, K4's
+    triangle mode (its spheres culled) and K9 keep the lowest id, as their
+    plain versions do, with every lane alive (each lane folds the tile
+    itself) and with 4 lanes a warp (the warp shares each lane's fold)."""
     import dataclasses
 
     from tpu_ray_torch.core.scene import SceneBuilder
@@ -782,6 +868,27 @@ def test_exact_tie_across_tiles_on_card(cuda_device):
             assert bool((idx_p[on] == n_sph + 5).all())
             assert torch.equal(idx_k, idx_p)
             assert torch.equal(_bits(out_k), _bits(out_p))
+
+    # K9, flat, on the camera's rays (all meet both copies at one t): the
+    # copy at id 130 is brighter, so the winner shows in the colour; all
+    # 512 lanes of a block, and 4
+    from tpu_ray_torch.kernels.simple_shade import (lane_rows, simple_trace,
+                                                    simple_trace_plain)
+    alb = z + 0.5
+    alb[130] = 0.9
+    table9 = prim_table(dataclasses.replace(
+        base, tris=dataclasses.replace(tris, albedo=alb)))
+    rows = lane_rows(torch.arange(512, device=cuda_device), 32, 0)
+    kw9 = dict(n_sph=n_sph, spp=1, s0=0, width=32, height=16, use_sky=True,
+               flat=True, sph=sphere_tiles(table9[:n_sph]))
+    for lanes in (512, 4):
+        args = (rows[:, :lanes].contiguous(), cam, table9, tab, boxes, None,
+                None)
+        got = simple_trace(*args, **kw9)
+        want = simple_trace_plain(*args, **kw9)
+        torch.cuda.synchronize()
+        assert bool((want[0:3] == 0.5).all())
+        assert torch.equal(_bits(got), _bits(want))
 
 
 # ---------------------------------------------------------------------------
@@ -910,9 +1017,35 @@ def _estimator_inputs(name, dev, w, h, lights=None):
     ts = (make_trilight_scene(device=dev) if name == "trilight"
           else make_scene(name, device=dev))
     lights = scene_light_indices(ts) if lights is None else lights
-    tb = simple_tables(ts, lights)
+    tb = simple_tables(ts, lights,
+                       origin_bound(default_camera(ts).position[None]))
     px = torch.as_tensor(tile_order(w, h)[0], device=dev)
     return tb, lane_rows(px, w, 0), cam13(default_camera(ts), 3)
+
+
+def _k9_pair(args, kw, sph):
+    """K9 and its plain version on the same inputs, with their counters
+    -> (kernel out, plain out, kernel stats, plain stats)."""
+    from tpu_ray_torch.kernels.simple_shade import (N_STATS, simple_trace,
+                                                    simple_trace_plain)
+    dev = args[0].device
+    sk = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
+    sp = torch.zeros_like(sk)
+    before = simple_trace.launches
+    got = simple_trace(*args, **kw, sph=sph, stats=sk)
+    torch.cuda.synchronize()
+    assert simple_trace.launches == before + 1
+    want = simple_trace_plain(*args, **kw, sph=sph, stats=sp)
+    return got, want, sk, sp
+
+
+def _k9_stats_agree(sk, sp):
+    """The kernel's counters equal the plain version's, but the pairs
+    tested (index 4), which K9's front-to-back walk cuts short of every
+    listed pair."""
+    k, p = sk.tolist(), sp.tolist()
+    assert k[:4] == p[:4] and k[5:] == p[5:], (k, p)
+    assert k[4] <= p[4], (k, p)
 
 
 @pytest.mark.cuda
@@ -922,10 +1055,10 @@ def _estimator_inputs(name, dev, w, h, lights=None):
 def test_k9_matches_plain_on_card(cuda_device, name, flat):
     """K9 against simple_trace_plain bit for bit, flat and Lambert, on
     spheres and triangles, at 50x30 = 1,500 lanes (not a multiple of the
-    256-lane block), 2 spp from sample 1; on a triangle scene with the
-    block lists and with every tile swept."""
-    from tpu_ray_torch.kernels.simple_shade import (simple_trace,
-                                                    simple_trace_plain)
+    256-lane block), 2 spp from sample 1, the spheres over their tiles;
+    on a triangle scene with the primary and shadow block lists and with
+    every tile swept; the counters equal the plain version's (the pairs
+    tested at most its)."""
     tb, rows, cam = _estimator_inputs(name, cuda_device, 50, 30)
     kw = dict(n_sph=tb["n_sph"], spp=2, s0=1, width=50, height=30,
               use_sky=tb["use_sky"], flat=flat)
@@ -933,32 +1066,38 @@ def test_k9_matches_plain_on_card(cuda_device, name, flat):
                   else (None,)):
         args = (rows, cam, tb["table"], tb["tri"], boxes, tb["lidx"],
                 tb["ldat"])
-        before = simple_trace.launches
-        got = simple_trace(*args, **kw)
-        torch.cuda.synchronize()
-        assert simple_trace.launches == before + 1
-        want = simple_trace_plain(*args, **kw)
+        got, want, sk, sp = _k9_pair(args, kw, tb["sph"])
         assert torch.equal(got, want), (got - want).abs().max()
-        assert float(got[3].min()) >= 2.0 and bool(torch.isfinite(got).all())
+        assert float(got[3].min()) >= 2.0
+        assert bool(torch.isfinite(got).all())
+        _k9_stats_agree(sk, sp)
+        assert sk[7] > 0
+        assert (sk[2] > 0) == (tb["tri"] is not None)
+        assert (sk[0] > 0) == (boxes is not None)
+        if not flat and boxes is not None:
+            assert sk[1] > 0 and sk[3] > 0
 
 
 @pytest.mark.cuda
 def test_k9_launch_raises_on_bad_input(cuda_device):
-    """The wrapper refuses a wrong shape or a CPU tensor, and the launch
-    refuses a sphere table past shared memory (no fallback)."""
+    """The wrapper refuses a wrong shape, a CPU tensor or no sphere
+    tiles, and the launch refuses a sphere table past shared memory (no
+    fallback)."""
     from tpu_ray_torch.kernels.simple_shade import simple_trace
     tb, rows, cam = _estimator_inputs("sixteen", cuda_device, 16, 16)
     kw = dict(n_sph=tb["n_sph"], spp=1, s0=0, width=16, height=16,
-              use_sky=False, flat=False)
+              use_sky=False, flat=False, sph=tb["sph"])
     args = (tb["table"], None, None, tb["lidx"], tb["ldat"])
     with pytest.raises(ValueError):
         simple_trace(rows[:2].contiguous(), cam, *args, **kw)
     with pytest.raises(ValueError):
         simple_trace(rows, cam.cpu(), *args, **kw)
+    with pytest.raises(ValueError, match="sph"):
+        simple_trace(rows, cam, *args, **dict(kw, sph=None))
     big = torch.zeros((20000, 12), device=cuda_device)
     with pytest.raises(RuntimeError, match="trt_simple_trace"):
         simple_trace(rows, cam, big, None, None, tb["lidx"], tb["ldat"],
-                     **dict(kw, n_sph=20000))
+                     **dict(kw, n_sph=20000, sph=sphere_tiles(big)))
 
 
 @pytest.mark.cuda

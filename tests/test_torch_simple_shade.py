@@ -53,7 +53,8 @@ from tpu_ray_torch.core.camera import (camera_to_numpy, default_camera,
                                        trainable_camera)
 from tpu_ray_torch.core.scene import (make_scene, make_trilight_scene,
                                       scene_to_numpy, trainable_scene)
-from tpu_ray_torch.kernels.bounce_step import _block_reach, init_state
+from tpu_ray_torch.kernels.bounce_step import (_block_reach, init_state,
+                                               origin_bound)
 from tpu_ray_torch.kernels.regen import cam13
 from tpu_ray_torch.kernels.simple_shade import (
     SimpleTrace, lane_rows, make_simple_trace, simple_tables,
@@ -73,6 +74,11 @@ def _scenes(name):
     if name == "trilight":
         return _tri_light_scene(), make_trilight_scene(device="cpu")
     return jmake_scene(name), make_scene(name, device="cpu")
+
+
+def _bound(scene):
+    """The camera's origin bound of the scene's sphere tiles."""
+    return origin_bound(default_camera(scene).position[None])
 
 
 def _close(got, want, min_match, atol=2e-5):
@@ -100,13 +106,14 @@ def jax_kernel():
 def test_plain_matches_jax_kernel(jax_kernel, name):
     _, ts = _scenes(name)
     lights = scene_light_indices(ts)
-    tb = simple_tables(ts, lights)
+    tb = simple_tables(ts, lights, _bound(ts))
     px = torch.as_tensor(tile_order(W, H)[0])
     before = simple_trace.launches
     out = simple_trace(lane_rows(px, W, 0), cam13(default_camera(ts), 5),
                        tb["table"], tb["tri"], tb["boxes"], tb["lidx"],
                        tb["ldat"], n_sph=tb["n_sph"], spp=2, s0=3, width=W,
-                       height=H, use_sky=tb["use_sky"], flat=False)
+                       height=H, use_sky=tb["use_sky"], flat=False,
+                       sph=tb["sph"])
     assert simple_trace.launches == before     # CPU: the plain version
     color, rays = jax_kernel[name]
     assert int(out[3].sum()) == rays
@@ -136,7 +143,7 @@ def trimesh_listed():
     """trimesh flat at 48x32, 1 spp from sample 1: K9's inputs and the
     plain version's output with the primary folds' block lists."""
     ts = make_scene("trimesh", device="cpu")
-    tb = simple_tables(ts, ())
+    tb = simple_tables(ts, (), _bound(ts))
     w, h = 48, 32
     px = torch.as_tensor(tile_order(w, h)[0])
     args = (lane_rows(px, w, 0), cam13(default_camera(ts), 2), tb["table"],
@@ -303,4 +310,4 @@ def test_bigmesh_estimators_refuse():
         assert bool(torch.isfinite(ref).all()) and ref.mean().item() > 0.01
         assert torch.equal(img_c, ref) and torch.equal(img_f, ref)
     with pytest.raises(NotImplementedError, match="probe route"):
-        simple_tables(big, ())
+        simple_tables(big, (), _bound(big))

@@ -153,20 +153,6 @@ __device__ __forceinline__ void store_lane(float* st, size_t r, size_t i,
 #undef ROW
 }
 
-// The sphere tiles of K4's culled search (kernels/regen.py sphere_tiles;
-// boxes nullptr: none): tile t holds spheres [starts[t], starts[t + 1])
-// with the inflated box boxes[6 t .. 6 t + 6), group g the tiles
-// [gstarts[g], gstarts[g + 1]) with the union of their boxes.
-struct TrtSphTiles {
-  const float* boxes;
-  const int* starts;
-  int n_tiles;
-  const float* gboxes;
-  const int* gstarts;
-  int n_groups;
-  float o_lim;
-};
-
 // mask: nullptr, or [gridDim.x, n_tiles] i32 (nonzero = search the tile);
 // tile t holds spheres [t * block_n, min((t + 1) * block_n, n_sph)). sp:
 // the culled search's tiles (not with a mask). TRI: the triangle mode,
@@ -258,8 +244,8 @@ bounce_fwd_kernel(const float* __restrict__ st, float* __restrict__ out,
 // tri [m, 9] v0|e1|e2 (ids n_sph + j); boxes [n_tiles, 6], tile t holds
 // triangles [t * block_m, min((t + 1) * block_m, m)). stats (nullptr, or
 // 3 u64 added to): listed tiles summed over the live blocks, live blocks,
-// ray-triangle pairs tested (block_m a tile a lane tested). Dynamic shared
-// memory: n_sph spheres (float4), the ordered list
+// ray-triangle pairs tested (a tile's triangles a lane tested). Dynamic
+// shared memory: n_sph spheres (float4), the ordered list
 // (trt_pow2_at_least(n_tiles) u64), the boxes (6 * n_tiles floats), a
 // staged tile (9 * block_m floats) and the group boxes (6 floats a group
 // of 32 tiles).
@@ -314,7 +300,7 @@ bounce_fwd_list_kernel(const float* __restrict__ st, float* __restrict__ out,
         atomicAdd(stats + 1, 1ull);
       }
       const unsigned pairs = __reduce_add_sync(
-          0xffffffffu, (unsigned)tested * (unsigned)block_m);
+          0xffffffffu, (unsigned)tested);
       if ((threadIdx.x & 31) == 0 && pairs) {
         atomicAdd(stats + 2, (unsigned long long)pairs);
       }

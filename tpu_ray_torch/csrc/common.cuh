@@ -94,17 +94,15 @@ __device__ __forceinline__ void trt_nearest_sphere(
   trt_fold_spheres(sph, 0, n, ox, oy, oz, dx, dy, dz, t_out, idx_out);
 }
 
-// ops/intersect_tri.py _mt_slab for one ray and the triangle at w (v0,
-// e1, e2: 9 floats): Möller-Trumbore in the plain version's op order.
+// ops/intersect_tri.py _mt_slab for one ray and the triangle (v0, e1,
+// e2): Möller-Trumbore in the plain version's op order.
 // -> whether it is a hit (|det| > 1e-9, u >= 0, v >= 0, u + v <= 1,
 // t > 1e-4), with its t. A triangle that fails the det or u test returns
 // early; every value it does compute is the plain version's.
-__device__ __forceinline__ bool trt_tri_hit(const float* w, float ox,
-                                            float oy, float oz, float dx,
-                                            float dy, float dz, float& t) {
-  const float v0x = w[0], v0y = w[1], v0z = w[2];
-  const float e1x = w[3], e1y = w[4], e1z = w[5];
-  const float e2x = w[6], e2y = w[7], e2z = w[8];
+__device__ __forceinline__ bool trt_tri_hit_regs(
+    float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
+    float e2x, float e2y, float e2z, float ox, float oy, float oz, float dx,
+    float dy, float dz, float& t) {
   // pvec = d x e2
   const float px = dy * e2z - dz * e2y;
   const float py = dz * e2x - dx * e2z;
@@ -123,6 +121,14 @@ __device__ __forceinline__ bool trt_tri_hit(const float* w, float ox,
   const float v = (dx * qx + dy * qy + dz * qz) * inv;
   t = (e2x * qx + e2y * qy + e2z * qz) * inv;
   return v >= 0.0f && u + v <= 1.0f && t > TRT_F32_EPS;
+}
+
+// trt_tri_hit_regs of the triangle at w (v0, e1, e2: 9 floats).
+__device__ __forceinline__ bool trt_tri_hit(const float* w, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float& t) {
+  return trt_tri_hit_regs(w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7],
+                          w[8], ox, oy, oz, dx, dy, dz, t);
 }
 
 // ops/intersect_tri.py nearest_hit_tri folded over the triangles [j0, j1)
@@ -262,7 +268,9 @@ __host__ __device__ __forceinline__ int trt_list_scratch(int n_tiles) {
 // counts with shuffles, and every thread writes its tiles' places, so lst
 // holds the reached ids in ascending order. -> the count. Every thread of
 // the block calls it (it holds barriers); blockDim.x is a multiple of 32.
-// scratch: trt_list_scratch(n_tiles) ints, lst: n_tiles ints, shared.
+// scratch: trt_list_scratch(n_tiles) ints, lst: n_tiles ints, shared. No
+// kernel of the build calls it: tools/fold_order.py patches it, with
+// trt_fold_tiles_staged, into a copy of K2 to time the ascending fold.
 __device__ __forceinline__ int trt_block_list(bool active, float ox,
                                               float oy, float oz, float dx,
                                               float dy, float dz,
@@ -490,8 +498,8 @@ __device__ __forceinline__ void trt_fold_tile_warp(const float* tile,
 // fuzz the lists already allow against a full sweep) can be passed over.
 // A tile that few lanes of a warp need is shared by the warp
 // (trt_fold_tile_warp). wmax: one shared u32 a warp (the f32 bits of its
-// lanes' largest best, refreshed after each fold). tested: += the tiles
-// this lane tested.
+// lanes' largest best, refreshed after each fold). tested: += the
+// triangles of the tiles this lane tested (ray-triangle pairs).
 // Every thread of the block calls it (it holds barriers); only active
 // lanes fold.
 __device__ __forceinline__ void trt_fold_tiles_ordered(
@@ -526,7 +534,7 @@ __device__ __forceinline__ void trt_fold_tiles_ordered(
     }
     __syncthreads();
     trt_fold_tile_warp(tile, nj, id0 + j0, need, ray, best, bi);
-    tested += need;
+    tested += need ? nj : 0;
     const unsigned w_best = __reduce_max_sync(
         0xffffffffu, active ? __float_as_uint(best) : 0u);
     if ((threadIdx.x & 31) == 0) wmax[warp] = w_best;
@@ -703,6 +711,20 @@ __device__ __forceinline__ void trt_fold_sph_tiles(
     }
   }
 }
+
+// The sphere tiles of a culled search (kernels/regen.py sphere_tiles;
+// boxes nullptr: none), K4's and K9's: tile t holds spheres [starts[t],
+// starts[t + 1]) with the inflated box boxes[6 t .. 6 t + 6), group g the
+// tiles [gstarts[g], gstarts[g + 1]) with the union of their boxes.
+struct TrtSphTiles {
+  const float* boxes;
+  const int* starts;
+  int n_tiles;
+  const float* gboxes;
+  const int* gstarts;
+  int n_groups;
+  float o_lim;
+};
 
 // Stage n spheres (center [n,3], radius [n]) into shared memory.
 __device__ __forceinline__ void trt_stage_spheres(

@@ -85,9 +85,9 @@
 //   a warp need tested by the whole warp for each of them in turn, and
 //   the winner compared by (t, id). On trimesh this fold tests about a
 //   tenth of the listed pairs and measured 4.5x faster than the ascending
-//   fold of every listed tile (trt_block_list and trt_fold_tiles_staged,
-//   which K9 keeps), which tools/fold_order.py builds into a copy of this
-//   kernel to compare (PERF.md). K8 folds its bounce the same way.
+//   fold of every listed tile (trt_block_list and trt_fold_tiles_staged),
+//   which tools/fold_order.py builds into a copy of this kernel to compare
+//   (PERF.md). K8 and K9 fold their searches the same way.
 #include "regen_step.cuh"
 
 namespace {
@@ -262,7 +262,7 @@ regen_list_kernel(float* __restrict__ st, int r,
   TrtLane L = {};
   if (in) L = trt_load_lane(st, r, i);
   int t_lane = steps;  // the steps this lane was alive for
-  int tested = 0;      // tiles this lane tested, for stats
+  int tested = 0;      // pairs this lane tested, for stats
   for (int k = 0; k < steps; ++k) {
     const bool alive = in && L.alive > 0.5f;
     if (in && !alive && t_lane == steps) {
@@ -297,7 +297,7 @@ regen_list_kernel(float* __restrict__ st, int r,
   }
   if (stats) {
     const unsigned pairs = __reduce_add_sync(
-        0xffffffffu, (unsigned)tested * (unsigned)block_m);
+        0xffffffffu, (unsigned)tested);
     if ((threadIdx.x & 31) == 0) {
       atomicAdd(stats + 2, (unsigned long long)pairs);
     }

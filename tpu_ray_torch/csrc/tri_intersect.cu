@@ -8,72 +8,199 @@
 // gives t = 1e30 and idx = 0. The TPU kernel's bf16x3 split bilinear
 // tables (tri_search_tables: det, t*det, u*det and v*det as MXU products)
 // and packed (t|idx) argmin are TPU mechanism and are not carried over:
-// an H100 thread runs the f32 chain of common.cuh trt_tri_hit, the plain
-// version's op order, so the two agree bit for bit.
+// an H100 thread runs the f32 chain of common.cuh trt_tri_hit_regs, the
+// plain version's op order, so the two agree bit for bit on every lane.
+// Every triangle is tested: no box culls a pair, since Möller-Trumbore
+// accepts a grazing hit outside its tile's inflated box, which the full
+// sweep must fold.
 //
-// Bound on the H100: fp32 ALU. A ray-triangle test is ~45 flops when it
-// passes the det and u tests (fewer when it does not) against 36 B of
-// triangle read from shared memory; the ray is 24 B in and 8 B out, so at
-// 10,368 triangles the work is ~10^5 flops per 32 B of device memory.
+// Bound on the H100: fp32 ALU. A ray-triangle test is 14, 24 or 46 flops
+// by where it leaves trt_tri_hit_regs, against 36 B of triangle read from
+// shared memory; the ray is 24 B in and 8 B out, so at 10,368 triangles
+// the work is ~10^5 flops per 32 B of device memory. The kernels are
+// built with -fmad=false (bit parity with the plain version), so no
+// multiply and add fuse: the sweep can reach at most half of the bound
+// priced at the 67 TFLOP/s fp32 peak, which counts an FMA as two.
 //
-// Design: one thread per ray. The triangle table (36 B a triangle, 373 KB
-// for trimesh) does not fit shared memory, so each block stages it in
-// tiles of TRT_TRI_TILE triangles (36 KB) between two __syncthreads (the
-// search has no early exit, so every thread reaches them), and every
-// thread sweeps the staged tile with a broadcast read. A thread owns its
-// ray's argmin, so no cross-thread reduction is needed; the tiles are
-// folded in id order with strict <, so the lowest index wins a tie.
+// Design, against that bound:
+// - Several rays a thread (TRT_K7_RAYS), in registers: each staged
+//   triangle feeds that many independent test chains, which hide each
+//   other's latency (the IEEE 1 / det and the dependent dot products),
+//   and costs three broadcast float4 reads from shared memory (rows
+//   padded to 12 floats) for all of them.
+// - The triangle axis is split where the rays alone do not fill the card
+//   (trt_tri_slices: the grid is ray blocks x triangle slices, aiming at
+//   TRT_K7_WAVES waves of resident blocks). Each block folds its slice in
+//   ascending id with strict <, then merges each hit into its ray's 64-bit
+//   key (f32 bits of t << 32 | id) with atomicMin: t > 0, so the bits
+//   order as the floats and an equal t keeps the lower id; the global min
+//   is the ascending fold's winner whatever order the blocks run in. The
+//   keys start all ones (a memset; no triangle can produce that key), and
+//   a second small launch unpacks them into t and idx. At one slice (the
+//   1920x1080 wavefront fills the card alone) the block writes t and idx
+//   itself, with no atomics and no second launch.
+// - Tiles of TRT_K7_TILE triangles are staged between two __syncthreads:
+//   with TRT_K7_RAYS rays a thread, a tile is 1,024 tests a thread
+//   between barriers. The search has no early exit, so every thread
+//   reaches them.
 #include "common.cuh"
 
-#define TRT_TRI_TILE 1024
+#define TRT_K7_THREADS 128
+#define TRT_K7_RAYS 4
+#define TRT_K7_BLOCK_RAYS (TRT_K7_THREADS * TRT_K7_RAYS)
+#define TRT_K7_TILE 256
+// the grid aims at this many waves of resident blocks
+#define TRT_K7_WAVES 3
+// the fewest triangles a slice holds (fewer slices past it)
+#define TRT_K7_MIN_SLICE 128
 
 namespace {
 
-__global__ void tri_nearest_hit_kernel(const float* __restrict__ tri, int m,
-                                       const float* __restrict__ origin,
-                                       const float* __restrict__ direction,
-                                       int r, float* __restrict__ t_out,
-                                       int* __restrict__ idx_out) {
-  __shared__ float tile[TRT_TRI_TILE * 9];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < r;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  if (in) {
-    ox = origin[3 * i]; oy = origin[3 * i + 1]; oz = origin[3 * i + 2];
-    dx = direction[3 * i]; dy = direction[3 * i + 1];
-    dz = direction[3 * i + 2];
+// Ray block blockIdx.x (rays blockIdx.x * TRT_K7_BLOCK_RAYS + k *
+// TRT_K7_THREADS + threadIdx.x, k < TRT_K7_RAYS) against the triangles
+// [blockIdx.y * slice_m, min(m, (blockIdx.y + 1) * slice_m)). SPLIT: merge
+// into keys (atomicMin); else write t_out and idx_out.
+template <bool SPLIT>
+__global__ void __launch_bounds__(TRT_K7_THREADS)
+tri_nearest_hit_kernel(const float* __restrict__ tri, int m, int slice_m,
+                       const float* __restrict__ origin,
+                       const float* __restrict__ direction, int r,
+                       float* __restrict__ t_out, int* __restrict__ idx_out,
+                       unsigned long long* __restrict__ keys) {
+  __shared__ float4 tile[3 * TRT_K7_TILE];
+  const int i0 = blockIdx.x * TRT_K7_BLOCK_RAYS + threadIdx.x;
+  float ox[TRT_K7_RAYS], oy[TRT_K7_RAYS], oz[TRT_K7_RAYS];
+  float dx[TRT_K7_RAYS], dy[TRT_K7_RAYS], dz[TRT_K7_RAYS];
+  float best[TRT_K7_RAYS];
+  int bi[TRT_K7_RAYS];
+#pragma unroll
+  for (int k = 0; k < TRT_K7_RAYS; ++k) {
+    const int i = i0 + k * TRT_K7_THREADS;
+    // a ray past r has d = 0: det = 0 fails every triangle at once
+    ox[k] = oy[k] = oz[k] = dx[k] = dy[k] = dz[k] = 0.0f;
+    if (i < r) {
+      ox[k] = origin[3 * (size_t)i];
+      oy[k] = origin[3 * (size_t)i + 1];
+      oz[k] = origin[3 * (size_t)i + 2];
+      dx[k] = direction[3 * (size_t)i];
+      dy[k] = direction[3 * (size_t)i + 1];
+      dz[k] = direction[3 * (size_t)i + 2];
+    }
+    best[k] = TRT_F32_MAX;
+    bi[k] = 0;
   }
-  float best = TRT_F32_MAX;
-  int bi = 0;
-  for (int j0 = 0; j0 < m; j0 += TRT_TRI_TILE) {
-    const int cnt = min(TRT_TRI_TILE, m - j0);
-    __syncthreads();
-    for (int k = threadIdx.x; k < 9 * cnt; k += blockDim.x) {
-      tile[k] = tri[(size_t)9 * j0 + k];
+  const int j_begin = blockIdx.y * slice_m;
+  const int j_end = min(m, j_begin + slice_m);
+  for (int j0 = j_begin; j0 < j_end; j0 += TRT_K7_TILE) {
+    const int cnt = min(TRT_K7_TILE, j_end - j0);
+    __syncthreads();     // every thread is done with the previous tile
+    for (int q = threadIdx.x; q < cnt; q += TRT_K7_THREADS) {
+      const float* w = tri + 9 * (size_t)(j0 + q);
+      tile[3 * q] = make_float4(w[0], w[1], w[2], w[3]);
+      tile[3 * q + 1] = make_float4(w[4], w[5], w[6], w[7]);
+      tile[3 * q + 2] = make_float4(w[8], 0.0f, 0.0f, 0.0f);
     }
     __syncthreads();
-    if (in) trt_fold_tris(tile, 0, cnt, j0, ox, oy, oz, dx, dy, dz, best, bi);
+    for (int j = 0; j < cnt; ++j) {
+      const float4 a = tile[3 * j], b = tile[3 * j + 1], c = tile[3 * j + 2];
+#pragma unroll
+      for (int k = 0; k < TRT_K7_RAYS; ++k) {
+        float t;
+        if (trt_tri_hit_regs(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x,
+                             ox[k], oy[k], oz[k], dx[k], dy[k], dz[k], t) &&
+            t < best[k]) {
+          best[k] = t;
+          bi[k] = j0 + j;
+        }
+      }
+    }
   }
-  if (in) {
-    t_out[i] = best;
-    idx_out[i] = bi;
+#pragma unroll
+  for (int k = 0; k < TRT_K7_RAYS; ++k) {
+    const int i = i0 + k * TRT_K7_THREADS;
+    if (i >= r) continue;
+    if (SPLIT) {
+      if (best[k] < TRT_F32_MAX) {
+        atomicMin(keys + i,
+                  ((unsigned long long)__float_as_uint(best[k]) << 32) |
+                      (unsigned)bi[k]);
+      }
+    } else {
+      t_out[i] = best[k];
+      idx_out[i] = bi[k];
+    }
   }
+}
+
+// keys [r] (all ones: no slice hit) -> t_out, idx_out.
+__global__ void tri_unpack_kernel(const unsigned long long* __restrict__ keys,
+                                  int r, float* __restrict__ t_out,
+                                  int* __restrict__ idx_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= r) return;
+  const unsigned long long key = keys[i];
+  const bool hit = key != ~0ull;
+  t_out[i] = hit ? __uint_as_float((unsigned)(key >> 32)) : TRT_F32_MAX;
+  idx_out[i] = hit ? (int)(unsigned)key : 0;
 }
 
 }  // namespace
 
-// tri [m, 9] v0|e1|e2; origin, direction [r, 3]; t_out [r] f32, idx_out
-// [r] i32.
+// The triangle slices of a launch of r rays over m triangles on the
+// current device -> at least 1; 1 where the ray blocks alone make
+// TRT_K7_WAVES waves of resident blocks, else enough slices for that many
+// blocks, each slice at least TRT_K7_MIN_SLICE triangles. A negative
+// return is a CUDA error.
+extern "C" int trt_tri_slices(int r, int m) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, tri_nearest_hit_kernel<true>, TRT_K7_THREADS, 0);
+  }
+  if (err != cudaSuccess) return -(int)err;
+  const long long want = (long long)TRT_K7_WAVES * n_sm * per_sm;
+  const long long ray_blocks =
+      ((long long)r + TRT_K7_BLOCK_RAYS - 1) / TRT_K7_BLOCK_RAYS;
+  if (ray_blocks < 1 || ray_blocks >= want) return 1;
+  const long long s = (want + ray_blocks - 1) / ray_blocks;
+  const long long most =
+      ((long long)m + TRT_K7_MIN_SLICE - 1) / TRT_K7_MIN_SLICE;
+  return (int)(s < most ? s : most > 1 ? most : 1);
+}
+
+// tri [m, 9] v0|e1|e2; origin, direction [r, 3]; slices >= 1 (the
+// triangle axis split in that many ascending slices); keys [r] u64
+// scratch, needed when slices > 1; t_out [r] f32, idx_out [r] i32.
 extern "C" int trt_tri_nearest_hit(const float* tri, int m,
                                    const float* origin,
-                                   const float* direction, int r,
-                                   float* t_out, int* idx_out,
-                                   cudaStream_t stream) {
-  if (m < 0) return (int)cudaErrorInvalidValue;
+                                   const float* direction, int r, int slices,
+                                   unsigned long long* keys, float* t_out,
+                                   int* idx_out, cudaStream_t stream) {
+  if (m < 0 || r < 0 || slices < 1 || slices > 65535 ||
+      (slices > 1 && keys == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (r == 0) return 0;
-  const int threads = 256;
-  const int blocks = (r + threads - 1) / threads;
-  tri_nearest_hit_kernel<<<blocks, threads, 0, stream>>>(
-      tri, m, origin, direction, r, t_out, idx_out);
+  const int slice_m = (int)(((long long)m + slices - 1) / slices);
+  const dim3 grid((r + TRT_K7_BLOCK_RAYS - 1) / TRT_K7_BLOCK_RAYS, slices);
+  if (slices == 1) {
+    tri_nearest_hit_kernel<false><<<grid, TRT_K7_THREADS, 0, stream>>>(
+        tri, m, slice_m, origin, direction, r, t_out, idx_out, nullptr);
+    return (int)cudaGetLastError();
+  }
+  cudaError_t err = cudaMemsetAsync(keys, 0xff,
+                                    (size_t)r * sizeof(unsigned long long),
+                                    stream);
+  if (err != cudaSuccess) return (int)err;
+  tri_nearest_hit_kernel<true><<<grid, TRT_K7_THREADS, 0, stream>>>(
+      tri, m, slice_m, origin, direction, r, nullptr, nullptr, keys);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tri_unpack_kernel<<<(r + 255) / 256, 256, 0, stream>>>(keys, r, t_out,
+                                                         idx_out);
   return (int)cudaGetLastError();
 }

@@ -112,7 +112,7 @@ __global__ void tri_stream_kernel(const float* __restrict__ tri, int m,
   }
   if (stats) {
     const unsigned pairs = __reduce_add_sync(
-        0xffffffffu, (unsigned)tested * (unsigned)block_m);
+        0xffffffffu, (unsigned)tested);
     if ((threadIdx.x & 31) == 0) {
       atomicAdd(stats + 2, (unsigned long long)pairs);
     }

@@ -1004,17 +1004,27 @@ bounce_fwd.tri_launches = 0
 
 
 @torch.no_grad()
-def nearest_prim(st, table, tri=None, tiles=None):
+def nearest_prim(st, table, tri=None, tiles=None, sph=None, stats=None):
     """The exact nearest hit of every lane's ray (st rows 0-5) over the
     spheres (the table's rows before its M triangle rows) and then the
     triangles of tri [M,9] (with ``tiles`` [R, T], only those of the tiles
     the lane's row keeps) -> winner id [R] int64 in the one id space, -1
     on a miss. A triangle wins only with a strictly smaller t, so an exact
-    tie goes to the lower id."""
+    tie goes to the lower id. sph: the sphere rows' Morton tiles
+    (``regen.sphere_tiles``), folded by ``regen.culled_sphere_fold``
+    (the same winners) for the lanes alive in st[12] only, its counts
+    (boxes tested, tiles folded, pairs tested) added to stats (None, or
+    int64 [3])."""
     n_sph = table.shape[0] - (0 if tri is None else tri.shape[0])
     o, d = st[0:3].T, st[3:6].T
-    hit = nearest_hit(table[:n_sph, 0:3], table[:n_sph, 3], o, d)
-    t, idx = hit.t, hit.idx.long()
+    if sph is None:
+        hit = nearest_hit(table[:n_sph, 0:3], table[:n_sph, 3], o, d)
+        t, idx = hit.t, hit.idx.long()
+    else:
+        from tpu_ray_torch.kernels.regen import culled_sphere_fold
+        t, idx, counts = culled_sphere_fold(st, table[:n_sph], sph)
+        if stats is not None:
+            stats += counts.to(stats.device)
     if tri is not None:
         th = nearest_hit_tri(tri, o, d, tiles)
         wins = th.t < t

@@ -38,8 +38,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     # center, radius, n, origin, direction, r, t_out, idx_out, stream
     "trt_sphere_nearest_hit": [_P, _P, _I, _P, _P, _I, _P, _P, _P],
-    # tri, m, origin, direction, r, t_out, idx_out, stream
-    "trt_tri_nearest_hit": [_P, _I, _P, _P, _I, _P, _P, _P],
+    # tri, m, origin, direction, r, slices, keys, t_out, idx_out, stream
+    "trt_tri_nearest_hit": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    # r, m -> K7's triangle slices on the current device (a count; a
+    # negative return is a CUDA error)
+    "trt_tri_slices": [_I, _I],
     # tri, m, boxes, n_tiles, origin, direction, alive, r, t_out, idx_out,
     # lists_only, stats, stream
     "trt_tri_stream": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P],
@@ -82,10 +85,13 @@ SIGNATURES = {
     "trt_bounce_bwd": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     # r -> rows of trt_bounce_bwd's partials (returns a count, not an error)
     "trt_bounce_bwd_parts": [_I],
-    # rows, r, cam13, table, n_sph, tri, m, boxes, n_tiles, lidx, ldat,
-    # n_lights, spp, s0, use_sky, width, height, film_w, film_h, out, stream
-    "trt_simple_trace": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I,
-                         _I, _I, _I, _I, _F, _F, _P, _P],
+    # rows, r, cam13, table, n_sph, tri, m, boxes, n_tiles, sboxes,
+    # sstarts, n_stiles, sgboxes, sgstarts, n_sgroups, o_lim, lidx, ldat,
+    # n_lights, spp, s0, use_sky, width, height, film_w, film_h, stats, out,
+    # stream
+    "trt_simple_trace": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P,
+                         _P, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                         _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -22,12 +22,16 @@ through ``hit_payload``/``tri_payload`` in another op order (and the
 Möller-Trumbore t for triangles), so K9 agrees with its plain version bit
 for bit and with the eager route within rounding.
 
-On a triangle scene the primary fold of each sample searches only the
-tiles its 256-lane block can reach (``bounce_step.tri_block_lists`` of the
-sample's primary rays, built in the launch as K2 and K8 build theirs);
-shadow folds sweep every tile. A lane whose grazing hit Möller-Trumbore
-accepts outside its tile's inflated box can differ from a full sweep, as
-on the per-sample route.
+Each search folds the spheres over their Morton tiles (``simple_tables``'
+``sph``: ``regen.sphere_tiles``, K2's and K4's culled fold, bit-equal to
+the fold over every slot), then on a triangle scene the tiles its 256-lane
+block lists (``bounce_step.tri_block_lists`` of the block's rays, built in
+the launch as K2, K8 and K10 build theirs): a primary fold lists from the
+sample's primary rays, a shadow fold, for each light, from its hit lanes'
+shadow rays. A lane whose grazing hit Möller-Trumbore accepts outside its
+tile's inflated box can differ from a full sweep, as on the per-sample
+route. Without ``boxes`` every fold sweeps every tile (the mode a caller
+names).
 
 - ``simple_trace_plain``: the kernel's function in plain PyTorch (the CPU
   path, and the reference the card checks hold K9 to);
@@ -55,20 +59,27 @@ from tpu_ray_torch.kernels.bounce_step import (BLOCK_R, TRI_BLOCK_M,
                                                _block_reach, _dot3,
                                                init_state, morton_perm,
                                                nearest_prim, nrm3_fwd,
+                                               origin_bound,
                                                permute_spheres, prim_table,
                                                resident_tables_fit,
                                                tri_tile_boxes)
-from tpu_ray_torch.kernels.regen import cam13
+from tpu_ray_torch.kernels.regen import (SphereTiles, _check_sph, cam13,
+                                         sphere_tiles)
 from tpu_ray_torch.ops.intersect_tri import tri_search_table
 from tpu_ray_torch.ops.raygen import film_rays
 from tpu_ray_torch.ops.shade import sky_color
 from tpu_ray_torch.ops.vec import safe_sqrt
 
 __all__ = ["simple_trace", "simple_trace_plain", "simple_tables",
-           "lane_rows", "SimpleTrace", "make_simple_trace", "MODES"]
+           "lane_rows", "SimpleTrace", "make_simple_trace", "MODES",
+           "N_STATS"]
 
 MODES = ("flat", "lambert_shadow")
 _EPS = float(F32_EPS)
+# K9's stats: primary and shadow tiles listed, primary and shadow live
+# block-folds, ray-triangle pairs tested, sphere boxes tested, sphere
+# tiles folded, ray-sphere pairs tested
+N_STATS = 8
 
 
 def lane_rows(pixel, width: int, seed: int):
@@ -81,11 +92,19 @@ def lane_rows(pixel, width: int, seed: int):
     return torch.stack([ax, ay, h1]).contiguous()
 
 
+def _rays(o, d, active):
+    """The searches' rays o, d [3,R'] of the lanes ``active`` [R'] as the
+    [13,R'] state rows ``nearest_prim`` reads (0-5 the ray, 12 alive)."""
+    return torch.cat([o, d, torch.zeros_like(o), torch.zeros_like(o),
+                      active[None].to(o.dtype)])
+
+
 @torch.no_grad()
 def simple_trace_plain(rows, cam, table, tri, boxes, lidx, ldat, *,
                        n_sph: int, spp: int, s0: int, width: int,
                        height: int, use_sky: bool, flat: bool, lanes=None,
-                       folds=None):
+                       folds=None, sph: SphereTiles | None = None,
+                       stats=None):
     """Plain version of K9 -> out [4,R'] f32: the colour sum over samples
     s0 .. s0 + spp - 1 (rows 0-2) and the rays cast (row 3) of the lanes
     ``lanes`` (an index tensor into the R lanes; None = all).
@@ -95,22 +114,67 @@ def simple_trace_plain(rows, cam, table, tri, boxes, lidx, ldat, *,
     triangles' ``tri_search_table``, None for a sphere scene), boxes
     [M/TRI_BLOCK_M, 6] (``tri_tile_boxes``; None: every fold sweeps every
     tile), lidx [L] i32 the lights' ids in the table, ldat [L,6] their
-    centres and emissives; flat: the flat estimator, else Lambert.
+    centres and emissives; flat: the flat estimator, else Lambert; sph:
+    the sphere rows' tiles (``regen.sphere_tiles``), folded as
+    ``regen.culled_sphere_fold``, K9's fold, or None: every fold tests
+    every sphere slot, the reference that fold is held to (both give the
+    same winners).
 
-    The primary fold's tiles are those its BLOCK_R-lane block of the full
-    launch lists (``tri_block_lists``), so a lane slice gets the lists K9
-    gives it; shadow folds sweep every tile. folds: a list that, when
-    given, receives each search's (origins [3,R'], directions [3,R'],
-    tiles [R',T] bool or None, searching lanes [R'] bool), the rays whose
-    work a bound counts."""
+    Each fold's tiles are those its BLOCK_R-lane block of the full launch
+    lists (``tri_block_lists``): a primary fold's from the block's primary
+    rays, a shadow fold's from the shadow rays of the block's hit lanes. A
+    lane slice gets the lists K9 gives it: the primary lists come from
+    every lane's ray, and where shadow lists are needed the slice's blocks
+    run whole. folds: a list that, when given, receives each search's
+    (origins [3,R''], directions [3,R''], tiles [R'',T] bool or None,
+    searching lanes [R''] bool) over the lanes run, each sample's primary
+    search and then one a light: the rays whose work a bound counts.
+    stats: None, or an int64 [N_STATS] tensor that the counts of a whole
+    launch (no ``lanes``) are added to, as K9 counts them: primary and
+    shadow tiles listed over the live block-folds, primary and shadow live
+    block-folds (the triangle folds a block runs), ray-triangle pairs
+    tested (every listed pair, where K9's walk stops early), sphere boxes
+    tested, tiles folded and pairs tested (with ``sph``)."""
     r, dev = rows.shape[1], rows.device
+    lights = [int(v) for v in lidx.tolist()] if not flat else []
+    if lanes is not None and stats is not None:
+        raise ValueError("stats count a whole launch: no lanes")
+    if lanes is not None and lights and tri is not None and boxes is not None:
+        # a shadow list is its whole block's: run the slice's blocks whole
+        blocks = torch.unique(lanes // BLOCK_R)
+        work = (blocks[:, None] * BLOCK_R
+                + torch.arange(BLOCK_R, device=dev)).flatten()
+        work = work[work < r]
+        out = simple_trace_plain(
+            rows[:, work].contiguous(), cam, table, tri, boxes, lidx, ldat,
+            n_sph=n_sph, spp=spp, s0=s0, width=width, height=height,
+            use_sky=use_sky, flat=flat, folds=folds, sph=sph)
+        return out[:, torch.searchsorted(work, lanes)]
     sel = torch.arange(r, device=dev) if lanes is None else lanes
+    blk = sel // BLOCK_R
     h1 = rng.bits_to_u32(rows[2])
     pos, fc, cx, cy = cam[0:3], cam[3:6], cam[6:9], cam[9:12]
     o = pos[:, None].expand(3, sel.shape[0])
     acc = torch.zeros((3, sel.shape[0]), dtype=torch.float32, device=dev)
     rays = torch.zeros(sel.shape[0], dtype=torch.float32, device=dev)
-    lights = [int(v) for v in lidx.tolist()] if not flat else []
+    every = torch.ones(sel.shape[0], dtype=torch.bool, device=dev)
+    sph_stats = None if stats is None else stats[5:8]
+
+    def record(o_, d_, active, tiles, shadow: bool):
+        """One search's fold record and triangle counts."""
+        if folds is not None:
+            folds.append((o_, d_, tiles, active))
+        if stats is None or tri is None:
+            return
+        live = torch.zeros(int(blk.max()) + 1, dtype=torch.bool, device=dev)
+        live[blk[active]] = True
+        stats[2 + shadow] += int(live.sum())
+        if tiles is None:
+            stats[4] += int(active.sum()) * tri.shape[0]
+        else:
+            stats[4] += int(tiles[active].sum()) * (tri.shape[0]
+                                                   // tiles.shape[1])
+
     for s in range(s0, s0 + spp):
         base = rng.sample_base(h1, s)
         tiles = None
@@ -121,15 +185,17 @@ def simple_trace_plain(rows, cam, table, tri, boxes, lidx, ldat, *,
                               cx, cy)
             reach = _block_reach(boxes, init_state(pos.expand(r, 3), d_all,
                                                    base))
-            tiles = reach[sel // BLOCK_R]
+            tiles = reach[blk]
             d = d_all[sel].T
+            if stats is not None:
+                stats[0] += int(reach.sum())
         else:
             d = film_rays(rows[0, sel], rows[1, sel], base[sel], width,
                           height, pos, fc, cx, cy).T
-        idx = nearest_prim(torch.cat([o, d]), table, tri, tiles)
+        idx = nearest_prim(_rays(o, d, every), table, tri, tiles, sph,
+                           sph_stats)
         hit = idx >= 0
-        if folds is not None:
-            folds.append((o, d, tiles, torch.ones_like(hit)))
+        record(o, d, every, tiles, False)
         w = table[idx.clamp(min=0)].T
         alb, emis = w[4:7], w[7:10]
         rays = rays + 1.0
@@ -164,9 +230,19 @@ def simple_trace_plain(rows, cam, table, tri, boxes, lidx, ldat, *,
             for j, li in enumerate(lights):
                 ld = torch.stack(nrm3_fwd(*[ldat[j, k] - no3[k]
                                             for k in range(3)])[:3])
-                sidx = nearest_prim(torch.cat([no3, ld]), table, tri, None)
-                if folds is not None:
-                    folds.append((no3, ld, None, hit))
+                stiles = None
+                if tri is not None and boxes is not None:
+                    # the block's list of its hit lanes' shadow rays (sel
+                    # is every lane here)
+                    sst = init_state(no3.T, ld.T, torch.zeros_like(blk))
+                    sst[12] = hit.to(torch.float32)
+                    sreach = _block_reach(boxes, sst)
+                    stiles = sreach[blk]
+                    if stats is not None:
+                        stats[1] += int(sreach.sum())
+                sidx = nearest_prim(_rays(no3, ld, hit), table, tri, stiles,
+                                    sph, sph_stats)
+                record(no3, ld, hit, stiles, True)
                 lam = torch.clamp_min(_dot3(*n, *ld), 0.0)
                 visible = (sidx == li) & hit
                 color = color + torch.where(
@@ -179,12 +255,15 @@ def simple_trace_plain(rows, cam, table, tri, boxes, lidx, ldat, *,
 
 def simple_trace(rows, cam, table, tri, boxes, lidx, ldat, *, n_sph: int,
                  spp: int, s0: int, width: int, height: int, use_sky: bool,
-                 flat: bool):
+                 flat: bool, sph: SphereTiles | None, stats=None):
     """K9 (``csrc/simple_shade.cu``): ``simple_trace_plain``'s contract on
-    all R lanes in one launch, one thread per lane -> out [4,R]. CPU
-    tensors take ``simple_trace_plain``."""
+    all R lanes in one launch, one thread per lane -> out [4,R]; the
+    sphere tiles ``sph`` are needed on the card. stats: None, or an int64
+    [N_STATS] tensor the launch adds its counts to (see
+    ``simple_trace_plain``; the pairs tested are those K9's front-to-back
+    walk reaches). CPU tensors take ``simple_trace_plain``."""
     kw = dict(n_sph=n_sph, spp=spp, s0=s0, width=width, height=height,
-              use_sky=use_sky, flat=flat)
+              use_sky=use_sky, flat=flat, sph=sph, stats=stats)
     if not rows.is_cuda:
         return simple_trace_plain(rows, cam, table, tri, boxes, lidx, ldat,
                                   **kw)
@@ -205,6 +284,12 @@ def simple_trace(rows, cam, table, tri, boxes, lidx, ldat, *, n_sph: int,
             n_tiles = boxes.shape[0]
         else:
             n_tiles = m // TRI_BLOCK_M
+    if sph is None:
+        raise ValueError("K9 folds the spheres over their tiles: give sph "
+                         "(simple_tables)")
+    _check_sph(sph, table[:n_sph], None, None, dev)
+    if stats is not None:
+        build.require(stats, "stats", torch.int64, (N_STATS,), dev)
     n_lights = -1
     if not flat:
         n_lights = lidx.shape[0]
@@ -220,11 +305,13 @@ def simple_trace(rows, cam, table, tri, boxes, lidx, ldat, *, n_sph: int,
     with torch.cuda.device(dev):
         err = lib.trt_simple_trace(
             rows.data_ptr(), r, cam.data_ptr(), table.data_ptr(), n_sph,
-            ptr(tri), m, ptr(boxes), n_tiles,
+            ptr(tri), m, ptr(boxes), n_tiles, sph.boxes.data_ptr(),
+            sph.starts.data_ptr(), sph.boxes.shape[0], sph.gboxes.data_ptr(),
+            sph.gstarts.data_ptr(), sph.gboxes.shape[0], float(sph.o_lim),
             None if flat else ptr(lidx), None if flat else ptr(ldat),
             n_lights, int(spp), int(s0), int(bool(use_sky)), int(width),
-            int(height), float(film_w), float(film_h), out.data_ptr(),
-            build.stream_of(rows))
+            int(height), float(film_w), float(film_h), ptr(stats),
+            out.data_ptr(), build.stream_of(rows))
     build.check("trt_simple_trace", err)
     simple_trace.launches += 1
     return out
@@ -234,14 +321,19 @@ simple_trace.launches = 0
 
 
 @torch.no_grad()
-def simple_tables(scene: Scene, lights: tuple):
+def simple_tables(scene: Scene, lights: tuple, bound: float):
     """K9's scene inputs (no autograd history) -> dict(table, tri, boxes,
-    lidx, ldat, n_sph, use_sky): the winner table of the scene with its
-    spheres Morton-permuted and its triangles in scene order, the
-    triangles' search table and inflated tile boxes, the lights' permuted
-    ids and their centres and emissives. A triangle scene past
-    ``resident_tables_fit`` is refused: ``models/path_tracer.render_pixels``
-    sends it to the eager estimator on the probe route, with a warning."""
+    sph, lidx, ldat, n_sph, use_sky): the winner table of the scene with
+    its spheres Morton-permuted and its triangles in scene order, the
+    triangles' search table and inflated tile boxes, the Morton tiles of
+    the sphere rows (``regen.sphere_tiles``) for origins within the larger
+    of ``bound`` (the camera's |position|_inf, ``origin_bound``: no
+    default, as for ``fused_tables``) and the triangles' extent (a shadow
+    ray starts at a hit point; a lane whose origin lies past the bound
+    folds every sphere tile), the lights' permuted ids and their centres
+    and emissives. A triangle scene past ``resident_tables_fit`` is
+    refused: ``models/path_tracer.render_pixels`` sends it to the eager
+    estimator on the probe route, with a warning."""
     if scene.tris is not None and not resident_tables_fit(
             scene.n_pad, scene.tris.n_pad):
         raise NotImplementedError(
@@ -255,10 +347,14 @@ def simple_tables(scene: Scene, lights: tuple):
     if scene.tris is not None:
         tri = tri_search_table(scene.tris)
         boxes = tri_tile_boxes(scene.tris).contiguous()
+        tr = scene.tris
+        bound = max(bound, origin_bound(
+            torch.cat([tr.v0, tr.v0 + tr.e1, tr.v0 + tr.e2])))
     li = torch.tensor(list(lights), dtype=torch.int64, device=scene.device)
     where = torch.empty_like(perm)
     where[perm] = torch.arange(perm.shape[0], device=perm.device)
     return dict(table=table, tri=tri, boxes=boxes,
+                sph=sphere_tiles(table[:scene.n_pad], bound),
                 lidx=where[li].to(torch.int32),
                 ldat=torch.cat([scene.center[li], scene.emissive[li]],
                                dim=1).contiguous(),
@@ -269,12 +365,13 @@ def _run(scene: Scene, camera: Camera, pixel, s0: int, cfg):
     """K9 over the pixel set [R] -> (color_sum [R,3], rays [] int64)."""
     width, height, seed, spp, mode, lights = cfg
     with torch.no_grad():
-        tb = simple_tables(scene, lights)
+        tb = simple_tables(scene, lights,
+                           origin_bound(camera.position[None]))
         out = simple_trace(
             lane_rows(pixel, width, seed), cam13(camera, s0 + spp),
             tb["table"], tb["tri"], tb["boxes"], tb["lidx"], tb["ldat"],
             n_sph=tb["n_sph"], spp=spp, s0=s0, width=width, height=height,
-            use_sky=tb["use_sky"], flat=mode == "flat")
+            use_sky=tb["use_sky"], flat=mode == "flat", sph=tb["sph"])
     return out[0:3].T.contiguous(), out[3].to(torch.int64).sum()
 
 

@@ -21,17 +21,32 @@ from tpu_ray_torch.ops.intersect import Hit
 from tpu_ray_torch.ops.intersect_tri import _SLAB_ELEMS, _mt_slab
 from tpu_ray_torch.ops.intersect_tri import nearest_hit_tri as tri_hit_plain
 
-__all__ = ["tri_nearest_hit", "tri_hit_plain", "tri_nearest_hit_stream",
-           "tri_stream_plain"]
+__all__ = ["tri_nearest_hit", "tri_slices", "tri_hit_plain",
+           "tri_nearest_hit_stream", "tri_stream_plain"]
 
 _MAX = float(F32_MAX)
 
 
-def tri_nearest_hit(tab, origin, direction) -> Hit:
+def tri_slices(r: int, m: int, device=None) -> int:
+    """The triangle slices K7 splits a launch of r rays over m triangles
+    into on the card (``csrc/tri_intersect.cu`` trt_tri_slices: 1 where
+    the ray blocks alone fill the card for several waves, else enough
+    slices of at least 128 triangles to do so)."""
+    lib = build.load()
+    with torch.cuda.device(device):
+        n = lib.trt_tri_slices(int(r), int(m))
+    build.check("trt_tri_slices", 0 if n > 0 else -n)
+    return n
+
+
+def tri_nearest_hit(tab, origin, direction, *, slices: Optional[int] = None
+                    ) -> Hit:
     """tab: the triangles' ``tri_search_table`` [M,9] f32; origin/direction
     [R,3] f32 -> Hit(t [R] f32, idx [R] i32): the exact nearest
     Möller-Trumbore hit, lowest index on ties. Neither output carries
-    autograd history (the search is a discrete choice)."""
+    autograd history (the search is a discrete choice). slices: the
+    number of triangle slices K7 splits the sweep into (None: chosen from
+    the shapes, ``tri_slices``); the result is the same at any count."""
     if not origin.is_cuda:
         return tri_hit_plain(tab, origin, direction)
     m, r = tab.shape[0], origin.shape[0]
@@ -39,13 +54,17 @@ def tri_nearest_hit(tab, origin, direction) -> Hit:
     build.require(tab, "tri", torch.float32, (m, 9), dev)
     build.require(origin, "origin", torch.float32, (r, 3), dev)
     build.require(direction, "direction", torch.float32, (r, 3), dev)
+    n_s = tri_slices(r, m, dev) if slices is None else int(slices)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     idx = torch.empty(r, dtype=torch.int32, device=dev)
+    keys = (torch.empty(r, dtype=torch.int64, device=dev) if n_s > 1
+            else None)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.trt_tri_nearest_hit(
             tab.data_ptr(), m, origin.data_ptr(), direction.data_ptr(), r,
-            t.data_ptr(), idx.data_ptr(), build.stream_of(origin))
+            n_s, None if keys is None else keys.data_ptr(), t.data_ptr(),
+            idx.data_ptr(), build.stream_of(origin))
     build.check("trt_tri_nearest_hit", err)
     tri_nearest_hit.launches += 1
     return Hit(t=t, idx=idx)

@@ -7,7 +7,7 @@ back with an early exit (``common.cuh`` ``trt_fold_tiles_ordered``, K10's
 fold). This script copies the package into the git-ignored
 ``.chip_check/fold_order/`` with that fold replaced by the one K8 ran
 before it took this fold too, in ascending tile id over every listed tile
-(``trt_block_list`` and ``trt_fold_tiles_staged``, K9's fold), and times
+(``trt_block_list`` and ``trt_fold_tiles_staged``), and times
 both builds at trimesh 1920x1080, 2 spp, the triangle route's own state,
 in turns (this build, the copy, the copy, this build), one process each: the forward, the recording and
 a launch with the counters on. Each process prints one JSON line; the
