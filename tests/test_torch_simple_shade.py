@@ -181,14 +181,37 @@ def test_lane_slice_takes_its_blocks_lists(trimesh_listed):
 
 @pytest.mark.parametrize("name,mode", [("trimesh", "flat"),
                                        ("sixteen", "lambert_shadow")])
-def test_chunked_equals_unchunked(name, mode):
+def test_chunked_equals_unchunked(name, mode, monkeypatch):
+    """Chunks give the unchunked pass's image. K9's tables are built once
+    for every chunk of a pass, kept for the next pass of the same scene
+    and camera, and built anew after a write to either."""
+    from tpu_ray_torch.kernels import simple_shade
+    built, tables = [], simple_shade.simple_tables
+
+    def counted(*args, **kwargs):
+        built.append(1)
+        return tables(*args, **kwargs)
+
+    monkeypatch.setattr(simple_shade, "simple_tables", counted)
+    monkeypatch.setattr(simple_shade, "_LAST_TABLES", [])
     _, ts = _scenes(name)
+    cam = default_camera(ts)
     kw = dict(width=W, height=H, spp=1, sample_start=1, backend="fused",
               shading=mode, lights=scene_light_indices(ts))
-    a, ra = render_pass(ts, default_camera(ts), **kw)
-    b, rb = render_pass(ts, default_camera(ts), ray_chunk=W * H // 3, **kw)
+    a, ra = render_pass(ts, cam, **kw)
+    assert len(built) == 1
+    b, rb = render_pass(ts, cam, ray_chunk=W * H // 3, **kw)
+    assert len(built) == 1
     assert ra == rb
     assert torch.equal(a, b)
+    cam.position.add_(0.0)
+    c, rc = render_pass(ts, cam, ray_chunk=W * H // 3, **kw)
+    assert len(built) == 2
+    ts.albedo.mul_(1.0)
+    d, rd = render_pass(ts, cam, **kw)
+    assert len(built) == 3
+    assert rc == rd == ra
+    assert torch.equal(c, a) and torch.equal(d, a)
 
 
 def test_fused_matches_eager_route():

@@ -254,75 +254,6 @@ __device__ __forceinline__ void trt_group_boxes(const float* box,
   __syncthreads();
 }
 
-// Shared ints of trt_block_list's scratch for n_tiles tiles: a bit a tile
-// in 32-bit vote words, and the words' exclusive prefix of set bits.
-__host__ __device__ __forceinline__ int trt_list_scratch(int n_tiles) {
-  return 2 * ((n_tiles + 31) / 32) + 1;
-}
-
-// The block's list of reachable triangle tiles (kernels/bounce_step.py
-// tri_block_lists at block_r = blockDim.x, group 1): tile t is listed if
-// the ray (o, d) of an active lane meets its box (box [n_tiles, 6] in
-// shared memory). Each warp votes tile by tile and its first lane ORs the
-// votes of 32 tiles into a shared word; warp 0 scans the words' popc
-// counts with shuffles, and every thread writes its tiles' places, so lst
-// holds the reached ids in ascending order. -> the count. Every thread of
-// the block calls it (it holds barriers); blockDim.x is a multiple of 32.
-// scratch: trt_list_scratch(n_tiles) ints, lst: n_tiles ints, shared. No
-// kernel of the build calls it: tools/fold_order.py patches it, with
-// trt_fold_tiles_staged, into a copy of K2 to time the ascending fold.
-__device__ __forceinline__ int trt_block_list(bool active, float ox,
-                                              float oy, float oz, float dx,
-                                              float dy, float dz,
-                                              const float* box, int n_tiles,
-                                              int* scratch, int* lst) {
-  const int n_words = (n_tiles + 31) >> 5;
-  unsigned* words = reinterpret_cast<unsigned*>(scratch);
-  int* pre = scratch + n_words;
-  const int lane = threadIdx.x & 31;
-  for (int w = threadIdx.x; w < n_words; w += blockDim.x) words[w] = 0u;
-  __syncthreads();
-  if (__any_sync(0xffffffffu, active)) {         // uniform in the warp
-    const TrtRay ray = trt_ray(ox, oy, oz, dx, dy, dz);
-    unsigned bits = 0u;
-    for (int t = 0; t < n_tiles; ++t) {
-      float tl;
-      const bool f = active && trt_slab_entry(ray, box + 6 * t, tl);
-      if (__any_sync(0xffffffffu, f)) bits |= 1u << (t & 31);
-      if ((t & 31) == 31 || t == n_tiles - 1) {
-        if (lane == 0 && bits) atomicOr(words + (t >> 5), bits);
-        bits = 0u;
-      }
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int carry = 0;
-    for (int j0 = 0; j0 < n_words; j0 += 32) {
-      const int j = j0 + lane;
-      const int c = j < n_words ? __popc(words[j]) : 0;
-      int x = c;                                   // inclusive scan
-      for (int s = 1; s < 32; s <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, s);
-        if (lane >= s) x += y;
-      }
-      if (j < n_words) pre[j] = carry + x - c;
-      carry += __shfl_sync(0xffffffffu, x, 31);
-    }
-    if (lane == 0) pre[n_words] = carry;
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) {
-    const unsigned b = words[t >> 5];
-    if ((b >> (t & 31)) & 1u) {
-      lst[pre[t >> 5] + __popc(b & ((1u << (t & 31)) - 1u))] = t;
-    }
-  }
-  const int cnt = pre[n_words];
-  __syncthreads();
-  return cnt;
-}
-
 // The entries of trt_block_list_ordered's list: a power of two >= n.
 __host__ __device__ __forceinline__ int trt_pow2_at_least(int n) {
   int p = 1;
@@ -330,10 +261,13 @@ __host__ __device__ __forceinline__ int trt_pow2_at_least(int n) {
   return p;
 }
 
-// trt_block_list's tiles, ordered front to back: ord[k] = (key << 32) |
-// tile, ascending, where a listed tile's key is the f32 bits of the least
-// entry distance (trt_slab_entry's tl) over the active lanes that reach
-// it, and a tie of keys goes to the lower tile id. Each warp takes the
+// The block's list of reachable triangle tiles (kernels/bounce_step.py
+// tri_block_lists at block_r = blockDim.x, group 1: tile t is listed if
+// the ray of an active lane meets its box, box [n_tiles, 6] in shared
+// memory), ordered front to back: ord[k] = (key << 32) | tile, ascending,
+// where a listed tile's key is the f32 bits of the least entry distance
+// (trt_slab_entry's tl) over the active lanes that reach it, and a tie of
+// keys goes to the lower tile id. Each warp takes the
 // min of its reaching lanes' entries (__reduce_min_sync on the bits, in
 // the order of the non-negative floats) and its first lane folds it into
 // the tile's entry with a 64-bit shared atomicMin; a bitonic sort of the
@@ -397,19 +331,19 @@ __device__ __forceinline__ int trt_block_list_ordered(
   return *cnt;
 }
 
-// trt_fold_tris over the tiles lst[0..cnt) in order (the tiles 0..cnt-1
-// when lst is nullptr) of a [m, 9] v0|e1|e2 table, tile t holding
-// triangles [t * block_m, min((t + 1) * block_m, m)) with ids id0 + j.
+// trt_fold_tris over the tiles 0..cnt-1 in order of a [m, 9] v0|e1|e2
+// table, tile t holding triangles [t * block_m, min((t + 1) * block_m, m))
+// with ids id0 + j.
 // Each tile is staged into shared memory (block_m * 9 floats at tile) by
 // the whole block and every thread reads the same triangle at once, a
 // broadcast. Every thread of the block calls it (it holds barriers);
 // only active lanes fold.
 __device__ __forceinline__ void trt_fold_tiles_staged(
-    const float* __restrict__ tri, int m, int block_m, const int* lst,
-    int cnt, float* tile, int id0, bool active, float ox, float oy,
-    float oz, float dx, float dy, float dz, float& best, int& bi) {
+    const float* __restrict__ tri, int m, int block_m, int cnt,
+    float* tile, int id0, bool active, float ox, float oy, float oz,
+    float dx, float dy, float dz, float& best, int& bi) {
   for (int k = 0; k < cnt; ++k) {
-    const int j0 = (lst ? lst[k] : k) * block_m;
+    const int j0 = k * block_m;
     const int nj = min(block_m, m - j0);
     __syncthreads();     // every thread is done with the previous tile
     for (int q = threadIdx.x; q < 9 * nj; q += blockDim.x) {

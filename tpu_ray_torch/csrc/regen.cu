@@ -85,9 +85,8 @@
 //   a warp need tested by the whole warp for each of them in turn, and
 //   the winner compared by (t, id). On trimesh this fold tests about a
 //   tenth of the listed pairs and measured 4.5x faster than the ascending
-//   fold of every listed tile (trt_block_list and trt_fold_tiles_staged),
-//   which tools/fold_order.py builds into a copy of this kernel to compare
-//   (PERF.md). K8 and K9 fold their searches the same way.
+//   fold of every listed tile, which tools/fold_order.py builds into a
+//   copy of this kernel to compare (PERF.md). K8 and K9 fold their searches the same way.
 #include "regen_step.cuh"
 
 namespace {

@@ -144,9 +144,9 @@ __device__ int nearest(bool active, bool shadow, float ox, float oy,
                              sm.box, sm.tile, sm.wmax, sc.n_sph, active, ray,
                              best, bi, c.tested);
     } else {
-      trt_fold_tiles_staged(sc.tri, m_fold, sc.block_m, nullptr, sc.n_tiles,
-                            sm.tile, sc.n_sph, active, ox, oy, oz, dx, dy,
-                            dz, best, bi);
+      trt_fold_tiles_staged(sc.tri, m_fold, sc.block_m, sc.n_tiles, sm.tile,
+                            sc.n_sph, active, ox, oy, oz, dx, dy, dz, best,
+                            bi);
       c.tested += active ? m_fold : 0;
     }
   }

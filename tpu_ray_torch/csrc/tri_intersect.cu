@@ -146,23 +146,33 @@ __global__ void tri_unpack_kernel(const unsigned long long* __restrict__ keys,
 
 }  // namespace
 
+// The resident blocks of tri_nearest_hit_kernel a wave holds on each
+// device (its SMs x blocks an SM), queried once a device; 0: not yet.
+#define TRT_K7_MAX_DEVICES 64
+static int trt_k7_wave[TRT_K7_MAX_DEVICES];
+
 // The triangle slices of a launch of r rays over m triangles on the
 // current device -> at least 1; 1 where the ray blocks alone make
 // TRT_K7_WAVES waves of resident blocks, else enough slices for that many
 // blocks, each slice at least TRT_K7_MIN_SLICE triangles. A negative
 // return is a CUDA error.
 extern "C" int trt_tri_slices(int r, int m) {
-  int dev = 0, n_sm = 0, per_sm = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, tri_nearest_hit_kernel<true>, TRT_K7_THREADS, 0);
-  }
   if (err != cudaSuccess) return -(int)err;
-  const long long want = (long long)TRT_K7_WAVES * n_sm * per_sm;
+  int wave = dev < TRT_K7_MAX_DEVICES ? trt_k7_wave[dev] : 0;
+  if (wave == 0) {
+    int n_sm = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, tri_nearest_hit_kernel<true>, TRT_K7_THREADS, 0);
+    }
+    if (err != cudaSuccess) return -(int)err;
+    wave = n_sm * per_sm;
+    if (dev < TRT_K7_MAX_DEVICES) trt_k7_wave[dev] = wave;
+  }
+  const long long want = (long long)TRT_K7_WAVES * wave;
   const long long ray_blocks =
       ((long long)r + TRT_K7_BLOCK_RAYS - 1) / TRT_K7_BLOCK_RAYS;
   if (ray_blocks < 1 || ray_blocks >= want) return 1;

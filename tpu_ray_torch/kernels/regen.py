@@ -175,8 +175,8 @@ def sphere_tiles(table, origin_bound: float = 0.0) -> SphereTiles:
     boxes: f32 rounding is monotone, so a ray's entry into a group's box is
     at most its entry into each of the group's tiles, and a lane that
     skips a group skips only tiles it would skip one by one."""
-    c = table[:, 0:3].detach().to("cpu", torch.float64)
-    rad = table[:, 3].detach().to("cpu", torch.float64)
+    cr = table[:, 0:4].detach().to("cpu", torch.float64)    # one copy
+    c, rad = cr[:, 0:3], cr[:, 3]
     n = rad.shape[0]
     valid = rad > 0.0
     size = c.abs().amax(dim=1) + rad
@@ -194,23 +194,33 @@ def sphere_tiles(table, origin_bound: float = 0.0) -> SphereTiles:
     ext = (rad + SPH_PAD * (size + o_lim))[:, None]
     lo = torch.where(valid[:, None], c - ext, _MAX)
     hi = torch.where(valid[:, None], c + ext, -_MAX)
-    boxes = torch.stack([torch.cat([lo[a:e].amin(dim=0), hi[a:e].amax(dim=0)])
-                         for a, e in zip(starts[:-1], starts[1:])])
+    boxes = _span_boxes(lo, hi, starts)
     alone = [b[a] or not v[a] for a in starts[:-1]]
     gstarts = [0]
     for t in range(1, len(alone)):
         if t - gstarts[-1] == SPH_GROUP or alone[t] or alone[t - 1]:
             gstarts.append(t)
     gstarts.append(len(alone))
-    gboxes = torch.stack([torch.cat([boxes[a:e, 0:3].amin(dim=0),
-                                     boxes[a:e, 3:6].amax(dim=0)])
-                          for a, e in zip(gstarts[:-1], gstarts[1:])])
-    dev = table.device
-    return SphereTiles(boxes.to(dev, torch.float32),
-                       torch.tensor(starts, dtype=torch.int32, device=dev),
-                       gboxes.to(dev, torch.float32),
-                       torch.tensor(gstarts, dtype=torch.int32, device=dev),
-                       o_lim, n)
+    gboxes = _span_boxes(boxes[:, 0:3], boxes[:, 3:6], gstarts)
+    # two copies to the device: the boxes, then the starts
+    dev, n_t = table.device, len(starts) - 1
+    f = torch.cat([boxes, gboxes]).to(dev, torch.float32)
+    i = torch.tensor(starts + gstarts, dtype=torch.int32).to(dev)
+    return SphereTiles(f[:n_t], i[:n_t + 1], f[n_t:], i[n_t + 1:], o_lim, n)
+
+
+def _span_boxes(lo, hi, starts):
+    """The union box of each span [starts[k], starts[k + 1]) of the rows of
+    lo, hi [N,3] -> [len(starts) - 1, 6] lo|hi."""
+    spans = torch.as_tensor(starts)
+    which = torch.repeat_interleave(torch.arange(spans.shape[0] - 1),
+                                    spans.diff())[:, None].expand(-1, 3)
+    out = torch.empty((spans.shape[0] - 1, 6), dtype=lo.dtype)
+    out[:, 0:3] = torch.full_like(out[:, 0:3], _MAX).scatter_reduce_(
+        0, which, lo, "amin")
+    out[:, 3:6] = torch.full_like(out[:, 3:6], -_MAX).scatter_reduce_(
+        0, which, hi, "amax")
+    return out
 
 
 def _box_entry(boxes, o, d, inv):

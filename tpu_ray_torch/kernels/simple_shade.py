@@ -71,8 +71,8 @@ from tpu_ray_torch.ops.shade import sky_color
 from tpu_ray_torch.ops.vec import safe_sqrt
 
 __all__ = ["simple_trace", "simple_trace_plain", "simple_tables",
-           "lane_rows", "SimpleTrace", "make_simple_trace", "MODES",
-           "N_STATS"]
+           "pass_tables", "lane_rows", "SimpleTrace", "make_simple_trace",
+           "MODES", "N_STATS"]
 
 MODES = ("flat", "lambert_shadow")
 _EPS = float(F32_EPS)
@@ -361,12 +361,44 @@ def simple_tables(scene: Scene, lights: tuple, bound: float):
                 n_sph=scene.n_pad, use_sky=scene.use_sky)
 
 
-def _run(scene: Scene, camera: Camera, pixel, s0: int, cfg):
-    """K9 over the pixel set [R] -> (color_sum [R,3], rays [] int64)."""
+def _key(v):
+    """A key of v that changes when v does: a tensor by its identity and
+    its version counter (which every in-place write bumps), a dataclass
+    by its fields, any other value as itself."""
+    if torch.is_tensor(v):
+        return id(v), v._version
+    if dataclasses.is_dataclass(v):
+        return tuple(_key(getattr(v, f.name)) for f in dataclasses.fields(v))
+    return v
+
+
+_LAST_TABLES: list = []     # [(key, (scene, camera), tables)]
+
+
+def pass_tables(scene: Scene, camera: Camera, lights: tuple):
+    """``simple_tables(scene, lights, origin_bound(camera.position[None]))``,
+    kept for the last scene, camera and lights: a pass over a scene and a
+    camera that nothing has written to since the last pass (the
+    progressive loop's next pass) builds nothing on the host (a write
+    through ``.data`` bypasses the version counter and goes unseen). The
+    scene and camera are held with the tables, so that their tensors' ids
+    stay theirs."""
+    key = (_key(scene), _key(camera), tuple(lights))
+    if not _LAST_TABLES or _LAST_TABLES[0][0] != key:
+        _LAST_TABLES[:] = [(key, (scene, camera), simple_tables(
+            scene, lights, origin_bound(camera.position[None])))]
+    return _LAST_TABLES[0][2]
+
+
+def _run(scene: Scene, camera: Camera, pixel, s0: int, cfg, tb):
+    """K9 over the pixel set [R] -> (color_sum [R,3], rays [] int64).
+    tb: ``simple_tables`` of the scene and camera, or None to build
+    them."""
     width, height, seed, spp, mode, lights = cfg
     with torch.no_grad():
-        tb = simple_tables(scene, lights,
-                           origin_bound(camera.position[None]))
+        if tb is None:
+            tb = simple_tables(scene, lights,
+                               origin_bound(camera.position[None]))
         out = simple_trace(
             lane_rows(pixel, width, seed), cam13(camera, s0 + spp),
             tb["table"], tb["tri"], tb["boxes"], tb["lidx"], tb["ldat"],
@@ -400,13 +432,13 @@ class SimpleTrace(torch.autograd.Function):
     for one sample. The gradient is that of the eager route, which agrees
     with K9's forward except on a ray whose winner the lists or the
     rounding of the two op orders change. cfg: (width, height, seed, spp,
-    mode, lights, s0, the scene and camera whose leaves the tensors
-    replace)."""
+    mode, lights, s0, the forward's ``simple_tables`` or None, the scene
+    and camera whose leaves the tensors replace)."""
 
     @staticmethod
     def forward(ctx, pixel, cfg, *leaves):
         scene, camera = _rebuild(cfg[-2], cfg[-1], leaves)
-        color, rays = _run(scene, camera, pixel, cfg[6], cfg[:6])
+        color, rays = _run(scene, camera, pixel, cfg[6], cfg[:6], cfg[7])
         ctx.save_for_backward(pixel, *leaves)
         ctx.cfg = cfg
         ctx.mark_non_differentiable(rays)
@@ -441,26 +473,28 @@ class SimpleTrace(torch.autograd.Function):
 @functools.lru_cache(maxsize=None)
 def make_simple_trace(width: int, height: int, seed: int, spp: int,
                       mode: str, lights: tuple = ()):
-    """Differentiable fused estimator trace: (scene, camera, pixel, s0=0)
-    -> (color_sum [R,3] over samples s0 .. s0 + spp - 1, rays_cast int).
-    mode "flat" or "lambert_shadow" (lights: the global indices of the
-    light spheres, ``ops/shading_modes.scene_light_indices``). Where
-    nothing asks for a gradient this is K9 alone; otherwise
-    ``SimpleTrace``."""
+    """Differentiable fused estimator trace: (scene, camera, pixel, s0=0,
+    tables=None) -> (color_sum [R,3] over samples s0 .. s0 + spp - 1,
+    rays_cast int). mode "flat" or "lambert_shadow" (lights: the global
+    indices of the light spheres, ``ops/shading_modes.scene_light_indices``).
+    tables: ``pass_tables(scene, camera, lights)``, to share among the
+    chunks and passes (None: built here). Where nothing asks for a
+    gradient this is K9 alone; otherwise ``SimpleTrace``."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     lights = tuple(int(i) for i in lights)
 
-    def trace(scene: Scene, camera: Camera, pixel, s0: int = 0):
+    def trace(scene: Scene, camera: Camera, pixel, s0: int = 0,
+              tables=None):
         leaves = [scene.leaf(k) for k in scene.leaves] + [camera.position,
                                                           camera.look_at]
         cfg = (width, height, seed, spp, mode, lights)
         if not (torch.is_grad_enabled()
                 and any(t.requires_grad for t in leaves)):
-            color, rays = _run(scene, camera, pixel, int(s0), cfg)
+            color, rays = _run(scene, camera, pixel, int(s0), cfg, tables)
             return color, int(rays)
-        color, rays = SimpleTrace.apply(pixel, cfg + (int(s0), scene, camera),
-                                        *leaves)
+        color, rays = SimpleTrace.apply(
+            pixel, cfg + (int(s0), tables, scene, camera), *leaves)
         return color, int(rays)
 
     return trace

@@ -65,7 +65,8 @@ from tpu_ray_torch.kernels.bounce_step import (fused_tables,
                                                resident_tables_fit,
                                                tri_tile_boxes)
 from tpu_ray_torch.kernels.regen import make_regen_trace
-from tpu_ray_torch.kernels.simple_shade import make_simple_trace
+from tpu_ray_torch.kernels.simple_shade import (make_simple_trace,
+                                                pass_tables)
 from tpu_ray_torch.kernels.sphere_intersect import sphere_nearest_hit
 from tpu_ray_torch.kernels.tri_intersect import (tri_nearest_hit,
                                                   tri_nearest_hit_stream)
@@ -135,7 +136,14 @@ def _search(tape: Optional[HitTape], n_prim: int, fn, *args) -> Hit:
 def tile_order(width: int, height: int, tile: int = 32):
     """Flat pixel indices in 32x32-tile-major order, and the inverse.
     Neighbouring lanes stay spatially coherent, so the lanes of a warp
-    follow similar paths in the regen kernel."""
+    follow similar paths in the regen kernel. Built once a size (a
+    1920x1080 frame has 2,040 tiles); each call gets its own copies."""
+    perm, inv = _tile_order(width, height, tile)
+    return perm.copy(), inv.copy()
+
+
+@functools.lru_cache(maxsize=8)
+def _tile_order(width: int, height: int, tile: int):
     idx = np.arange(width * height, dtype=np.int64).reshape(height, width)
     order = [idx[ty:ty + tile, tx:tx + tile].reshape(-1)
              for ty in range(0, height, tile)
@@ -311,16 +319,20 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
     chunk = n if ray_chunk is None else ray_chunk
     if n % chunk:
         raise ValueError("ray_chunk must divide the pixel count")
-    fused_trace = None
+    fused_trace, extra = None, ()
     if backend == "fused" and shading != "path":
         fused_trace = make_simple_trace(width, height, seed, spp, shading,
                                         tuple(lights))
+        # K9's tables, built once for every chunk of the pass, and kept
+        # for the next pass while nothing writes to the scene or camera
+        extra = (pass_tables(scene, camera, tuple(lights)),)
     elif backend == "fused" and regen:
         # each slab runs its own wavefront to its own slowest lane (and,
         # under autograd, records and reverses its own trace)
         fused_trace = make_regen_trace(width, height, seed, max_bounces, spp)
     if fused_trace is not None:
-        parts = [fused_trace(scene, camera, pixel[k:k + chunk], sample_start)
+        parts = [fused_trace(scene, camera, pixel[k:k + chunk], sample_start,
+                             *extra)
                  for k in range(0, n, chunk)]
         return (torch.cat([c for c, _ in parts]),
                 sum(r for _, r in parts))

@@ -7,7 +7,8 @@ back with an early exit (``common.cuh`` ``trt_fold_tiles_ordered``, K10's
 fold). This script copies the package into the git-ignored
 ``.chip_check/fold_order/`` with that fold replaced by the one K8 ran
 before it took this fold too, in ascending tile id over every listed tile
-(``trt_block_list`` and ``trt_fold_tiles_staged``), and times
+(``trt_block_list`` and ``fold_listed_staged``, which this script adds to
+the copy), and times
 both builds at trimesh 1920x1080, 2 spp, the triangle route's own state,
 in turns (this build, the copy, the copy, this build), one process each: the forward, the recording and
 a launch with the counters on. Each process prints one JSON line; the
@@ -25,6 +26,98 @@ import sys
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
+INCLUDE = '#include "regen_step.cuh"\n'
+# the ascending fold's device functions, which no kernel of the build has:
+# the block's tiles listed in ascending id, and the staged fold over them
+ASCENDING_FNS = INCLUDE + """
+// Shared ints of trt_block_list's scratch for n_tiles tiles: a bit a tile
+// in 32-bit vote words, and the words' exclusive prefix of set bits.
+__host__ __device__ __forceinline__ int trt_list_scratch(int n_tiles) {
+  return 2 * ((n_tiles + 31) / 32) + 1;
+}
+
+// The block's list of reachable triangle tiles (kernels/bounce_step.py
+// tri_block_lists at block_r = blockDim.x, group 1): tile t is listed if
+// the ray (o, d) of an active lane meets its box (box [n_tiles, 6] in
+// shared memory). Each warp votes tile by tile and its first lane ORs the
+// votes of 32 tiles into a shared word; warp 0 scans the words' popc
+// counts with shuffles, and every thread writes its tiles' places, so lst
+// holds the reached ids in ascending order. -> the count. Every thread of
+// the block calls it (it holds barriers); blockDim.x is a multiple of 32.
+// scratch: trt_list_scratch(n_tiles) ints, lst: n_tiles ints, shared.
+__device__ __forceinline__ int trt_block_list(bool active, float ox,
+                                              float oy, float oz, float dx,
+                                              float dy, float dz,
+                                              const float* box, int n_tiles,
+                                              int* scratch, int* lst) {
+  const int n_words = (n_tiles + 31) >> 5;
+  unsigned* words = reinterpret_cast<unsigned*>(scratch);
+  int* pre = scratch + n_words;
+  const int lane = threadIdx.x & 31;
+  for (int w = threadIdx.x; w < n_words; w += blockDim.x) words[w] = 0u;
+  __syncthreads();
+  if (__any_sync(0xffffffffu, active)) {         // uniform in the warp
+    const TrtRay ray = trt_ray(ox, oy, oz, dx, dy, dz);
+    unsigned bits = 0u;
+    for (int t = 0; t < n_tiles; ++t) {
+      float tl;
+      const bool f = active && trt_slab_entry(ray, box + 6 * t, tl);
+      if (__any_sync(0xffffffffu, f)) bits |= 1u << (t & 31);
+      if ((t & 31) == 31 || t == n_tiles - 1) {
+        if (lane == 0 && bits) atomicOr(words + (t >> 5), bits);
+        bits = 0u;
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    int carry = 0;
+    for (int j0 = 0; j0 < n_words; j0 += 32) {
+      const int j = j0 + lane;
+      const int c = j < n_words ? __popc(words[j]) : 0;
+      int x = c;                                   // inclusive scan
+      for (int s = 1; s < 32; s <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, s);
+        if (lane >= s) x += y;
+      }
+      if (j < n_words) pre[j] = carry + x - c;
+      carry += __shfl_sync(0xffffffffu, x, 31);
+    }
+    if (lane == 0) pre[n_words] = carry;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) {
+    const unsigned b = words[t >> 5];
+    if ((b >> (t & 31)) & 1u) {
+      lst[pre[t >> 5] + __popc(b & ((1u << (t & 31)) - 1u))] = t;
+    }
+  }
+  const int cnt = pre[n_words];
+  __syncthreads();
+  return cnt;
+}
+
+// trt_fold_tris over the tiles lst[0..cnt) in ascending order, each
+// staged into shared memory by the whole block (trt_fold_tiles_staged's
+// loop over a list). Every thread of the block calls it.
+__device__ __forceinline__ void fold_listed_staged(
+    const float* __restrict__ tri, int m, int block_m, const int* lst,
+    int cnt, float* tile, int id0, bool active, float ox, float oy,
+    float oz, float dx, float dy, float dz, float& best, int& bi) {
+  for (int k = 0; k < cnt; ++k) {
+    const int j0 = lst[k] * block_m;
+    const int nj = min(block_m, m - j0);
+    __syncthreads();     // every thread is done with the previous tile
+    for (int q = threadIdx.x; q < 9 * nj; q += blockDim.x) {
+      tile[q] = tri[(size_t)9 * j0 + q];
+    }
+    __syncthreads();
+    if (active) {
+      trt_fold_tris(tile, 0, nj, id0 + j0, ox, oy, oz, dx, dy, dz, best, bi);
+    }
+  }
+}
+"""
 # the listed kernel's fold, and the ascending one in its place (its list
 # scratch fits in the ordered list's shared memory for 4 tiles or more)
 ORDERED = """\
@@ -39,8 +132,8 @@ ASCENDING = """\
     const int cnt = trt_block_list(alive, L.ox, L.oy, L.oz, L.dx, L.dy,
                                    L.dz, box, n_tiles,
                                    reinterpret_cast<int*>(ord), lst);
-    trt_fold_tiles_staged(tri, m, block_m, lst, cnt, tile, n, alive, L.ox,
-                          L.oy, L.oz, L.dx, L.dy, L.dz, best, bi);
+    fold_listed_staged(tri, m, block_m, lst, cnt, tile, n, alive, L.ox,
+                       L.oy, L.oz, L.dx, L.dy, L.dz, best, bi);
     if (alive) tested += cnt;
 """
 WIDTH, HEIGHT, SPP, MAX_BOUNCES, SEED = 1920, 1080, 2, 5, 0
@@ -117,7 +210,7 @@ def main() -> int:
         return 0
     with open(os.path.join(_PKG, "csrc", "regen.cu")) as f:
         text = f.read()
-    if text.count(ORDERED) != 1:
+    if text.count(ORDERED) != 1 or text.count(INCLUDE) != 1:
         raise RuntimeError("csrc/regen.cu no longer holds the fold this "
                            "script replaces")
     other_root = os.path.join(_ROOT, ".chip_check", "fold_order")
@@ -126,7 +219,8 @@ def main() -> int:
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     with open(os.path.join(other_root, "tpu_ray_torch", "csrc", "regen.cu"),
               "w") as f:
-        f.write(text.replace(ORDERED, ASCENDING))
+        f.write(text.replace(ORDERED, ASCENDING)
+                .replace(INCLUDE, ASCENDING_FNS))
     runs = []
     for root, fold in ((_ROOT, "ordered"), (other_root, "ascending"),
                        (other_root, "ascending"), (_ROOT, "ordered")):
