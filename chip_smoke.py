@@ -51,13 +51,17 @@ its plain version), forward and backward as a user differentiates it
 (three calls; K2-record's listed mode on every 32nd block against its
 plain version, state and records, and K3's triangle branch at the path's
 own records against its plain version on 1 lane in 32, two K3 launches
-bit-equal), and its gradients (and the per-sample route's) against
+bit-equal, the global-row merge's counts: rows a block touched, partial
+bytes written and read, one merge a step), and its gradients (and the per-sample route's) against
 backend cuda autograd at 320x180. Then the per-sample route on trimesh
 at 1920x1080, 2 spp: K8 (bounce_fwd_list) and the triangle modes of K5
 and K6 at the route's own inputs (sample 0: K8 on every 32nd 256-lane
 block of every bounce's state against its plain version and the whole
 launch, with its counters, K5 and K6 on 1 lane in 32, K6 also on all
-lanes, two K6 launches bit-equal), the forward pass as the CLI drives it
+lanes, two K6 launches bit-equal, K6's d_table on the slice bit for bit
+the fixed order over the plain version's lane terms
+(table_sum_fixed_order) with the same counts, the global-row merge's
+counts at full width), the forward pass as the CLI drives it
 (two calls; its image against the regen route's, the differing pixels
 counted), the list pass rate and K8's bounds (over the pairs its
 counters say it tested, the listed pairs and every triangle) counted on
@@ -274,11 +278,33 @@ def bits_equal(torch, a, b) -> bool:
 
 
 # the CUDA kernels of each bounce wrapper, as torch.profiler names them
-# (K6 is two launches: the per-block partials, then their fixed-order sum)
+# (K6 is two launches: the per-block partials, then their fixed-order sum,
+# csrc/shade.cuh trt_sum_parts or trt_sum_parts_touched)
 BOUNCE_KERNELS = {"bounce_fwd": ("bounce_fwd_kernel",),
                   "bounce_fwd_list": ("bounce_fwd_list_kernel",),
                   "bounce_replay": ("bounce_replay_kernel",),
-                  "bounce_bwd": ("bounce_bwd_kernel", "sum_parts_kernel")}
+                  "bounce_bwd": ("bounce_bwd_kernel", "trt_sum_parts")}
+
+
+def merge_record(stats, parts: int, n: int, launches: int) -> dict:
+    """The records of the global-row merge of K3 or K6 from its counts
+    (csrc/shade.cuh trt_row_merge_end, summed over launches of parts
+    blocks each on a table of n rows): rows a block touched (mean and
+    max), partial bytes a launch written and read (48 B a row entry: each
+    merge's read-add-write, a first touch writing only, the sum launch
+    reading each touched entry once; the bitmaps, 4 B a 32 rows a block,
+    written once and read once), warp sums and row entries written a
+    merged step; beside them the bytes the turns' scheme zeroed and summed
+    a launch (every block's whole row)."""
+    merges, sums, writes, firsts, most = stats.tolist()
+    bitmaps = 4 * -(-n // 32) * parts
+    return dict(merges=merges, rows_touched_per_block_mean=firsts / (
+        parts * launches), rows_touched_per_block_max=most,
+        partial_bytes_written_per_launch=48 * writes / launches + bitmaps,
+        partial_bytes_read_per_launch=48 * writes / launches + bitmaps,
+        warp_sums_per_merge=sums / max(merges, 1),
+        row_writes_per_merge=writes / max(merges, 1),
+        turns_bytes_zeroed_and_summed_per_launch=2 * 48 * n * parts)
 
 
 def profiled(torch, fn):
@@ -1263,13 +1289,14 @@ def main() -> int:
     from tpu_ray_torch.grad import image_mse, make_train_step, render_mean
     from tpu_ray_torch.kernels import build
     from tpu_ray_torch.kernels.bounce_step import (
-        BLOCK_R, TRI_BLOCK_M, _block_reach, bounce_bwd,
-        bounce_bwd_plain, bounce_cull_mask, bounce_cull_mask_octant,
+        BLOCK_R, MERGE_STATS, TRI_BLOCK_M, _block_reach, bounce_bwd,
+        bounce_bwd_lanes_plain, bounce_bwd_plain, bounce_cull_mask,
+        bounce_cull_mask_octant,
         bounce_fwd, bounce_fwd_list, bounce_fwd_list_plain, bounce_fwd_plain,
         bounce_replay, bounce_replay_plain, cull_mask, fused_tables,
         init_state, make_fused_sample, morton_perm, origin_bound,
-        permute_spheres, ray_block_bounds, tab_tile_boxes, tile_bounds,
-        tri_block_lists, tri_morton_perm)
+        permute_spheres, ray_block_bounds, tab_tile_boxes,
+        table_sum_fixed_order, tile_bounds, tri_block_lists, tri_morton_perm)
     from tpu_ray_torch.kernels.regen import (
         SEG_MAX, regen_bwd, regen_bwd_info, regen_bwd_plain, regen_record,
         regen_steps, regen_steps_plain, regen_tables, sphere_tiles,
@@ -2029,7 +2056,8 @@ def main() -> int:
                     f"by {err}")
         d = d_k
     k6_err = max(k6_err, k6_full_err)
-    k6_parts = build.load().trt_bounce_bwd_parts(px_all.shape[0])
+    k6_parts = build.load().trt_bounce_bwd_parts(px_all.shape[0],
+                                                 ftb.table.shape[0])
     print(f"K4/K5/K6 at the per-sample route's full width, sample 0 "
           f"({px_all.shape[0]} lanes, {k6_parts} K6 blocks): K4 culled "
           f"equal to unculled and masked, K5 "
@@ -2734,7 +2762,8 @@ def main() -> int:
     # at the main loss's cotangent: its d_table against the path's
     # gradients, and on 1 lane in 32 d_state equal to plain, d_table and
     # d_cam within 1e-4 of each group's max of the plain f64 sum (sphere
-    # and triangle rows apart)
+    # and triangle rows apart); one more launch counts its merges (one a
+    # step of each lane tile, rows touched, partial bytes)
     t0 = time.perf_counter()
     seg_t = min(SEG_MAX, tsteps)
     tst_r = tst0.clone()
@@ -2846,6 +2875,26 @@ def main() -> int:
     t_end_t = trecs.t_end.long()
     k3t_info = regen_bwd_info(ttable.shape[0], dev)
     print(f"K3 triangle branch launch 1: {k3t_info}", flush=True)
+    # the global-row merge's counts on one more launch: one merge a step
+    # of each lane tile up to its last alive lane
+    k3t_stats = torch.zeros(MERGE_STATS, dtype=torch.int64, device=dev)
+    k3t_again = regen_bwd(trecs, td_out, tc13, ttable, n_tri=tn_tri,
+                          stats=k3t_stats, **kwt)
+    require(bits_equal(torch, k3t_again[1], td_tab),
+            "K3: the launch with counts differs from the launch without")
+    del k3t_again
+    k3t_parts = build.load().trt_regen_bwd_parts(tr2, ttable.shape[0])
+    k3t_th = k3t_info["threads"]
+    k3t_steps = int(torch.nn.functional.pad(
+        t_end_t.clamp(max=tsteps), (0, -tr2 % k3t_th)).view(
+            -1, k3t_th).amax(dim=1).sum())
+    require(int(k3t_stats[0]) == k3t_steps,
+            f"K3 merged {int(k3t_stats[0])} steps, its tiles have "
+            f"{k3t_steps}")
+    k3t_merge = merge_record(k3t_stats, k3t_parts, ttable.shape[0], 1)
+    k3t_merge["merge_rounds_per_step"] = int(k3t_stats[0]) / k3t_steps
+    print(f"K3 triangle branch merge: {k3t_parts} blocks, {k3t_merge}",
+          flush=True)
     k3t_bound, k3t_by = bound(
         rays_t * K3_FLOPS_PER_STEP,
         2 * rays_t + STATE_BYTES * n_chk_t + 4 * tr2 + 15 * 4 * tr2
@@ -2860,9 +2909,8 @@ def main() -> int:
         shape=f"{tr2} lanes, {int(t_end_t.sum())} alive lane-steps, seg "
               f"{seg_t}, {ttable.shape[0]} table rows",
         plain_lanes=trecs_sl.t_end.shape[0], ms_same_lanes=k3t_ms_slice,
-        partial_bytes=build.load().trt_regen_bwd_parts(
-            tr2, ttable.shape[0]) * ttable.numel() * 4,
-        **k3t_info)
+        partial_bytes=k3t_parts * ttable.numel() * 4, parts=k3t_parts,
+        fwd_bwd_peak_bytes=peak_t, **k3t_merge, **k3t_info)
     print(f"K2-record listed mode: {k2tr_ms:.3f} ms (forward-only "
           f"{k2t_ms:.3f} ms), state bit-equal to forward-only, every 32nd "
           f"block: state, records and checkpoints equal to plain, "
@@ -2921,9 +2969,12 @@ def main() -> int:
     # at full width K5 replays K8, and K8's counters (listed tiles, live
     # blocks, pairs tested) are read. K6 at the route's own records, the cotangent of
     # sum(color^2) / 2: at full width two launches bit-equal (P = 10,496:
-    # the accumulator rows in global memory), and on all lanes and on the
-    # slice d_state equal to plain, d_table within 1e-4 of each group's
-    # max (sphere rows and triangle rows apart) of the plain f64 sum
+    # the accumulator rows in global memory; the second launch counts its
+    # merges), and on all lanes and on the slice d_state equal to plain,
+    # d_table within 1e-4 of each group's max (sphere rows and triangle
+    # rows apart) of the plain f64 sum; on the slice d_table bit for bit
+    # the fixed order (table_sum_fixed_order) over the plain version's
+    # lane terms, with the same counts
     t0 = time.perf_counter()
     ttb = fused_tables(tscene,
                        origin_bound(default_camera(tscene).position[None]))
@@ -2987,14 +3038,21 @@ def main() -> int:
     d = torch.zeros_like(st)
     d[9:12] = st[9:12]                # the cotangent of sum(color^2) / 2
     k6t_err = 0.0
+    k6t_n = ttb.table.shape[0]
+    k6t_parts = build.load().trt_bounce_bwd_parts(px_all.shape[0], k6t_n)
+    k6t_parts_s = build.load().trt_bounce_bwd_parts(px_all[cols].shape[0],
+                                                    k6t_n)
+    k6t_threads = build.load().trt_bounce_bwd_threads(k6t_n)
+    k6t_stats = torch.zeros(MERGE_STATS, dtype=torch.int64, device=dev)
     for b in reversed(range(MAX_BOUNCES)):
         d_k, tab_k = bounce_bwd(states[b], ttb.table, idxs[b], b, d.clone(),
                                 **tkw)
         d_k2, tab_k2 = bounce_bwd(states[b], ttb.table, idxs[b], b,
-                                  d.clone(), **tkw)
+                                  d.clone(), stats=k6t_stats, **tkw)
         require(bits_equal(torch, d_k, d_k2) and bits_equal(torch, tab_k,
                                                             tab_k2),
-                f"K6 triangle mode, bounce {b}: two launches differ")
+                f"K6 triangle mode, bounce {b}: two launches differ (the "
+                f"second with counts)")
         d_p, tab_p = bounce_bwd_plain(states[b], ttb.table, idxs[b], b,
                                       d.clone(), **tkw)
         require(torch.equal(d_k, d_p), f"K6 triangle mode full width, "
@@ -3014,10 +3072,39 @@ def main() -> int:
                 f"K6 triangle mode, bounce {b}: slice d_state differs")
         k6t_err = max(k6t_err, k6_tri_close(
             tk_s, tp_s, f"K6 triangle mode slice, bounce {b}"))
+        # the slice's d_table bit for bit in the fixed order over the plain
+        # version's lane terms, and its counts the plain order's
+        _, dwn_s = bounce_bwd_lanes_plain(st_s, ttb.table, i_s, b, d_s,
+                                          **tkw)
+        fx_s, fx_counts = table_sum_fixed_order(
+            i_s, dwn_s, k6t_n, threads=k6t_threads,
+            parts=k6t_parts_s, counts=True)
+        require(bits_equal(torch, tk_s, fx_s),
+                f"K6 triangle mode slice, bounce {b}: d_table differs from "
+                f"table_sum_fixed_order on {int((tk_s != fx_s).sum())} "
+                f"entries")
+        sl_stats = torch.zeros(MERGE_STATS, dtype=torch.int64, device=dev)
+        bounce_bwd(st_s, ttb.table, i_s, b, d_s.clone(), stats=sl_stats,
+                   **tkw)
+        require(torch.equal(sl_stats, fx_counts),
+                f"K6 triangle mode slice, bounce {b}: counts "
+                f"{sl_stats.tolist()}, the plain order's "
+                f"{fx_counts.tolist()}")
         tslice_ms["bounce_bwd"][0] += ms_k
         tslice_ms["bounce_bwd"][1] += ms_p
         d = d_k
-    k6t_parts = build.load().trt_bounce_bwd_parts(px_all.shape[0])
+    k6t_steps = MAX_BOUNCES * -(-px_all.shape[0] // k6t_threads)
+    require(int(k6t_stats[0]) == k6t_steps,
+            f"K6 merged {int(k6t_stats[0])} lane tiles over "
+            f"{MAX_BOUNCES} launches of {k6t_steps // MAX_BOUNCES}")
+    k6t_merge = merge_record(k6t_stats, k6t_parts, ttb.table.shape[0],
+                             MAX_BOUNCES)
+    # a step of K6 is a lane tile
+    k6t_merge["merge_rounds_per_step"] = int(k6t_stats[0]) / k6t_steps
+    print(f"K6 triangle mode merge, sample 0's {MAX_BOUNCES} launches of "
+          f"{k6t_parts} blocks: {k6t_merge}; the slice's d_table bit-equal "
+          f"to table_sum_fixed_order over bounce_bwd_lanes_plain's terms "
+          f"and its counts equal", flush=True)
     k8s_listed, k8s_live, k8s_pairs = k8s_stats.tolist()
     tsl_lanes = sl.shape[1]
     print(f"K8/K5/K6 triangle modes at the per-sample trimesh route's "
@@ -3459,7 +3546,8 @@ def main() -> int:
               f"table rows; ms and bound: one step",
         plain_lanes=tsl_lanes, ms_same_lanes=tslice_ms["bounce_bwd"][0],
         same_lanes="sample 0, 5 bounces",
-        k8_ms_in_step=tstep_tot["bounce_fwd_list"][0])
+        k8_ms_in_step=tstep_tot["bounce_fwd_list"][0], parts=k6t_parts,
+        fwd_bwd_peak_bytes=peak_ts, **k6t_merge)
 
     # 25-29. the flat and Lambert+shadow estimators on K9
     est_kernels, est = estimator_phases(torch, dev, card, reset_counts,

@@ -328,7 +328,7 @@ def test_k6_multi_tile_matches_plain_on_card(cuda_device):
     """K6 against its plain version where each block sums several lane
     tiles into its partials: 650x350 = 227,500 lanes, 889 tiles of 256
     (the last ragged) over the 256 blocks of the first launch."""
-    assert build.load().trt_bounce_bwd_parts(650 * 350) == 256
+    assert build.load().trt_bounce_bwd_parts(650 * 350, 512) == 256
     _check_k6(cuda_device, 650, 350)
 
 
@@ -972,6 +972,140 @@ def test_k6_tri_multi_tile_matches_plain_on_card(cuda_device):
     """Several lane tiles a block: 650x350 = 227,500 lanes over the 256
     blocks of the first launch."""
     _check_k6_tri(cuda_device, 650, 350)
+
+
+def _merge_ids(pattern, r, threads, n_sph, m, g):
+    """Synthetic winners over r lanes (blocks of threads lanes) at the
+    merge's extremes, triangle ids n_sph.. n_sph + m - 1."""
+    lane = torch.arange(r)
+    tri = lambda k: n_sph + (k % m)  # noqa: E731
+    if pattern == "one id a block":
+        return tri(lane // threads * 97)
+    if pattern == "distinct ids":
+        return tri(torch.as_tensor(g.permutation(m)[:r]))
+    if pattern == "one id on alternate warps":
+        odd = (lane // 32) % 2 == 1
+        return torch.where(odd, tri(lane * 131 + 7),
+                           tri(lane // threads * 97))
+    return torch.full((r,), -1)                     # every lane a miss
+
+
+def _k6_merge_case(dev, pattern, poison=False):
+    """K6 at trimesh's P = 10,496 on the chain's bounce-1 states with the
+    winners of pattern: d_state equal to plain, d_table within 1e-4 of each
+    group's max of the plain f64 sum and bit-equal to the fixed order over
+    the plain lane terms, untouched rows exactly +0.0, two launches
+    bit-equal. poison: first free NaN-filled tensors of the partials' and
+    bitmaps' sizes, which the caching allocator hands back to the launch,
+    so an entry read before it is written shows as NaN."""
+    from tpu_ray_torch.kernels.bounce_step import (bounce_bwd_lanes_plain,
+                                                   table_sum_fixed_order)
+    tb, states, _ = _tri_fused_chain(dev, 64, 48)
+    n, n_sph = tb.table.shape[0], tb.n_sph
+    st = states[1]
+    r = st.shape[1]
+    g = np.random.default_rng(7)
+    lib = build.load()
+    threads = lib.trt_bounce_bwd_threads(n)
+    idx = _merge_ids(pattern, r, threads, n_sph, n - n_sph, g).to(
+        torch.int32).to(dev)
+    d_out = torch.as_tensor(g.standard_normal(st.shape).astype(np.float32),
+                            device=dev)
+    d_out[12:16] = 0.0
+    kw = dict(n_sph=n_sph, use_sky=True)
+    parts = lib.trt_bounce_bwd_parts(r, n)
+    outs = []
+    for _ in range(2):
+        if poison:
+            junk = [torch.full((parts, n, 12), float("nan"), device=dev),
+                    torch.full((parts, -(-n // 32)), -1, dtype=torch.int32,
+                               device=dev)]
+            del junk
+        outs.append(bounce_bwd(st, tb.table, idx, 1, d_out.clone(), **kw))
+    p = bounce_bwd_plain(st, tb.table, idx, 1, d_out.clone(), **kw)
+    _, d_wn = bounce_bwd_lanes_plain(st, tb.table, idx, 1, d_out, **kw)
+    fixed = table_sum_fixed_order(idx, d_wn, n, threads=threads,
+                                  parts=parts)
+    torch.cuda.synchronize()
+    a, a2 = outs
+    assert bool(torch.isfinite(p[0]).all() and torch.isfinite(p[1]).all())
+    assert torch.equal(a[0], p[0])
+    assert torch.equal(_bits(a[0]), _bits(a2[0]))
+    assert torch.equal(_bits(a[1]), _bits(a2[1]))
+    assert torch.equal(_bits(a[1]), _bits(fixed))
+    hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    hit[idx[idx >= 0].long()] = True
+    assert torch.equal(_bits(a[1][~hit]), torch.zeros_like(
+        _bits(a[1][~hit])))
+    for cols in (slice(0, 3), slice(3, 4), slice(4, 7), slice(7, 10),
+                 slice(10, 11), slice(11, 12)):
+        want = p[1][:, cols]
+        assert (a[1][:, cols] - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["one id a block", "distinct ids",
+                                     "one id on alternate warps",
+                                     "every lane a miss"])
+def test_k6_merge_extremes_on_card(cuda_device, pattern):
+    """K6's global-row merge at its extremes (trimesh's P = 10,496):
+    every lane of a block on one id, every lane on its own id, one id on
+    the even warps and distinct ids on the odd ones, no hit at all (no
+    block touches a row: d_table all +0.0)."""
+    _k6_merge_case(cuda_device, pattern)
+
+
+@pytest.mark.cuda
+def test_k6_merge_reads_no_unwritten_partial_on_card(cuda_device):
+    """K6 right after NaN-filled tensors of its partials' and bitmaps'
+    sizes are freed: no NaN reaches d_table, which equals the fixed
+    order."""
+    _k6_merge_case(cuda_device, "one id on alternate warps", poison=True)
+
+
+@pytest.mark.cuda
+def test_k3_reads_no_unwritten_partial_on_card(cuda_device):
+    """K3's global-row branch (trimesh's records, 96x64 over blocks of
+    several lane tiles) right after NaN-filled tensors of its partials' and
+    bitmaps' sizes are freed: the same bits as a launch on fresh memory and
+    as a second launch, d_state equal to plain, d_table and d_cam within
+    1e-4 of each group's max, its counts consistent."""
+    from tpu_ray_torch.kernels.bounce_step import MERGE_STATS
+    table, _, n_tri, _, cam, kw, recs, d_out = _tri_records(cuda_device, 96,
+                                                            64)
+    n = table.shape[0]
+    r = recs.t_end.shape[0]
+    parts = build.load().trt_regen_bwd_parts(r, n)
+    stats = torch.zeros(MERGE_STATS, dtype=torch.int64, device=cuda_device)
+    a = regen_bwd(recs, d_out, cam, table, n_tri=n_tri, stats=stats, **kw)
+    junk = [torch.full((parts, n, 12), float("nan"), device=cuda_device),
+            torch.full((parts, -(-n // 32)), -1, dtype=torch.int32,
+                       device=cuda_device)]
+    del junk
+    a2 = regen_bwd(recs, d_out, cam, table, n_tri=n_tri, **kw)
+    b = regen_bwd_plain(recs, d_out, cam, table, n_tri=n_tri, **kw)
+    torch.cuda.synchronize()
+    for x, x2 in zip(a, a2):
+        assert torch.equal(_bits(x), _bits(x2))
+    rows = list(range(12)) + [16, 17, 18]
+    assert torch.equal(a[0][rows], b[0][rows])
+    for cols in (slice(0, 3), slice(3, 4), slice(4, 7), slice(7, 10),
+                 slice(10, 11), slice(11, 12)):
+        want = b[1][:, cols]
+        assert (a[1][:, cols] - want).abs().max() <= \
+            1e-4 * want.abs().max()
+    for k in range(0, 12, 3):
+        want = b[2][k:k + 3]
+        assert (a[2][k:k + 3] - want).abs().max() <= 1e-4 * want.abs().max()
+    merges, sums, writes, firsts, most = stats.tolist()
+    steps = recs.rec.shape[0]
+    valid = torch.arange(steps, device=cuda_device)[:, None] < \
+        recs.t_end.long()[None, :]
+    ids = recs.rec[valid]
+    rows_hit = int(torch.unique(ids[ids >= 0]).numel())
+    threads = regen_bwd_info(n, cuda_device)["threads"]
+    assert parts > 1 and 0 < firsts <= writes <= sums <= merges * threads
+    assert rows_hit <= firsts <= parts * rows_hit and most <= rows_hit
 
 
 @pytest.mark.cuda

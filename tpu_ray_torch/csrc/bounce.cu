@@ -93,17 +93,25 @@
 //   Design: one thread per lane; d_table must be the same from run to
 //   run, so no float atomics. Launch 1 gives block k the lane tiles k,
 //   k + grid, ... (a partition fixed by r alone) and sums its lanes'
-//   d_winner into an [n,12] accumulator in a fixed order: within a warp
-//   the lanes of one winner (__match_any_sync) are summed by their
-//   lowest lane in lane order, then the warps add their sums one warp at
-//   a time. The accumulator sits in shared memory up to TRT_BWD_SMEM_ROW
-//   (rtweekend: 24.6 KB), and past it (trimesh: 10,496 x 48 B) in block
-//   k's own row of the partials in global memory, zeroed by the block,
-//   which no other block touches (K3's scheme, regen_bwd.cu). Either way
-//   row k of the partials ([parts, n, 12], 129 MB at 256 parts on
-//   trimesh) ends as block k's sum. Launch 2 sums the partials over k in
-//   order, one thread per entry. The TPU kernel carried d_table across a
-//   sequential grid; Hopper's blocks run in parallel and in no order.
+//   d_winner into its own [n, 12] partial row in the fixed order of
+//   shade.cuh (within a warp the lanes of one winner summed by their
+//   lowest lane in lane order, then the warps' sums in warp order;
+//   bounce_step.table_sum_fixed_order is its plain version), K3's scheme
+//   (regen_bwd.cu). The row sits in shared memory up to TRT_BWD_SMEM_ROW
+//   (rtweekend: 24.6 KB), the warps taking turns on it (trt_row_turns),
+//   and past it (trimesh: 10,496 x 48 B) in block k's own row of the
+//   partials in global memory, one merge a lane tile (trt_row_merge: each
+//   winner's entry read, added to in warp order and written back by one
+//   thread, every winner at once), and only the entries the block touches
+//   are ever written: a bitmap in shared memory marks its rows, and no
+//   block clears its row (256 rows of 504 KB zeroed and summed were 258 MB
+//   a launch on trimesh). Its blocks are held to two an SM (128 registers
+//   a thread; at one, 8 warps an SM, it is slower). Launch 2 (shade.cuh
+//   trt_sum_parts, trt_sum_parts_touched) sums the partials over k in
+//   order, one thread per entry, where the row is in global memory only
+//   over the blocks whose bit of the row is set. The
+//   TPU kernel carried d_table across a sequential grid; Hopper's blocks
+//   run in parallel and in no order.
 //   On a triangle scene (n_sph < n) the transpose runs its triangle
 //   branch (has_tris) on every lane, as K3 does.
 #include "shade.cuh"
@@ -111,8 +119,14 @@
 // The ray block: the threads of a K4/K5/K6 block and the row of the cull
 // mask (kernels/bounce_step.py BLOCK_R).
 #define TRT_BOUNCE_THREADS 256
-// The most blocks of K6's first launch (its partials' leading dimension).
+// The most blocks of K6's first launch (its partials' leading dimension)
+// where its accumulator sits in shared memory, in blocks of
+// TRT_BOUNCE_THREADS; the global-row branch's block shape, most blocks and
+// the blocks an SM should hold (tools/bwd_turns.py times other shapes).
 #define TRT_BWD_PARTS 256
+#define TRT_BWD_ROW_THREADS 256
+#define TRT_BWD_ROW_PARTS 256
+#define TRT_BWD_ROW_BLOCKS 2
 // The largest K6 accumulator kept in shared memory (K3's threshold).
 #define TRT_BWD_SMEM_ROW (96 * 1024)
 
@@ -337,26 +351,36 @@ __global__ void bounce_replay_kernel(const float* __restrict__ st,
 }
 
 // dst: d_state_out in, d_state_in out. part: [gridDim.x, n * 12].
-// Dynamic shared memory: 13 floats a thread of staged d_winner (13, not
-// 12: consecutive threads then start in different banks), then the
-// [n, 12] accumulator when smem_row is set (else it is part's row).
-__global__ void bounce_bwd_kernel(const float* __restrict__ st,
+// Dynamic shared memory: with SMEM_ROW, 13 floats a thread of staged
+// d_winner, then the [n, 12] accumulator; else the merge's scratch
+// (shade.cuh trt_row_merge_at), the accumulator being the block's row of
+// part. touched and stats: the global-row branch's bitmaps and counts
+// (trt_row_merge_end).
+template <int THREADS, bool SMEM_ROW>
+__global__ void __launch_bounds__(THREADS, SMEM_ROW ? 1 : TRT_BWD_ROW_BLOCKS)
+bounce_bwd_kernel(const float* __restrict__ st,
                                   const int* __restrict__ idx_in,
                                   const float* __restrict__ table, int n,
                                   int n_sph, float* __restrict__ dst, int r,
-                                  uint32_t bterm, int use_sky, int smem_row,
-                                  float* __restrict__ part) {
+                                  uint32_t bterm, int use_sky,
+                                  float* __restrict__ part,
+                                  unsigned* __restrict__ touched,
+                                  unsigned long long* stats) {
   extern __shared__ float smem[];
   float* sdw = smem;
-  float* acc = smem_row ? smem + 13 * blockDim.x
-                        : part + (size_t)blockIdx.x * 12 * n;
-  for (int k = threadIdx.x; k < 12 * n; k += blockDim.x) acc[k] = 0.0f;
+  float* acc = smem + 13 * blockDim.x;
+  float* row = part + (size_t)blockIdx.x * 12 * n;
+  const TrtRowMerge mg = trt_row_merge_at(smem, THREADS);
+  unsigned counts[4] = {0u, 0u, 0u, 0u};
+  if (SMEM_ROW) {
+    for (int k = threadIdx.x; k < 12 * n; k += blockDim.x) acc[k] = 0.0f;
+  } else {
+    trt_row_merge_begin(mg, n);
+  }
   __syncthreads();
   const bool has_tris = n_sph < n;
   const float s_pm1 = 4.656612873077393e-10f;   // 2 * 2^-32
   const float s_01 = 2.3283064365386963e-10f;   // 2^-32
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
   const int n_lane_tiles = (r + blockDim.x - 1) / blockDim.x;
   // the loop bound is the same for every thread of the block, so the
   // __syncthreads below are reached by all of them
@@ -389,53 +413,44 @@ __global__ void bounce_bwd_kernel(const float* __restrict__ st,
       for (int k = 12; k < 16; ++k) dst[(size_t)k * r + i] = 0.0f;
       if (live) key = idx;
     }
-    for (int c = 0; c < 12; ++c) sdw[threadIdx.x * 13 + c] = d_w[c];
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    __syncwarp();
-    const bool leader = key >= 0 && lane == __ffs(peers) - 1;
-    float sum[12];
-    if (leader) {
-      for (int c = 0; c < 12; ++c) sum[c] = 0.0f;
-      for (unsigned m = peers; m; m &= m - 1) {
-        const float* q = sdw + (warp * 32 + __ffs(m) - 1) * 13;
-        for (int c = 0; c < 12; ++c) sum[c] = sum[c] + q[c];
-      }
-    }
-    for (int w = 0; w < n_warps; ++w) {
-      if (warp == w && leader) {
-        for (int c = 0; c < 12; ++c) {
-          acc[12 * key + c] = acc[12 * key + c] + sum[c];
-        }
-      }
-      __syncthreads();
+    // d_table of this lane tile, in the fixed order (shade.cuh)
+    if (SMEM_ROW) {
+      trt_row_turns(sdw, key, d_w, acc);
+    } else {
+      trt_row_merge(mg, key, d_w, row, counts);
     }
   }
-  if (smem_row) {
-    float* row = part + (size_t)blockIdx.x * 12 * n;
+  if (SMEM_ROW) {
     for (int k = threadIdx.x; k < 12 * n; k += blockDim.x) row[k] = acc[k];
+  } else {
+    trt_row_merge_end(mg, n, touched, stats, counts);
   }
-}
-
-// out[j] = sum over k in order of part[k, j], j < m.
-__global__ void sum_parts_kernel(const float* __restrict__ part, int parts,
-                                 int m, float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  float s = 0.0f;
-  for (int k = 0; k < parts; ++k) s = s + part[(size_t)k * m + j];
-  out[j] = s;
 }
 
 int blocks_of(int r) {
   return (r + TRT_BOUNCE_THREADS - 1) / TRT_BOUNCE_THREADS;
 }
 
+// K6's accumulator for a table of n rows: in shared memory up to
+// TRT_BWD_SMEM_ROW, else the global-row branch.
+bool bwd_smem_row(int n) {
+  return (size_t)12 * n * sizeof(float) <= TRT_BWD_SMEM_ROW;
+}
+
 }  // namespace
 
-// The number of K6 partial rows for r lanes (the wrapper sizes them).
-extern "C" int trt_bounce_bwd_parts(int r) {
-  const int blocks = blocks_of(r);
-  return blocks < TRT_BWD_PARTS ? blocks : TRT_BWD_PARTS;
+// The threads of a K6 block for a table of n rows.
+extern "C" int trt_bounce_bwd_threads(int n) {
+  return bwd_smem_row(n) ? TRT_BOUNCE_THREADS : TRT_BWD_ROW_THREADS;
+}
+
+// The number of K6 partial rows for r lanes and a table of n rows (the
+// wrapper sizes them): a function of those alone, never of the device.
+extern "C" int trt_bounce_bwd_parts(int r, int n) {
+  const int threads = trt_bounce_bwd_threads(n);
+  const int most = bwd_smem_row(n) ? TRT_BWD_PARTS : TRT_BWD_ROW_PARTS;
+  const int blocks = (r + threads - 1) / threads;
+  return blocks < most ? blocks : most;
 }
 
 // state, out [16, r]; table [n_sph + m, 12]; bounce b; mask nullptr or
@@ -536,31 +551,38 @@ extern "C" int trt_bounce_replay(const float* state, float* out, int r,
 
 // state [16, r]; idx [r] i32; table [n, 12], rows past n_sph triangles;
 // d_state [16, r] (d_out in, d_state_in out); part
-// [trt_bounce_bwd_parts(r), n, 12] scratch; d_table [n, 12] out.
+// [trt_bounce_bwd_parts(r, n), n, 12] and touched
+// [trt_bounce_bwd_parts(r, n), ceil(n / 32)] u32 scratch, never cleared;
+// d_table [n, 12] out; stats nullptr or u64 [5], added to where the
+// accumulator is in global memory (shade.cuh trt_row_merge_end).
 extern "C" int trt_bounce_bwd(const float* state, const int* idx,
                               const float* table, int n, int n_sph,
                               float* d_state, int r, int bounce, int use_sky,
-                              float* part, float* d_table,
+                              float* part, unsigned* touched,
+                              float* d_table, unsigned long long* stats,
                               cudaStream_t stream) {
   if (n_sph < 0 || n_sph > n) return (int)cudaErrorInvalidValue;
-  const size_t row = (size_t)12 * n * sizeof(float);
-  const int smem_row = row <= TRT_BWD_SMEM_ROW;
-  const size_t smem = (size_t)13 * TRT_BOUNCE_THREADS * sizeof(float) +
-                      (smem_row ? row : 0);
-  cudaError_t err = trt_set_smem(bounce_bwd_kernel, smem);
+  const bool smem_row = bwd_smem_row(n);
+  const int threads = trt_bounce_bwd_threads(n);
+  const size_t smem =
+      smem_row ? (size_t)13 * threads * sizeof(float) + 12 * n * sizeof(float)
+               : trt_row_merge_bytes(threads, n);
+  if (smem > TRT_MAX_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+  auto kernel = smem_row ? bounce_bwd_kernel<TRT_BOUNCE_THREADS, true>
+                         : bounce_bwd_kernel<TRT_BWD_ROW_THREADS, false>;
+  cudaError_t err = trt_set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
-  const int m = 12 * n;
   int parts = 0;
   if (r > 0) {
-    parts = trt_bounce_bwd_parts(r);
-    bounce_bwd_kernel<<<parts, TRT_BOUNCE_THREADS, smem, stream>>>(
+    parts = trt_bounce_bwd_parts(r, n);
+    kernel<<<parts, threads, smem, stream>>>(
         state, idx, table, n, n_sph, d_state, r,
-        (uint32_t)bounce * TRT_MIX_BOUNCE, use_sky, smem_row, part);
+        (uint32_t)bounce * TRT_MIX_BOUNCE, use_sky, part, touched, stats);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  sum_parts_kernel<<<(m + 63) / 64, 64, 0, stream>>>(part, parts, m,
-                                                      d_table);
+  trt_sum_parts_launch(part, smem_row ? nullptr : touched, (n + 31) / 32,
+                       parts, 12 * n, d_table, stream);
   return (int)cudaGetLastError();
 }

@@ -18,32 +18,46 @@
 // Design. d_table and d_cam must be the same from run to run, so no float
 // atomics (the scheme of K6, bounce.cu). Launch 1 runs a bounded number of
 // blocks (bwd_config); block k owns the lane tiles k, k + grid, ... (a
-// partition fixed by r and the table's size, never by the device) and, for each tile, walks the
-// segments from the last to the first: each lane loads its checkpoint and
-// replays its alive steps of the segment without search through
-// trt_step_tail (regen_step.cuh, the forward's own code, so the replayed
-// states are the forward's bit for bit), stashing the 12 rows the
-// transpose reads (48 B a step, in local memory); then the whole block
-// sweeps the segment's steps together from the tile's largest t_end
-// down, a lane past its own t_end masked. At each step, within a warp the
-// lanes of one winner (__match_any_sync) are summed by their lowest lane
-// in lane order, and the warps add their sums to the block's partial row
-// [n, 12] one warp at a time. Where the row fits shared memory
-// (rtweekend: 24.6 KB) a block is two warps: two barriers a step couple
-// only those two, eight blocks an SM hold their rows (with the carveout
-// set to shared memory) and 16 warps, at 128 registers a thread. (Blocks
-// of one warp, with no barrier but 8 warps an SM, and the 256-thread
-// blocks of eight barriers a step this replaced are slower:
-// tools/cull_variants.py times them from patched copies, PERF.md.) Where
-// the row does not fit (trimesh: 10,496
-// x 48 B) it lies in the block's own row of the partials in global
-// memory, which no other block touches, in 256-thread blocks. The 12
-// camera-row cotangents accumulate per lane in registers and are summed
-// over the block's threads in thread order at
-// the end. Launch 2 sums the partials over the blocks in order, one
-// thread per entry. The cotangent of a lane stays in registers across
-// its segments; the TPU kernel's per-segment launch and HBM round trip of
-// d_state are gone. The table is read from global memory through L1/L2.
+// partition fixed by r and the table's size, never by the device) and, for
+// each tile, walks the segments from the last to the first: each lane
+// loads its checkpoint and replays its alive steps of the segment without
+// search through trt_step_tail (regen_step.cuh, the forward's own code, so
+// the replayed states are the forward's bit for bit), stashing the 12 rows
+// the transpose reads (48 B a step, in local memory); then the whole block
+// sweeps the segment's steps together from the tile's largest t_end down,
+// a lane past its own t_end masked. Each step's d_winner goes into the
+// block's [n, 12] partial row in the fixed order of shade.cuh (within a
+// warp the lanes of one winner summed by their lowest lane, the warps'
+// sums added in warp order; bounce_step.table_sum_fixed_order is its plain
+// version). Where the row fits shared memory (rtweekend: 24.6 KB) a block
+// is two warps that take turns on it (trt_row_turns): two barriers a step
+// couple only those two, eight blocks an SM hold their rows (with the
+// carveout set to shared memory) and 16 warps, at 128 registers a thread.
+// (Blocks of one warp, with no barrier but 8 warps an SM, and 256-thread
+// blocks of eight barriers a step are slower: tools/cull_variants.py
+// times them from patched copies, PERF.md.) Where it does not (every
+// triangle scene; trimesh: 10,496 x 48 B) the row is the block's own row
+// of the partials in global memory, which no other block touches, and a
+// step makes one merge (trt_row_merge): the warps stage their keyed sums
+// in shared memory, and after one barrier the thread of each winner's
+// lowest warp reads the row entry, adds the warps' sums in warp order and
+// writes it back, every winner at once, where eight warps taking turns
+// made eight dependent round trips to L2 or DRAM a step. A bitmap of n
+// bits in shared memory marks the rows the block has touched: a first
+// touch writes without reading, so the partials are never cleared, and
+// the block writes its bitmap out at the end. These blocks are 256
+// threads, two an SM (16 warps, at 128 registers a thread), 256 of them at
+// most: the turns' partition, so d_table is theirs bit for bit; smaller
+// blocks in more parts were no faster (tools/bwd_turns.py times them,
+// PERF.md). The 12 camera-row cotangents
+// accumulate per lane in registers and are summed over the block's
+// threads in thread order at the end. Launch 2 (shade.cuh trt_sum_parts)
+// sums the partials over the blocks in order from +0.0, one thread per
+// entry; in the global-row branch only the blocks whose bit of the row is
+// set, which gives the same bits as adding the others' zeros. The
+// cotangent of a lane stays in registers across its segments; the TPU
+// kernel's per-segment launch and HBM round trip of d_state are gone.
+// The table is read from global memory through L1/L2.
 //
 // Bound on the H100: fp32 ALU (replay ~200 flops and transpose ~500 flops
 // a lane-step, no search), against 2 B of record, 48 B of stash written
@@ -52,9 +66,11 @@
 
 #define TRT_SEG_MAX 64
 #define TRT_STASH 12
-// the global-row branch: blocks of 256 threads, at most 256 of them
+// the global-row branch: its block shape, the most blocks (parts) and the
+// blocks an SM should hold
 #define TRT_BWD_THREADS 256
 #define TRT_BWD_PARTS 256
+#define TRT_BWD_BLOCKS 2
 // the shared-row branch: blocks of two warps, at most 1,024 of them, and
 // eight blocks an SM where registers and shared memory allow
 #define TRT_BWD_SMEM_THREADS 64
@@ -65,12 +81,13 @@
 
 namespace {
 
-// Dynamic shared memory: 13 floats a thread of staged d_winner (13, not
-// 12, so consecutive threads start in different banks), then the [n, 12]
-// partial row when smem_row is set. THREADS and MIN_BLOCKS: the block
-// size it is launched with and the blocks an SM should hold
-// (__launch_bounds__).
-template <int THREADS, int MIN_BLOCKS>
+// Dynamic shared memory: with SMEM_ROW, 13 floats a thread of staged
+// d_winner, then the [n, 12] partial row; else the merge's scratch
+// (shade.cuh trt_row_merge_at), the row being the block's row of part.
+// THREADS and MIN_BLOCKS: the block size it is launched with and the
+// blocks an SM should hold (__launch_bounds__). touched and stats: the
+// global-row branch's bitmaps and counts (trt_row_merge_end).
+template <int THREADS, int MIN_BLOCKS, bool SMEM_ROW>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 regen_bwd_kernel(float* __restrict__ dst, int r,
                                  const float* __restrict__ cam13,
@@ -78,22 +95,28 @@ regen_bwd_kernel(float* __restrict__ dst, int r,
                                  int n_tri, const int16_t* __restrict__ rec,
                                  const float* __restrict__ chk,
                                  const int* __restrict__ t_end, int steps,
-                                 int seg, TrtRegenParams p, int smem_row,
+                                 int seg, TrtRegenParams p,
                                  float* __restrict__ part,
-                                 float* __restrict__ part_cam) {
+                                 unsigned* __restrict__ touched,
+                                 float* __restrict__ part_cam,
+                                 unsigned long long* stats) {
   extern __shared__ float smem[];
   __shared__ int s_tmax;
   float* sdw = smem;
-  float* acc = smem_row ? smem + 13 * blockDim.x
-                        : part + (size_t)blockIdx.x * 12 * n;
-  for (int k = threadIdx.x; k < 12 * n; k += blockDim.x) acc[k] = 0.0f;
+  float* acc = smem + 13 * THREADS;
+  float* row = part + (size_t)blockIdx.x * 12 * n;
+  const TrtRowMerge mg = trt_row_merge_at(smem, THREADS);
+  unsigned counts[4] = {0u, 0u, 0u, 0u};
+  if (SMEM_ROW) {
+    for (int k = threadIdx.x; k < 12 * n; k += blockDim.x) acc[k] = 0.0f;
+  } else {
+    trt_row_merge_begin(mg, n);
+  }
   __syncthreads();
 
   const TrtCam c = trt_load_cam(cam13);
   const bool has_tris = n_tri > 0;
   const int n_sph = n - n_tri;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
   const int n_tiles = (r + blockDim.x - 1) / blockDim.x;
   const float s_pm1 = 4.656612873077393e-10f;   // 2 * 2^-32
   const float s_01 = 2.3283064365386963e-10f;   // 2^-32
@@ -192,27 +215,11 @@ regen_bwd_kernel(float* __restrict__ dst, int r,
           for (int k = 0; k < 3; ++k) g[9 + k] = g16[9 + k];
           if (live) key = idx;
         }
-        // d_table of this step, in a fixed order: the lanes of one winner
-        // summed by their lowest lane, the warps one at a time
-        for (int k = 0; k < 12; ++k) sdw[threadIdx.x * 13 + k] = d_w[k];
-        const unsigned peers = __match_any_sync(0xffffffffu, key);
-        __syncwarp();
-        const bool leader = key >= 0 && lane == __ffs(peers) - 1;
-        float sum[12];
-        if (leader) {
-          for (int k = 0; k < 12; ++k) sum[k] = 0.0f;
-          for (unsigned mk = peers; mk; mk &= mk - 1) {
-            const float* v = sdw + (warp * 32 + __ffs(mk) - 1) * 13;
-            for (int k = 0; k < 12; ++k) sum[k] = sum[k] + v[k];
-          }
-        }
-        for (int wp = 0; wp < n_warps; ++wp) {
-          if (warp == wp && leader) {
-            for (int k = 0; k < 12; ++k) {
-              acc[12 * key + k] = acc[12 * key + k] + sum[k];
-            }
-          }
-          __syncthreads();
+        // d_table of this step, in the fixed order (shade.cuh)
+        if (SMEM_ROW) {
+          trt_row_turns(sdw, key, d_w, acc);
+        } else {
+          trt_row_merge(mg, key, d_w, row, counts);
         }
       }
     }
@@ -225,7 +232,10 @@ regen_bwd_kernel(float* __restrict__ dst, int r,
       }
     }
   }
-  // the block's camera cotangents, summed over its threads in order
+  // the block's camera cotangents, summed over its threads in order (in
+  // the global-row branch once every thread has read the last merge's
+  // slots)
+  if (!SMEM_ROW) __syncthreads();
   for (int k = 0; k < 12; ++k) sdw[threadIdx.x * 13 + k] = dcam[k];
   __syncthreads();
   if (threadIdx.x < 12) {
@@ -233,27 +243,17 @@ regen_bwd_kernel(float* __restrict__ dst, int r,
     for (int j = 0; j < (int)blockDim.x; ++j) v = v + sdw[j * 13 + threadIdx.x];
     part_cam[(size_t)blockIdx.x * 12 + threadIdx.x] = v;
   }
-  if (smem_row) {
-    float* row = part + (size_t)blockIdx.x * 12 * n;
+  if (SMEM_ROW) {
     for (int k = threadIdx.x; k < 12 * n; k += blockDim.x) row[k] = acc[k];
+  } else {
+    trt_row_merge_end(mg, n, touched, stats, counts);
   }
-}
-
-// out[j] = sum over k in order of part[k, j], j < m.
-__global__ void regen_bwd_sum_kernel(const float* __restrict__ part,
-                                     int parts, int m,
-                                     float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  float s = 0.0f;
-#pragma unroll 16
-  for (int k = 0; k < parts; ++k) s = s + part[(size_t)k * m + j];
-  out[j] = s;
 }
 
 // K3's configuration for a table of n rows. Where the [n, 12] row fits
 // TRT_BWD_SMEM_ROW: blocks of two warps, each block's partial row in
-// shared memory. Else the global-row branch of 256-thread blocks.
+// shared memory. Else the global-row branch: each block's row in its own
+// row of the partials, one merge a step (shade.cuh trt_row_merge).
 struct TrtBwdConfig {
   bool smem_row;
   int threads, max_parts;
@@ -264,7 +264,7 @@ TrtBwdConfig bwd_config(int n) {
   const size_t row = (size_t)12 * n * sizeof(float);
   if (row > TRT_BWD_SMEM_ROW) {
     return {false, TRT_BWD_THREADS, TRT_BWD_PARTS,
-            (size_t)13 * TRT_BWD_THREADS * sizeof(float)};
+            trt_row_merge_bytes(TRT_BWD_THREADS, n)};
   }
   return {true, TRT_BWD_SMEM_THREADS, TRT_BWD_SMEM_PARTS,
           (size_t)13 * TRT_BWD_SMEM_THREADS * sizeof(float) + row};
@@ -279,11 +279,13 @@ int bwd_parts(const TrtBwdConfig& cfg, int r) {
 // the carveout that lets TRT_BWD_SMEM_BLOCKS small blocks hold their
 // rows).
 cudaError_t bwd_kernel(const TrtBwdConfig& cfg, const void** fn) {
+  if (cfg.smem > TRT_MAX_SMEM_BYTES) return cudaErrorInvalidValue;
   const void* k =
       cfg.smem_row
           ? (const void*)regen_bwd_kernel<TRT_BWD_SMEM_THREADS,
-                                          TRT_BWD_SMEM_BLOCKS>
-          : (const void*)regen_bwd_kernel<TRT_BWD_THREADS, 1>;
+                                          TRT_BWD_SMEM_BLOCKS, true>
+          : (const void*)regen_bwd_kernel<TRT_BWD_THREADS, TRT_BWD_BLOCKS,
+                                          false>;
   *fn = k;
   cudaError_t err = trt_set_smem(k, cfg.smem);
   if (err == cudaSuccess && cfg.smem_row) {
@@ -334,17 +336,20 @@ extern "C" int trt_regen_bwd_info(int n, int* out) {
 }
 
 // dstate [24, r] (d_out in, d_state out); table [n, 12], its last n_tri
-// rows triangles; part [trt_regen_bwd_parts(r, n), n, 12] and part_cam
-// [trt_regen_bwd_parts(r, n), 12] scratch; d_table [n, 12] and d_cam [12]
-// out.
+// rows triangles; part [trt_regen_bwd_parts(r, n), n, 12], touched
+// [trt_regen_bwd_parts(r, n), ceil(n / 32)] u32 and part_cam
+// [trt_regen_bwd_parts(r, n), 12] scratch, never cleared; d_table [n, 12]
+// and d_cam [12] out; stats nullptr or u64 [5], added to where the row is
+// in global memory (shade.cuh trt_row_merge_end).
 extern "C" int trt_regen_bwd(float* dstate, int r, const float* cam13,
                              const float* table, int n, int n_tri,
                              const int16_t* rec, const float* chk,
                              const int* t_end, int steps, int seg,
                              int use_sky, int max_bounces, int width,
                              int height, float film_w, float film_h,
-                             float* part, float* part_cam,
+                             float* part, unsigned* touched, float* part_cam,
                              float* d_table, float* d_cam,
+                             unsigned long long* stats,
                              cudaStream_t stream) {
   if (seg < 1 || seg > TRT_SEG_MAX) return (int)cudaErrorInvalidValue;
   if (n_tri < 0 || n_tri > n) return (int)cudaErrorInvalidValue;
@@ -357,18 +362,15 @@ extern "C" int trt_regen_bwd(float* dstate, int r, const float* cam13,
   int parts = 0;
   if (r > 0) {
     parts = bwd_parts(cfg, r);
-    int smem_row = cfg.smem_row;
     void* args[] = {&dstate, &r, &cam13, &table, &n, &n_tri, &rec, &chk,
-                    &t_end, &steps, &seg, &p, &smem_row, &part, &part_cam};
+                    &t_end, &steps, &seg, &p, &part, &touched, &part_cam,
+                    &stats};
     err = cudaLaunchKernel(fn, dim3(parts), dim3(cfg.threads), args,
                            cfg.smem, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  const int m = 12 * n;
-  if (m > 0) {
-    regen_bwd_sum_kernel<<<(m + 63) / 64, 64, 0, stream>>>(part, parts, m,
-                                                           d_table);
-  }
-  regen_bwd_sum_kernel<<<1, 64, 0, stream>>>(part_cam, parts, 12, d_cam);
+  trt_sum_parts_launch(part, cfg.smem_row ? nullptr : touched,
+                       (n + 31) / 32, parts, 12 * n, d_table, stream);
+  trt_sum_parts_launch(part_cam, nullptr, 1, parts, 12, d_cam, stream);
   return (int)cudaGetLastError();
 }

@@ -405,3 +405,272 @@ static __device__ void trt_shade_vjp(const float* s, const float* w,
   d_s[3] = d_d0; d_s[4] = d_d1; d_s[5] = d_d2;
   d_s[6] = d_a0; d_s[7] = d_a1; d_s[8] = d_a2;
 }
+
+// ---------------------------------------------------------------------------
+// The fixed-order sum of d_table, shared by K3 (regen_bwd.cu) and K6
+// (bounce.cu). No float atomics, so d_table is the same from run to run.
+// A block walks its lane tiles in order, and at each step of a tile adds
+// its lanes' d_winner into its own [n, 12] partial row in this order:
+// within a warp the lanes of one winner (__match_any_sync) are summed by
+// their lowest lane in lane order, starting from +0.0; the row entry of a
+// winner then gets the warps' sums added one after the other in warp
+// order, ((acc + s_w0) + s_w1) + ...; a second launch sums the blocks'
+// rows in block order from +0.0 (trt_sum_parts).
+// kernels/bounce_step.py table_sum_fixed_order is its plain version.
+// ---------------------------------------------------------------------------
+
+// Stage this thread's d_w in its slot of sdw (13 floats a thread: 13, not
+// 12, so consecutive threads start in different banks) and sum each
+// winner's lanes of the warp by the winner's lowest lane -> is this thread
+// that lane (key >= 0); sum then holds the warp's sum.
+__device__ __forceinline__ bool trt_warp_key_sum(float* sdw, int key,
+                                                 const float* d_w,
+                                                 float* sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = 0; k < 12; ++k) sdw[threadIdx.x * 13 + k] = d_w[k];
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  __syncwarp();
+  const bool leader = key >= 0 && lane == __ffs(peers) - 1;
+  if (leader) {
+    for (int k = 0; k < 12; ++k) sum[k] = 0.0f;
+    for (unsigned mk = peers; mk; mk &= mk - 1) {
+      const float* v = sdw + (warp * 32 + __ffs(mk) - 1) * 13;
+      for (int k = 0; k < 12; ++k) sum[k] = sum[k] + v[k];
+    }
+  }
+  return leader;
+}
+
+// One step where the partial row acc lies in shared memory (the shared-row
+// branch, a row of up to TRT_BWD_SMEM_ROW bytes): the warps add their
+// sums one warp at a time, a block barrier after each turn.
+__device__ __forceinline__ void trt_row_turns(float* sdw, int key,
+                                              const float* d_w, float* acc) {
+  const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  float sum[12];
+  const bool leader = trt_warp_key_sum(sdw, key, d_w, sum);
+  for (int wp = 0; wp < n_warps; ++wp) {
+    if (warp == wp && leader) {
+      for (int k = 0; k < 12; ++k) {
+        acc[12 * key + k] = acc[12 * key + k] + sum[k];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The global-row branch: the block's partial row lies in global memory
+// (its own row of the partials, which no other block touches), and each
+// step makes one merge. Its shared scratch, laid out by trt_row_merge_at
+// (trt_row_merge_bytes bytes): TRT_MERGE_BUFS buffers, each of val, 13
+// floats a thread (the staged d_winner, then each warp's sums at the slots
+// of its keys), key and cnt (each warp's keys, compacted to its first
+// slots, and their count); then a tally of 4 and the bitmap of the rows
+// the block has touched. The steps take the buffers in turn, so one
+// barrier a step suffices: a thread writes a buffer again two steps
+// later, past the barrier of the step between, which every thread reaches
+// only once it has read that buffer.
+#define TRT_MERGE_BUFS 2
+
+struct TrtRowMerge {
+  float* val;
+  int* key;
+  int* cnt;
+  unsigned* tally;
+  unsigned* bits;
+};
+
+__host__ __device__ inline size_t trt_row_merge_bytes(int threads, int n) {
+  return ((size_t)TRT_MERGE_BUFS * (14 * threads + threads / 32) + 4 +
+          (n + 31) / 32) * 4;
+}
+
+__device__ __forceinline__ TrtRowMerge trt_row_merge_at(float* smem,
+                                                        int threads) {
+  TrtRowMerge s;
+  s.val = smem;
+  s.key = reinterpret_cast<int*>(smem + TRT_MERGE_BUFS * 13 * threads);
+  s.cnt = s.key + TRT_MERGE_BUFS * threads;
+  s.tally = reinterpret_cast<unsigned*>(s.cnt + TRT_MERGE_BUFS * threads /
+                                        32);
+  s.bits = s.tally + 4;
+  return s;
+}
+
+// Clear the bitmap; a block barrier must follow before the first merge.
+__device__ __forceinline__ void trt_row_merge_begin(const TrtRowMerge& s,
+                                                    int n) {
+  for (int k = threadIdx.x; k < (n + 31) / 32; k += blockDim.x) {
+    s.bits[k] = 0u;
+  }
+}
+
+// The slot of key among a warp's m compacted keys (a warp holds a key at
+// most once), -1 if it has none.
+__device__ __forceinline__ int trt_key_slot(const int* keys, int m,
+                                            int key) {
+  int at = -1;
+  for (int j = 0; j < m; ++j) at = keys[j] == key ? j : at;
+  return at;
+}
+
+// One step of the global-row branch, reached by every thread of the block.
+// The warps stage their keyed sums; after one barrier the thread of a
+// key's lowest warp reads the row entry (or starts from +0.0 where the
+// block has not touched it, which the bitmap says: the partials are never
+// cleared), adds that warp's sum and the later warps' sums for the key in
+// warp order, and writes it back: one read-add-write a key, all in
+// parallel (a key has one such thread a step), the same f32 sums as the
+// turns of trt_row_turns. c counts: c[0] steps merged (its parity picks
+// the step's buffer), c[1] warp sums staged, c[2] row entries written,
+// c[3] of them first touches.
+__device__ __forceinline__ void trt_row_merge(const TrtRowMerge& s, int key,
+                                              const float* d_w, float* row,
+                                              unsigned* c) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const unsigned buf = c[0] % TRT_MERGE_BUFS;
+  float* val = s.val + buf * 13 * blockDim.x;
+  int* keys = s.key + buf * blockDim.x;
+  int* cnt = s.cnt + buf * n_warps;
+  float sum[12];
+  const bool leader = trt_warp_key_sum(val, key, d_w, sum);
+  const unsigned leaders = __ballot_sync(0xffffffffu, leader);
+  __syncwarp();   // the warp's staged d_winner is read: its slots are free
+  if (leader) {
+    const int slot = warp * 32 + __popc(leaders & ((1u << lane) - 1u));
+    keys[slot] = key;
+    for (int k = 0; k < 12; ++k) val[slot * 13 + k] = sum[k];
+  }
+  if (lane == 0) cnt[warp] = __popc(leaders);
+  c[0] += 1u;
+  c[1] += leader ? 1u : 0u;
+  __syncthreads();
+  if (lane < cnt[warp]) {
+    const int mine = keys[warp * 32 + lane];
+    bool lowest = true;
+    for (int w = 0; w < warp && lowest; ++w) {
+      lowest = trt_key_slot(keys + w * 32, cnt[w], mine) < 0;
+    }
+    if (lowest) {
+      const unsigned bit = 1u << (mine & 31);
+      const bool seen = (atomicOr(s.bits + (mine >> 5), bit) & bit) != 0u;
+      float4* dst = reinterpret_cast<float4*>(row + 12 * (size_t)mine);
+      float v[12];
+      if (seen) {
+        for (int q = 0; q < 3; ++q) {
+          const float4 x = dst[q];
+          v[4 * q] = x.x; v[4 * q + 1] = x.y;
+          v[4 * q + 2] = x.z; v[4 * q + 3] = x.w;
+        }
+      } else {
+        for (int k = 0; k < 12; ++k) v[k] = 0.0f;
+      }
+      const float* a = val + (warp * 32 + lane) * 13;
+      for (int k = 0; k < 12; ++k) v[k] = v[k] + a[k];
+      for (int w = warp + 1; w < n_warps; ++w) {
+        const int j = trt_key_slot(keys + w * 32, cnt[w], mine);
+        if (j >= 0) {
+          const float* b = val + (w * 32 + j) * 13;
+          for (int k = 0; k < 12; ++k) v[k] = v[k] + b[k];
+        }
+      }
+      for (int q = 0; q < 3; ++q) {
+        dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                             v[4 * q + 3]);
+      }
+      c[2] += 1u;
+      c[3] += seen ? 0u : 1u;
+    }
+  }
+  if (TRT_MERGE_BUFS == 1) __syncthreads();
+}
+
+// After the block's last step, reached by every thread: the bitmap to the
+// block's row of touched ([gridDim.x, ceil(n / 32)] u32) and, where stats
+// is not nullptr (u64 [5], added to), the counts of trt_row_merge summed
+// over the block: 0 steps merged (the block's own, once), 1 warp sums, 2
+// row entries written, 3 first touches (rows the block touched), and 4
+// the most rows one block touched (atomicMax).
+__device__ __forceinline__ void trt_row_merge_end(
+    const TrtRowMerge& s, int n, unsigned* __restrict__ touched,
+    unsigned long long* stats, const unsigned* c) {
+  const int words = (n + 31) / 32;
+  __syncthreads();
+  for (int k = threadIdx.x; k < words; k += blockDim.x) {
+    touched[(size_t)blockIdx.x * words + k] = s.bits[k];
+  }
+  if (stats == nullptr) return;
+  if (threadIdx.x < 4) s.tally[threadIdx.x] = 0u;
+  __syncthreads();
+  for (int q = 1; q < 4; ++q) {
+    const unsigned v = __reduce_add_sync(0xffffffffu, c[q]);
+    if ((threadIdx.x & 31) == 0 && v) atomicAdd(s.tally + q, v);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(stats, (unsigned long long)c[0]);
+    for (int q = 1; q < 4; ++q) {
+      atomicAdd(stats + q, (unsigned long long)s.tally[q]);
+    }
+    atomicMax(stats + 4, (unsigned long long)s.tally[3]);
+  }
+}
+
+namespace {
+
+// out[j] = the sum over k in order of part[k, j], j < m, from +0.0, over
+// every part (the shared-row branch's dense partials).
+__global__ void trt_sum_parts(const float* __restrict__ part, int parts,
+                              int m, float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  float s = 0.0f;
+#pragma unroll 16
+  for (int k = 0; k < parts; ++k) s = s + part[(size_t)k * m + j];
+  out[j] = s;
+}
+
+// The global-row branch's sum: out[j] over the parts whose bit of row
+// j / 12 is set in touched ([parts, words] row bitmaps of
+// trt_row_merge_end), in order from +0.0; the others' entries were never
+// written. Skipping them gives the same bits as adding their +0.0: a sum
+// that starts at +0.0 is never -0.0 in round-to-nearest, and s + 0.0 = s
+// for every other s. Block w sums the 32 rows of bitmap word w (384
+// entries, a thread each), that word of every part staged in shared
+// memory first (parts u32 of dynamic shared memory).
+__global__ void trt_sum_parts_touched(const float* __restrict__ part,
+                                      const unsigned* __restrict__ touched,
+                                      int words, int parts, int m,
+                                      float* __restrict__ out) {
+  extern __shared__ unsigned s_bits[];
+  const int w = blockIdx.x;
+  for (int k = threadIdx.x; k < parts; k += blockDim.x) {
+    s_bits[k] = touched[(size_t)k * words + w];
+  }
+  __syncthreads();
+  const int j = w * 384 + threadIdx.x;
+  if (j >= m) return;
+  const unsigned bit = 1u << ((j / 12) & 31);
+  float s = 0.0f;
+  for (int k = 0; k < parts; ++k) {
+    if (s_bits[k] & bit) s = s + part[(size_t)k * m + j];
+  }
+  out[j] = s;
+}
+
+// Launch the sum of parts partial rows of m = 12 n entries into out on
+// stream: touched nullptr, trt_sum_parts; else trt_sum_parts_touched.
+inline void trt_sum_parts_launch(const float* part, const unsigned* touched,
+                                 int words, int parts, int m, float* out,
+                                 cudaStream_t stream) {
+  if (m == 0) return;
+  if (touched == nullptr) {
+    trt_sum_parts<<<(m + 63) / 64, 64, 0, stream>>>(part, parts, m, out);
+  } else {
+    trt_sum_parts_touched<<<words, 384, (size_t)parts * 4, stream>>>(
+        part, touched, words, parts, m, out);
+  }
+}
+
+}  // namespace

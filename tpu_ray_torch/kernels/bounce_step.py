@@ -85,7 +85,9 @@ __all__ = ["shade_plain", "shade_vjp_plain", "nrm3_fwd", "nrm3_bwd",
            "init_state", "bounce_fwd",
            "bounce_fwd_plain", "bounce_fwd_list", "bounce_fwd_list_plain",
            "bounce_replay", "bounce_replay_plain",
-           "bounce_bwd", "bounce_bwd_plain", "FusedTables", "fused_tables",
+           "bounce_bwd", "bounce_bwd_plain", "bounce_bwd_lanes_plain",
+           "table_sum_fixed_order", "MERGE_STATS", "FusedTables",
+           "fused_tables",
            "origin_bound",
            "trace_rays_fused", "FusedSample", "make_fused_sample"]
 
@@ -1122,6 +1124,22 @@ def bounce_replay(state, table, idx, bounce: int, *, use_sky: bool,
 bounce_replay.launches = 0
 
 
+def bounce_bwd_lanes_plain(state, table, idx, bounce: int, d_out, *,
+                           use_sky: bool, n_sph: Optional[int] = None):
+    """``bounce_bwd_plain``'s lane terms, d_out left as it is -> (the
+    cotangent of the input state [16,R], rows 12-15 zero; d_winner [12,R],
+    the cotangent of each lane's winner row, summed into d_table over the
+    live lanes)."""
+    live = idx >= 0
+    sky = (state[12] > 0.5) & ~live
+    winner = table[idx.clamp(min=0).long()].T
+    d_st, d_wn = shade_vjp_plain(state, winner, live, sky,
+                                 _draws(state, bounce), use_sky, d_out,
+                                 _is_tri(idx, n_sph))
+    d_st[0:9] = torch.where(live | sky, d_st[0:9], d_out[0:9])
+    return d_st, d_wn
+
+
 def bounce_bwd_plain(state, table, idx, bounce: int, d_out, *,
                      use_sky: bool, n_sph: Optional[int] = None):
     """Plain version of K6: the transpose of ``bounce_replay_plain`` at
@@ -1130,13 +1148,9 @@ def bounce_bwd_plain(state, table, idx, bounce: int, d_out, *,
     cotangent of the input state (rows 12-15 zero); a lane that neither
     hits nor sees the sky passes it through. -> (d_out, d_table [P,12],
     summed over the live lanes in f64, then rounded)."""
+    d_st, d_wn = bounce_bwd_lanes_plain(state, table, idx, bounce, d_out,
+                                        use_sky=use_sky, n_sph=n_sph)
     live = idx >= 0
-    sky = (state[12] > 0.5) & ~live
-    winner = table[idx.clamp(min=0).long()].T
-    d_st, d_wn = shade_vjp_plain(state, winner, live, sky,
-                                 _draws(state, bounce), use_sky, d_out,
-                                 _is_tri(idx, n_sph))
-    d_st[0:9] = torch.where(live | sky, d_st[0:9], d_out[0:9])
     d_tab = torch.zeros(table.shape, dtype=torch.float64,
                         device=d_out.device)
     d_tab.index_add_(0, idx[live].long(), d_wn[:, live].T.to(torch.float64))
@@ -1144,27 +1158,110 @@ def bounce_bwd_plain(state, table, idx, bounce: int, d_out, *,
     return d_out, d_tab.to(torch.float32)
 
 
+# the counts of the global-row sum (csrc/shade.cuh trt_row_merge_end):
+# steps merged, warp sums staged, partial row entries written, of them
+# first touches (the rows touched, summed over the blocks), and the most
+# rows one block touched
+MERGE_STATS = 5
+
+
+def table_sum_fixed_order(keys, d_w, n: int, *, threads: int, parts: int,
+                          counts: bool = False):
+    """d_table [n,12] f32 summed exactly in K3's and K6's fixed order
+    (``csrc/shade.cuh``): keys [S,R] int (or [R]) each lane's winner at
+    each step, below 0 for none, and d_w [S,12,R] f32 (or [12,R]) its
+    cotangent. The lanes fall in tiles of ``threads`` (the block size);
+    block k of ``parts`` takes the tiles k, k + parts, ..., each with its
+    steps in the given order. At a step, within each warp of 32 lanes the
+    lanes of one key are summed in lane order from +0.0; each warp's sum
+    is added to block k's partial row in warp order; the rows are summed
+    over the blocks in order from +0.0. With counts, also the int64
+    [MERGE_STATS] counts of the global-row branch over these steps (the
+    kernels skip a tile's steps past its last alive lane, so K3 merges
+    fewer steps than this counts)."""
+    if keys.dim() == 1:
+        keys, d_w = keys[None], d_w[None]
+    steps, r = keys.shape
+    dev = d_w.device
+    n_warps = threads // 32
+    tiles = -(-r // threads)
+    pad = tiles * threads - r
+    k = torch.nn.functional.pad(keys.long(), (0, pad), value=-1).view(
+        steps, tiles, n_warps, 32)
+    v = torch.nn.functional.pad(d_w.float(), (0, pad)).view(
+        steps, 12, tiles, n_warps, 32).permute(0, 2, 3, 4, 1)
+    # each lane's leader: the lowest lane of its warp with its key
+    lead_of = (k[..., :, None] == k[..., None, :]).int().argmax(-1)
+    lanes = torch.arange(32, device=dev)
+    leader = (lead_of == lanes) & (k >= 0)
+    wsum = torch.zeros_like(v)
+    for lane in range(32):
+        at = lead_of[..., lane, None, None].expand(*lead_of.shape[:3], 1, 12)
+        cur = wsum.gather(3, at)
+        new = torch.where((k[..., lane] >= 0)[..., None, None],
+                          cur + v[..., lane:lane + 1, :], cur)
+        wsum.scatter_(3, at, new)
+    acc = torch.zeros((parts, n, 12), dtype=torch.float32, device=dev)
+    touched = torch.zeros((parts, n), dtype=torch.bool, device=dev)
+    blocks = torch.arange(parts, device=dev)
+    for first in range(0, tiles, parts):
+        t = blocks + first
+        on = t < tiles
+        t, blk = t[on], blocks[on]
+        for s in range(steps):
+            for w in range(n_warps):
+                sel = leader[s, t, w]
+                b_ = blk[:, None].expand(-1, 32)[sel]
+                key = k[s, t, w][sel]
+                acc[b_, key] = acc[b_, key] + wsum[s, t, w][sel]
+                touched[b_, key] = True
+    out = torch.zeros((n, 12), dtype=torch.float32, device=dev)
+    for b_ in range(parts):
+        out = out + acc[b_]
+    if not counts:
+        return out
+    srt = k.view(steps, tiles, threads).sort(dim=-1).values
+    distinct = (((srt[..., 1:] != srt[..., :-1]) & (srt[..., 1:] >= 0))
+                .sum() + (srt[..., 0] >= 0).sum())
+    per_block = touched.sum(1)
+    return out, torch.stack([
+        torch.tensor(steps * tiles, device=dev), leader.sum(), distinct,
+        per_block.sum(), per_block.max()]).to(torch.int64)
+
+
 def bounce_bwd(state, table, idx, bounce: int, d_out, *, use_sky: bool,
-               n_sph: Optional[int] = None):
+               n_sph: Optional[int] = None, stats=None):
     """K6 (``csrc/bounce.cu``): ``bounce_bwd_plain``'s contract, d_out
-    overwritten in place. d_table is summed in f32 per block of lanes in
-    a fixed order, then over the blocks in a second launch, so it is the
-    same from run to run. CPU tensors take ``bounce_bwd_plain``."""
+    overwritten in place. d_table is summed in f32 in a fixed order
+    (``table_sum_fixed_order``), so it is the same from run to run: each
+    block of lanes into its own partial row (in shared memory up to 96
+    KB; past it in global memory, one merge a lane tile and only the
+    entries it touches written), then over the blocks in a second launch
+    that reads only those entries. stats: None, or int64 [MERGE_STATS] on
+    the card, added to where the row lies in global memory. CPU tensors
+    take ``bounce_bwd_plain`` (stats must be None)."""
     if not d_out.is_cuda:
+        if stats is not None:
+            raise ValueError("stats are the kernel's: CUDA tensors only")
         return bounce_bwd_plain(state, table, idx, bounce, d_out,
                                 use_sky=use_sky, n_sph=n_sph)
     dev, r, n = _check_bounce_args(state, table)
     build.require(idx, "idx", torch.int32, (r,), dev)
     build.require(d_out, "d_out", torch.float32, (16, r), dev)
+    if stats is not None:
+        build.require(stats, "stats", torch.int64, (MERGE_STATS,), dev)
     lib = build.load()
-    part = torch.empty((lib.trt_bounce_bwd_parts(r), n, 12),
-                       dtype=torch.float32, device=dev)
+    parts = lib.trt_bounce_bwd_parts(r, n)
+    part = torch.empty((parts, n, 12), dtype=torch.float32, device=dev)
+    touched = torch.empty((parts, -(-n // 32)), dtype=torch.int32,
+                          device=dev)
     d_table = torch.empty_like(table)
     with torch.cuda.device(dev):
         err = lib.trt_bounce_bwd(
             state.data_ptr(), idx.data_ptr(), table.data_ptr(), n,
             _n_sph(n_sph, table), d_out.data_ptr(), r, int(bounce),
-            int(bool(use_sky)), part.data_ptr(), d_table.data_ptr(),
+            int(bool(use_sky)), part.data_ptr(), touched.data_ptr(),
+            d_table.data_ptr(), None if stats is None else stats.data_ptr(),
             build.stream_of(d_out))
     build.check("trt_bounce_bwd", err)
     bounce_bwd.launches += 1

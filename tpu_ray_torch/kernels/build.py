@@ -59,10 +59,10 @@ SIGNATURES = {
     "trt_regen_sph": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _F, _P, _I,
                       _I, _I, _I, _I, _F, _F, _P, _P, _P, _I, _P],
     # d_state, r, cam13, table, n, n_tri, rec, chk, t_end, steps, seg,
-    # use_sky, max_bounces, width, height, film_w, film_h, part, part_cam,
-    # d_table, d_cam, stream
+    # use_sky, max_bounces, width, height, film_w, film_h, part, touched,
+    # part_cam, d_table, d_cam, stats, stream
     "trt_regen_bwd": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                      _I, _I, _F, _F, _P, _P, _P, _P, _P],
+                      _I, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P],
     # r, n -> rows of trt_regen_bwd's partials (returns a count, not an
     # error)
     "trt_regen_bwd_parts": [_I, _I],
@@ -81,10 +81,13 @@ SIGNATURES = {
     # state, out, r, table, n_sph, idx, bounce, use_sky, stream
     "trt_bounce_replay": [_P, _P, _I, _P, _I, _P, _I, _I, _P],
     # state, idx, table, n, n_sph, d_state, r, bounce, use_sky, part,
-    # d_table, stream
-    "trt_bounce_bwd": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P],
-    # r -> rows of trt_bounce_bwd's partials (returns a count, not an error)
-    "trt_bounce_bwd_parts": [_I],
+    # touched, d_table, stats, stream
+    "trt_bounce_bwd": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
+                       _P],
+    # r, n -> rows of trt_bounce_bwd's partials; n -> threads of its
+    # blocks (each returns a count, not an error)
+    "trt_bounce_bwd_parts": [_I, _I],
+    "trt_bounce_bwd_threads": [_I],
     # rows, r, cam13, table, n_sph, tri, m, boxes, n_tiles, sboxes,
     # sstarts, n_stiles, sgboxes, sgstarts, n_sgroups, o_lim, lidx, ldat,
     # n_lights, spp, s0, use_sky, width, height, film_w, film_h, stats, out,

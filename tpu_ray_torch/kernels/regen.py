@@ -83,7 +83,8 @@ from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera, film_extent
 from tpu_ray_torch.core.scene import F32_EPS, F32_MAX, Scene
 from tpu_ray_torch.kernels import build
-from tpu_ray_torch.kernels.bounce_step import (BLOCK_R, _block_reach,
+from tpu_ray_torch.kernels.bounce_step import (BLOCK_R, MERGE_STATS,
+                                               _block_reach,
                                                nearest_prim, nrm3_bwd,
                                                nrm3_fwd, permute_scene,
                                                prim_table, shade_plain,
@@ -753,13 +754,23 @@ def regen_bwd_plain(recs: Records, d_out, cam, table, *, use_sky: bool,
 
 
 def regen_bwd(recs: Records, d_out, cam, table, *, use_sky: bool,
-              max_bounces: int, width: int, height: int, n_tri: int = 0):
+              max_bounces: int, width: int, height: int, n_tri: int = 0,
+              stats=None):
     """K3: the reverse of a recorded trace (``regen_bwd_plain``'s contract)
     in two launches. d_table and d_cam are summed in f32 per block of
-    lanes in a fixed order, then over the blocks in a second launch, so
-    they are the same from run to run (``csrc/regen_bwd.cu``). CPU tensors
-    take ``regen_bwd_plain``."""
+    lanes in a fixed order (``bounce_step.table_sum_fixed_order``, each
+    step's lane tile in turn), then over the blocks in a second launch, so
+    they are the same from run to run (``csrc/regen_bwd.cu``). A table
+    whose [n,12] partial row fits 96 KB sums in shared memory; a larger
+    one (every triangle scene) in the block's row of the partials in
+    global memory, one merge a step, writing only the entries the block
+    touches and summing only those. stats: None, or int64
+    [MERGE_STATS] on the card, added to in that global-row branch
+    (``csrc/shade.cuh`` ``trt_row_merge_end``). CPU tensors take
+    ``regen_bwd_plain`` (stats must be None)."""
     if not d_out.is_cuda:
+        if stats is not None:
+            raise ValueError("stats are the kernel's: CUDA tensors only")
         return regen_bwd_plain(recs, d_out, cam, table, use_sky=use_sky,
                                max_bounces=max_bounces, width=width,
                                height=height, n_tri=n_tri)
@@ -774,10 +785,14 @@ def regen_bwd(recs: Records, d_out, cam, table, *, use_sky: bool,
     build.require(recs.t_end, "t_end", torch.int32, (r,), dev)
     if n_seg != -(-steps // recs.seg):
         raise ValueError("chk holds ceil(steps/seg) checkpoints")
+    if stats is not None:
+        build.require(stats, "stats", torch.int64, (MERGE_STATS,), dev)
     lib = build.load()
     n = table.shape[0]
     parts = lib.trt_regen_bwd_parts(r, n)
     part = torch.empty((parts, n, 12), dtype=torch.float32, device=dev)
+    touched = torch.empty((parts, -(-n // 32)), dtype=torch.int32,
+                          device=dev)
     part_cam = torch.empty((parts, 12), dtype=torch.float32, device=dev)
     d_state = d_out.clone()
     d_table = torch.empty_like(table)
@@ -790,7 +805,8 @@ def regen_bwd(recs: Records, d_out, cam, table, *, use_sky: bool,
             recs.t_end.data_ptr(), int(steps), int(recs.seg),
             int(bool(use_sky)), int(max_bounces), int(width), int(height),
             float(film_w), float(film_h), part.data_ptr(),
-            part_cam.data_ptr(), d_table.data_ptr(), d_cam.data_ptr(),
+            touched.data_ptr(), part_cam.data_ptr(), d_table.data_ptr(),
+            d_cam.data_ptr(), None if stats is None else stats.data_ptr(),
             build.stream_of(d_out))
     build.check("trt_regen_bwd", err)
     regen_bwd.launches += 1

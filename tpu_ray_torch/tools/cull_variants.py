@@ -39,6 +39,7 @@ WIDTH, HEIGHT, SPP, MAX_BOUNCES, SEED = 1920, 1080, 64, 5, 0
 
 REGEN_PY = "kernels/regen.py"
 COMMON = "csrc/common.cuh"
+SHADE = "csrc/shade.cuh"
 BWD = "csrc/regen_bwd.cu"
 
 # K2 front to back: every lane enters the tile boxes of the groups it
@@ -111,56 +112,57 @@ __device__ __forceinline__ void trt_fold_sph_tiles(
 FOLD_START = "__device__ __forceinline__ void trt_fold_sph_tiles("
 FOLD_END = "// Stage n spheres"
 
-# K3's barrier of a step, and what the variants put in its place
+# K3's barrier of a step in the shared-row branch (csrc/shade.cuh
+# trt_row_turns, which K6 shares in blocks of 256 threads), and what the
+# variants put in its place
 BARRIER_LOOP = """\
-        for (int wp = 0; wp < n_warps; ++wp) {
-          if (warp == wp && leader) {
-            for (int k = 0; k < 12; ++k) {
-              acc[12 * key + k] = acc[12 * key + k] + sum[k];
-            }
-          }
-          __syncthreads();
-        }
+  for (int wp = 0; wp < n_warps; ++wp) {
+    if (warp == wp && leader) {
+      for (int k = 0; k < 12; ++k) {
+        acc[12 * key + k] = acc[12 * key + k] + sum[k];
+      }
+    }
+    __syncthreads();
+  }
 """
-# one warp a block owns its row: no block barrier (the global-row
-# branch's 256-thread blocks keep theirs)
+# one warp a block owns its row: no block barrier
 ONE_WARP_LOOP = """\
-        if (THREADS == 32) {
-          if (leader) {
-            for (int k = 0; k < 12; ++k) {
-              acc[12 * key + k] = acc[12 * key + k] + sum[k];
-            }
-          }
-          __syncwarp();
-        } else
+  if (blockDim.x == 32) {
+    if (leader) {
+      for (int k = 0; k < 12; ++k) {
+        acc[12 * key + k] = acc[12 * key + k] + sum[k];
+      }
+    }
+    __syncwarp();
+  } else
 """ + BARRIER_LOOP
 # warp 0 adds, then warp 1, each waiting only for the other's last turn
 # (barriers 1 and 2; warp 1 opens barrier 1 before the first tile, warp 0
 # takes its last arrival after the last)
 TURNS_LOOP = """\
-        if (THREADS == 64) {
-          asm volatile("bar.sync %0, 64;" :: "r"(1 + warp) : "memory");
-          if (leader) {
-            for (int k = 0; k < 12; ++k) {
-              acc[12 * key + k] = acc[12 * key + k] + sum[k];
-            }
-          }
-          __threadfence_block();
-          asm volatile("bar.arrive %0, 64;" :: "r"(2 - warp) : "memory");
-          __syncwarp();
-        } else
+  if (blockDim.x == 64) {
+    asm volatile("bar.sync %0, 64;" :: "r"(1 + warp) : "memory");
+    if (leader) {
+      for (int k = 0; k < 12; ++k) {
+        acc[12 * key + k] = acc[12 * key + k] + sum[k];
+      }
+    }
+    __threadfence_block();
+    asm volatile("bar.arrive %0, 64;" :: "r"(2 - warp) : "memory");
+    __syncwarp();
+  } else
 """ + BARRIER_LOOP
 BEFORE_TILES = """\
   // every loop bound below is the same for all threads of the block, so"""
 OPEN_TURNS = """\
-  if (THREADS == 64 && warp == 1) {
+  if (SMEM_ROW && THREADS == 64 && (threadIdx.x >> 5) == 1) {
     asm volatile("bar.arrive 1, 64;" ::: "memory");
   }
 """
 AFTER_TILES = """\
   // the block's camera cotangents, summed over its threads in order"""
 CLOSE_TURNS = """\
-  if (THREADS == 64 && warp == 0) {
+  if (SMEM_ROW && THREADS == 64 && (threadIdx.x >> 5) == 0) {
     asm volatile("bar.sync 1, 64;" ::: "memory");
   }
 """
@@ -186,12 +188,12 @@ VARIANTS = {
                        "#define TRT_SPH_SHARE_LANES 12\n", COMMON),
     "k2 front to back": [(COMMON, None, FRONT_TO_BACK)],
     "k3 1 warp": [(BWD, SMEM_THREADS, "#define TRT_BWD_SMEM_THREADS 32\n"),
-                  (BWD, BARRIER_LOOP, ONE_WARP_LOOP)],
+                  (SHADE, BARRIER_LOOP, ONE_WARP_LOOP)],
     "k3 8 warps": [(BWD, SMEM_THREADS,
                     "#define TRT_BWD_SMEM_THREADS 256\n"),
                    (BWD, SMEM_PARTS, "#define TRT_BWD_SMEM_PARTS 256\n"),
                    (BWD, SMEM_BLOCKS, "#define TRT_BWD_SMEM_BLOCKS 1\n")],
-    "k3 turns": [(BWD, BARRIER_LOOP, TURNS_LOOP),
+    "k3 turns": [(SHADE, BARRIER_LOOP, TURNS_LOOP),
                  (BWD, BEFORE_TILES, OPEN_TURNS + BEFORE_TILES),
                  (BWD, AFTER_TILES, CLOSE_TURNS + AFTER_TILES)],
 }
