@@ -4,9 +4,15 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from tpu_ray_torch/csrc with nvcc,
-holds each against its plain PyTorch version on the card, renders with the
-sphere-search kernel (held against the same render with the plain search),
-then drives the main path as the CLI does: rtweekend at 1920x1080, 64 spp,
+holds each against its plain PyTorch version on the card (K1, the sphere
+search, bit for bit in the slices it picks and in 1, 2 and 7, two launches
+bit-equal, on random rays, rtweekend's, trimesh's and sixteen's primary
+rays and bigmesh's primary and sorted bounce-1 states), renders with K1
+(held against the same render with the plain search; K1's device time
+over the pass and its time a launch, as on every path that launches it:
+trimesh on backend cuda, bigmesh's pass and step, the sixteen and
+trilight estimators' backward), then drives the main path as the CLI
+does: rtweekend at 1920x1080, 64 spp,
 backend fused + regen, through K2's culled sphere search. The main path's
 own regen state is then run through the kernel again, which must give the
 main path's image, and every 32nd lane of it is held bit for bit against
@@ -211,6 +217,24 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return timed(torch, lambda: [fn() for _ in range(reps)])[1] / reps
 
 
+def queued_ms(torch, fn, calls: int) -> float:
+    """Mean device milliseconds of fn() over calls calls queued behind a
+    spin of the device (torch.cuda._sleep, ~0.13 ms of cycles a call), so
+    that the host's cost of each call does not pace launches shorter than
+    it; after a warm-up. The gaps between the launches are counted."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(250_000 * calls)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def bound(flops: float, nbytes: float):
     """Least time of the work: the larger of its fp32 operations over the
     fp32 peak and its bytes over the memory rate -> (ms, bound_by)."""
@@ -277,6 +301,59 @@ def bits_equal(torch, a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+# K1's CUDA kernels as torch.profiler names them: the search and, in a
+# launch split into slices, its unpack (common.cuh trt_keys_unpack<1>)
+K1_NAMES = ("sphere_nearest_hit_kernel", "trt_unpack_keys_kernel<1>")
+
+
+def k1_held(torch, center, radius, o, d, what: str):
+    """K1 on these rays bit for bit against its plain version in the
+    slices it picks and in 1, 2 and 7, and two launches bit-equal (the
+    launches not counted) -> (the plain version's Hit, K1's slices)."""
+    from tpu_ray_torch.kernels.sphere_intersect import (nearest_hit_plain,
+                                                        sphere_nearest_hit,
+                                                        sphere_slices)
+    want = nearest_hit_plain(center, radius, o, d)
+    before = sphere_nearest_hit.launches
+    for slices in (None, 1, 2, 7):
+        a = sphere_nearest_hit(center, radius, o, d, slices=slices)
+        b = sphere_nearest_hit(center, radius, o, d, slices=slices)
+        torch.cuda.synchronize()
+        require(torch.equal(a.idx, want.idx)
+                and bits_equal(torch, a.t, want.t),
+                f"K1 ({what}, slices {slices}): differs from plain")
+        require(torch.equal(a.idx, b.idx) and bits_equal(torch, a.t, b.t),
+                f"K1 ({what}, slices {slices}): two launches differ")
+    sphere_nearest_hit.launches = before
+    return want, sphere_slices(o.shape[0], center.shape[0], o.device)
+
+
+def k1_path(torch, center, radius, o, d, launches: int, ms: float,
+            shape: str, **extra) -> dict:
+    """K1's record on one path whose launches each search r = len(o)
+    rays over center/radius: its device time there (ms, torch.profiler
+    over the pass or step), its time a launch on the rays o, d (CUDA
+    events, queued_ms: the memset and the unpack of a split launch
+    included, ms_launch), its slices, and its bound: each launch's fp32
+    operations over the slots with r * r > 0 (the slots it folds) and its
+    bytes (the rays in, t and idx out, every radius and the real slots'
+    centres read once), times its launches."""
+    from tpu_ray_torch.kernels.sphere_intersect import (sphere_nearest_hit,
+                                                        sphere_slices)
+    r, n = o.shape[0], center.shape[0]
+    c = int((radius * radius > 0).sum())
+    before = sphere_nearest_hit.launches
+    ms_launch = queued_ms(torch, lambda: sphere_nearest_hit(center, radius,
+                                                            o, d), 20)
+    sphere_nearest_hit.launches = before
+    b = bound(launches * r * c * FLOPS_PER_PAIR,
+              launches * (r * 32 + n * 4 + c * 12))
+    return dict(shape=shape, rays_per_launch=r, slots=n, real_slots=c,
+                slices=sphere_slices(r, n, o.device), launches=launches,
+                ms=ms, ms_launch=ms_launch, bound_ms=b[0], bound_by=b[1],
+                **extra)
+
+
 # the CUDA kernels of each bounce wrapper, as torch.profiler names them
 # (K6 is two launches: the per-block partials, then their fixed-order sum,
 # csrc/shade.cuh trt_sum_parts or trt_sum_parts_touched)
@@ -333,10 +410,12 @@ def kernel_ms(by_key, names) -> float:
                if any(n in key for n in names))
 
 
-def estimator_phases(torch, dev, card, reset_counts, counts):
+def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
     """Phases 25-29: the flat and Lambert+shadow estimators on the fused
     route (K9, kernels/simple_shade.py) at the estimator configurations'
-    own sizes. -> ({kernel key: entry}, {configuration: numbers})."""
+    own sizes; K1 in sixteen's and trilight's backward (the eager
+    estimator), recorded in k1_paths. -> ({kernel key: entry},
+    {configuration: numbers})."""
     from tpu_ray_torch import PathTracer, RenderConfig
     from tpu_ray_torch.core.camera import default_camera, trainable_camera
     from tpu_ray_torch.core.scene import (make_scene, make_trilight_scene,
@@ -355,6 +434,7 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
                                                   render_pixels, tile_order,
                                                   untile_image)
     from tpu_ray_torch.ops.accumulate import accumulate
+    from tpu_ray_torch.ops.raygen import camera_rays
     from tpu_ray_torch.ops.shading_modes import scene_light_indices
 
     kernels, summary = {}, {}
@@ -527,7 +607,9 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
     # as the CLI drives it (two calls), three forward+backward steps
     # (image_mse(render_pass(...), 0).backward() w.r.t. every scene leaf
     # and the camera: K9 forward, the eager estimator on K1 backward), the
-    # gradients within 1e-5 of each group's max of backend cuda autograd
+    # gradients within 1e-5 of each group's max of backend cuda autograd;
+    # one more step under torch.profiler for K1's device time, and K1 bit
+    # for bit on the primary rays
     t0 = time.perf_counter()
     cfg2 = EST_CONFIG2
     _, _, w2, h2, spp2 = cfg2
@@ -568,6 +650,19 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
             and sum(step_launches2.values()) == 1 + n_probe,
             f"config 2 fwd+bwd launches {step_launches2}")
     require(rays_g2 == rays2, "config 2 fwd+bwd rays differ from the pass")
+    (_, _, launches_q2, _), _, by_key_q2, _ = profiled(
+        torch, lambda: grads_of(s16, cam16, cfg2, "fused", l16))
+    require(launches_q2 == step_launches2,
+            f"the profiled config 2 fwd+bwd step launched {launches_q2}")
+    o16, d16, _ = camera_rays(cam16, w2, h2, torch.arange(w2 * h2,
+                                                          device=dev), 0,
+                              SEED)
+    k1_held(torch, s16.center, s16.radius, o16, d16, "sixteen primary rays")
+    k1_paths["sixteen, estimator backward"] = k1_path(
+        torch, s16.center, s16.radius, o16, d16, n_probe,
+        kernel_ms(by_key_q2, K1_NAMES),
+        f"fwd+bwd step, sixteen lambert_shadow {w2}x{h2} {spp2} spp on "
+        f"fused: {n_probe} launches of {w2 * h2} rays x {s16.n_pad} slots")
     g_c2, rays_c2, _, _ = grads_of(s16, cam16, cfg2, "cuda", l16)
     require(rays_c2 == rays2, f"backend cuda cast {rays_c2} rays, K9 {rays2}")
     err2 = grad_err(g_f2, g_c2)
@@ -772,6 +867,18 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
             and launches_gl["sphere_nearest_hit"] == n_probel
             and launches_gl["tri_nearest_hit"] == n_probel,
             f"trilight fwd+bwd launches {launches_gl}")
+    (_, _, launches_ql, _), _, by_key_ql, _ = profiled(
+        torch, lambda: grads_of(sl_, caml, cfgl_g, "fused", ll))
+    require(launches_ql == launches_gl,
+            f"the profiled trilight fwd+bwd step launched {launches_ql}")
+    ol, dl, _ = camera_rays(caml, CHECK_W, CHECK_H, torch.arange(
+        CHECK_W * CHECK_H, device=dev), 0, SEED)
+    k1_paths["trilight, estimator backward"] = k1_path(
+        torch, sl_.center, sl_.radius, ol, dl, n_probel,
+        kernel_ms(by_key_ql, K1_NAMES),
+        f"fwd+bwd step, trilight lambert_shadow {CHECK_W}x{CHECK_H} "
+        f"{sppl} spp on fused: {n_probel} launches of {CHECK_W * CHECK_H} "
+        f"rays x {sl_.n_pad} slots")
     g_cl, rays_cl, _, _ = grads_of(sl_, caml, cfgl_g, "cuda", ll)
     errl = grad_err(g_fl, g_cl)
     require(rays_gl == rays_cl and max(errl.values()) <= 1e-5,
@@ -877,14 +984,15 @@ def estimator_phases(torch, dev, card, reset_counts, counts):
     return kernels, summary
 
 
-def bigmesh_phases(torch, dev, card, reset_counts, counts):
+def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
     """Phases 30-33: the route past the residency rule on bigmesh (163,842
     triangles, 1,281 tiles of 128) at 1920x1080, 1 spp: K10 (the listed
     triangle search, kernels/tri_intersect.tri_nearest_hit_stream) against
-    its plain version and against K7, the pass as the CLI drives it on
-    backend fused (which falls back to the probe route), forward+backward
-    with remat="save_hits", and the flat estimator's fallback.
-    -> ({kernel key: entry}, numbers)."""
+    its plain version and against K7, K1 bit for bit on the same states,
+    the pass as the CLI drives it on backend fused (which falls back to the
+    probe route), forward+backward with remat="save_hits", and the flat
+    estimator's fallback; K1's records of the pass and the step go into
+    k1_paths. -> ({kernel key: entry}, numbers)."""
     import warnings
     from tpu_ray_torch import PathTracer, RenderConfig
     from tpu_ray_torch.core.camera import default_camera, trainable_camera
@@ -893,6 +1001,7 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts):
     from tpu_ray_torch.kernels.bounce_step import (BLOCK_R, TRI_BLOCK_M,
                                                    _block_reach, init_state,
                                                    tri_tile_boxes)
+    from tpu_ray_torch.kernels.sphere_intersect import sphere_nearest_hit
     from tpu_ray_torch.kernels.tri_intersect import (tri_nearest_hit,
                                                      tri_nearest_hit_stream,
                                                      tri_slices,
@@ -944,6 +1053,8 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts):
     checks = {}
     for b in (0, 1):
         o, d, al = states[b]
+        _, k1_sl = k1_held(torch, big.center, big.radius, o, d,
+                           f"bigmesh bounce {b}")
         k = tri_nearest_hit_stream(tab, boxes, o, d, al)
         k2 = tri_nearest_hit_stream(tab, boxes, o, d, al)
         lanes = torch.arange(0, r, SLICE_STRIDE, device=dev)
@@ -990,7 +1101,9 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts):
               f"differ from K7 (none with K7's hit inside its tile's box); "
               f"K10 {ms_k:.3f} ms, K7 {ms_7:.3f} ms (CUDA events; "
               f"{checks[b]['k7_slices']} slice(s), bound {b7[0]:.3f} ms by "
-              f"{b7[1]}), plain {ms_p:.1f} ms on the slice", flush=True)
+              f"{b7[1]}), plain {ms_p:.1f} ms on the slice; K1 bit-equal to "
+              f"plain in {k1_sl} slice(s) (its pick) and in 1, 2 and 7",
+              flush=True)
     flops = nbytes = tested_flops = 0.0
     reach_sum = live_blocks = 0
     listed = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
@@ -1108,7 +1221,15 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts):
     require(torch.equal(state_p.mean, state.mean),
             "the profiled bigmesh pass differs")
     k10_ms = kernel_ms(by_key, k10_names)
-    k1_ms = kernel_ms(by_key, ("sphere_nearest_hit_kernel",))
+    k1_ms = kernel_ms(by_key, K1_NAMES)
+    o0, d0, _ = states[0]
+    k1_paths["bigmesh pass"] = k1_path(
+        torch, big.center, big.radius, o0, d0, n_b, k1_ms,
+        f"render --scene bigmesh --backend fused {w}x{h} {spp} spp (the "
+        f"probe route): {n_b} launches of {r} rays x {big.n_pad} slots; "
+        f"ms_launch on the primary state",
+        ms_launch_bounce_1=queued_ms(torch, lambda: sphere_nearest_hit(
+            big.center, big.radius, states[1][0], states[1][1]), 20))
     require(k10_ms > 0, "torch.profiler recorded no K10 time")
     idle = 1.0 - busy / 1e3 / prof_wall
     tracer_c = tracer_of(BIG_CHUNK)
@@ -1192,6 +1313,12 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts):
     require(all(torch.equal(g_p[k], g_s[k]) for k in g_s),
             "the profiled bigmesh step's gradients differ")
     step_k10_ms = kernel_ms(by_key_s, k10_names)
+    k1_paths["bigmesh fwd+bwd step"] = dict(
+        k1_paths["bigmesh pass"], ms=kernel_ms(by_key_s, K1_NAMES),
+        launches=fwd_l["sphere_nearest_hit"],
+        shape=f"fwd+bwd step, remat=save_hits: "
+              f"{fwd_l['sphere_nearest_hit']} launches in the forward, none "
+              f"in the backward; ms_launch and bound: the pass's")
     step_top = sorted(by_key_s.items(), key=lambda kv: -kv[1])[:5]
     step_idle = 1.0 - busy_s / 1e3 / step_prof_wall
     print(f"bigmesh fwd+bwd (remat=save_hits): {rays_g} rays, steps "
@@ -1356,12 +1483,14 @@ def main() -> int:
     # builds it (its records and d_table are in permuted order)
     table, _, _ = regen_tables(scene)
     sperm = morton_perm(scene)
-    # the bounds count the spheres of nonzero radius: padding never hits
-    n_real = int((scene.radius > 0).sum())
+    # the bounds count the slots with r * r > 0: no other slot can hit (K1
+    # folds only those)
+    n_real = int((scene.radius * scene.radius > 0).sum())
     cam = default_camera(scene)
     kernels = {}
 
-    # 3. K1 against its plain version: 2^16 random rays x rtweekend
+    # 3. K1 against its plain version: 2^16 random rays x rtweekend, bit
+    # for bit in the slices it picks and in 1, 2 and 7
     t0 = time.perf_counter()
     g = np.random.default_rng(SEED)
     r1 = 1 << 16
@@ -1373,21 +1502,12 @@ def main() -> int:
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o_t = torch.as_tensor(o, device=dev)
     d_t = torch.as_tensor(d, device=dev)
-    hk = sphere_nearest_hit(scene.center, scene.radius, o_t, d_t)
-    hp = nearest_hit_plain(scene.center, scene.radius, o_t, d_t)
-    torch.cuda.synchronize()
-    hit_k, hit_p = hk.t < 1e29, hp.t < 1e29
-    require(torch.equal(hit_k, hit_p), "K1: hit masks differ")
-    agree = hk.idx == hp.idx
-    frac = agree.float().mean().item()
-    require(frac >= 0.999, f"K1: idx agrees on {frac} < 0.999 of rays")
-    both = hit_k & agree
-    rel = ((hk.t - hp.t)[both].abs() / hp.t[both]).max().item() \
-        if both.any() else 0.0
-    require(rel <= 1e-5, f"K1: t relative error {rel} > 1e-5")
-    print(f"K1 check, random rays: idx agree {frac}, max rel |dt| {rel}, "
-          f"bit-equal {torch.equal(hk.t, hp.t) and torch.equal(hk.idx, hp.idx)}",
-          flush=True)
+    hp, n_sl = k1_held(torch, scene.center, scene.radius, o_t, d_t,
+                       "random rays")
+    require(bool((hp.t < 1e29).any()), "K1: no random ray hits")
+    print(f"K1 check, {r1} random rays x {scene.n_pad} slots ({n_real} "
+          f"real): bit-equal to plain in {n_sl} slices (its pick) and in "
+          f"1, 2 and 7, two launches bit-equal", flush=True)
     phase("k1_check", t0)
 
     # 4. K2 against its plain version: rtweekend 320x180, 4 spp
@@ -1421,7 +1541,8 @@ def main() -> int:
     phase("k2_check", t0)
 
     # 5. the K1 path: render through K1 inside the bounce loop (backend
-    # cuda), held against the same render with the plain search
+    # cuda), held against the same render with the plain search; one more
+    # render under torch.profiler for K1's device time over the pass
     t0 = time.perf_counter()
     reset_counts()
     img, rays = render_pass(scene, cam, width=CHECK_W, height=CHECK_H,
@@ -1439,34 +1560,48 @@ def main() -> int:
     img_d = (img - img_p).abs().max().item()
     require(torch.equal(img, img_p),
             f"backend cuda image differs from torch by max {img_d}")
+    before = sphere_nearest_hit.launches
+    (img_q, _), _, by_key_c, _ = profiled(torch, lambda: render_pass(
+        scene, cam, width=CHECK_W, height=CHECK_H, spp=CHECK_SPP,
+        backend="cuda", seed=SEED))
+    require(sphere_nearest_hit.launches - before == k1_launches
+            and torch.equal(img_q, img), "the profiled backend cuda pass "
+            "launched K1 differently or differs")
     # K1 at the shape that path gives it: one bounce of every pixel
     o1, d1, _ = camera_rays(cam, CHECK_W, CHECK_H, torch.arange(
         CHECK_W * CHECK_H, device=dev), 0, SEED)
-    hk = sphere_nearest_hit(scene.center, scene.radius, o1, d1)
-    hp = nearest_hit_plain(scene.center, scene.radius, o1, d1)
-    require(torch.equal(hk.idx, hp.idx), "K1: primary-ray idx differ")
-    k1_err = (hk.t - hp.t).abs().max().item()
-    require(k1_err <= 1e-5 * hp.t[hp.t < 1e29].max().item(),
-            f"K1: primary-ray max |dt| {k1_err}")
+    hp, _ = k1_held(torch, scene.center, scene.radius, o1, d1,
+                    "rtweekend primary rays")
     r1 = o1.shape[0]
-    k1_ms = cuda_ms(torch, lambda: sphere_nearest_hit(
-        scene.center, scene.radius, o1, d1), 20)
     k1_plain = cuda_ms(torch, lambda: nearest_hit_plain(
         scene.center, scene.radius, o1, d1), 5)
-    k1_bound, k1_by = bound(r1 * n_real * FLOPS_PER_PAIR,
-                            r1 * 32 + n_real * 16)
+    k1_paths = {"rtweekend, backend cuda": k1_path(
+        torch, scene.center, scene.radius, o1, d1, k1_launches,
+        kernel_ms(by_key_c, K1_NAMES),
+        f"render backend=cuda {CHECK_W}x{CHECK_H} {CHECK_SPP} spp: "
+        f"{k1_launches} launches of {r1} rays x {scene.n_pad} slots "
+        f"({n_real} real)", memset_ms=kernel_ms(by_key_c, ("Memset",)))}
+    k1_rt = k1_paths["rtweekend, backend cuda"]
     kernels["sphere_nearest_hit"] = dict(
         name="sphere_nearest_hit", route="cuda",
         source="tpu_ray_torch/csrc/sphere_intersect.cu",
         replaces="tpu_ray/kernels/sphere_intersect.py:204",
-        launches=k1_launches, max_abs_err=k1_err, ms=k1_ms,
-        plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
-        library_ms=None,
+        launches=k1_launches, max_abs_err=0.0, ms=k1_rt["ms_launch"],
+        plain_ms=k1_plain, bound_ms=k1_rt["bound_ms"] / k1_launches,
+        bound_by=k1_rt["bound_by"], library_ms=None,
         path=f"render backend=cuda {CHECK_W}x{CHECK_H} {CHECK_SPP} spp",
-        shape=f"{r1} rays x {scene.n_pad} spheres ({n_real} real)")
+        shape=f"{r1} rays x {scene.n_pad} slots ({n_real} real) in "
+              f"{k1_rt['slices']} slices; ms: a launch (CUDA events); "
+              f"bit-equal to plain; every path that launches it in paths",
+        paths=k1_paths)
     print(f"backend cuda: {rays} rays, K1 launches {k1_launches}, image "
-          f"equal to backend torch; K1 {k1_ms:.4f} ms / plain "
-          f"{k1_plain:.4f} ms at {r1} rays", flush=True)
+          f"equal to backend torch; K1 at {r1} primary rays bit-equal to "
+          f"plain: {k1_rt['ms_launch']:.4f} ms a launch in "
+          f"{k1_rt['slices']} slices (bound "
+          f"{k1_rt['bound_ms'] / k1_launches:.4f} ms by "
+          f"{k1_rt['bound_by']}), {k1_rt['ms']:.4f} ms over the pass "
+          f"(torch.profiler; memsets {k1_rt['memset_ms']:.4f} ms) / plain "
+          f"{k1_plain:.4f} ms", flush=True)
     phase("render_cuda", t0)
 
     # 6. the main path, as the CLI drives it
@@ -2394,7 +2529,8 @@ def main() -> int:
     # loop) at 320x180, 4 spp, bit-equal to backend torch's; then trimesh's
     # 1920x1080 primary rays (2,073,600), bit-equal to the plain version on
     # 1 lane in 32. K7's time by CUDA events at both ray counts, beside the
-    # triangle slices it chose
+    # triangle slices it chose; K1 on this path: its device time over one
+    # more render under torch.profiler and a launch on the primary rays
     t0 = time.perf_counter()
     tscene = make_scene("trimesh", device=dev)
     tcam = default_camera(tscene)
@@ -2406,11 +2542,18 @@ def main() -> int:
                                 spp=CHECK_SPP, backend="cuda", seed=SEED)
     torch.cuda.synchronize()
     k7_launches = tri_nearest_hit.launches
-    require(k7_launches > 0 and sphere_nearest_hit.launches > 0,
+    k1t_launches = sphere_nearest_hit.launches
+    require(k7_launches > 0 and k1t_launches > 0,
             f"backend cuda on trimesh did not launch K1 and K7: {counts()}")
-    require(sum(counts().values()) == k7_launches
-            + sphere_nearest_hit.launches,
+    require(sum(counts().values()) == k7_launches + k1t_launches,
             f"backend cuda on trimesh launched others: {counts()}")
+    before = counts()
+    (img_q, _), _, by_key_t, _ = profiled(torch, lambda: render_pass(
+        tscene, tcam, width=CHECK_W, height=CHECK_H, spp=CHECK_SPP,
+        backend="cuda", seed=SEED))
+    require(sphere_nearest_hit.launches - before["sphere_nearest_hit"]
+            == k1t_launches and torch.equal(img_q, img_c),
+            "the profiled backend cuda trimesh pass differs")
     img_p, rays_p = render_pass(tscene, tcam, width=CHECK_W, height=CHECK_H,
                                 spp=CHECK_SPP, backend="torch", seed=SEED)
     require(rays_c == rays_p and torch.equal(img_c, img_p),
@@ -2421,6 +2564,14 @@ def main() -> int:
     ttab = tri_search_table(tscene.tris)
     o1, d1, _ = camera_rays(tcam, CHECK_W, CHECK_H, torch.arange(
         CHECK_W * CHECK_H, device=dev), 0, SEED)
+    k1_held(torch, tscene.center, tscene.radius, o1, d1,
+            "trimesh primary rays")
+    k1_paths["trimesh, backend cuda"] = k1_path(
+        torch, tscene.center, tscene.radius, o1, d1, k1t_launches,
+        kernel_ms(by_key_t, K1_NAMES),
+        f"render backend=cuda trimesh {CHECK_W}x{CHECK_H} {CHECK_SPP} spp: "
+        f"{k1t_launches} launches of {o1.shape[0]} rays x "
+        f"{tscene.n_pad} slots")
     hk = tri_nearest_hit(ttab, o1, d1)
     hp = tri_hit_plain(ttab, o1, d1)
     torch.cuda.synchronize()
@@ -2473,7 +2624,8 @@ def main() -> int:
           f"rays ({MAIN_W}x{MAIN_H}) bit-equal to plain on 1 lane in 32: "
           f"{k7_ms_hd:.3f} ms in {k7_slices_hd} slice(s) (bound "
           f"{k7_bound_hd[0]:.3f} ms by {k7_bound_hd[1]}) / plain "
-          f"{k7_plain_hd:.1f} ms on the slice; on {card}", flush=True)
+          f"{k7_plain_hd:.1f} ms on the slice; on {card}; K1 on this path: "
+          f"{k1_paths['trimesh, backend cuda']}", flush=True)
     phase("k7_check", t0)
 
     # 17. the triangle main path as the CLI drives it (render --scene
@@ -3551,26 +3703,25 @@ def main() -> int:
 
     # 25-29. the flat and Lambert+shadow estimators on K9
     est_kernels, est = estimator_phases(torch, dev, card, reset_counts,
-                                        counts)
+                                        counts, k1_paths)
     kernels.update(est_kernels)
-    # K1 and K7 also run in the estimators' backward (the eager estimator)
-    kernels["sphere_nearest_hit"]["launches_estimator_bwd"] = {
-        "sixteen": est_kernels["simple_trace"]["fwd_bwd_launches"][
-            "sphere_nearest_hit"],
-        "trilight": est_kernels["simple_trace_trilight"][
-            "fwd_bwd_launches"]["sphere_nearest_hit"]}
+    # K7 also runs in the estimators' backward (the eager estimator); K1's
+    # records there are in its paths
     kernels["tri_nearest_hit"]["launches_estimator_bwd"] = {
         "trilight": est_kernels["simple_trace_trilight"][
             "fwd_bwd_launches"]["tri_nearest_hit"]}
 
     # 30-33. the route past the residency rule: bigmesh on K10
-    big_kernels, big = bigmesh_phases(torch, dev, card, reset_counts, counts)
+    big_kernels, big = bigmesh_phases(torch, dev, card, reset_counts, counts,
+                                      k1_paths)
     kernels.update(big_kernels)
     # K7 is K10's reference on bigmesh's states (phase 30)
     kernels["tri_nearest_hit"]["bigmesh"] = {
         f"bounce {b}": {k: c[k] for k in ("k7_ms", "k7_slices", "k7_bound_ms")}
         for b, c in big_kernels["tri_nearest_hit_stream"]["checks"].items()}
 
+    for key, rec in k1_paths.items():
+        print(f"K1 on {key}: {rec}", flush=True)
     phase("total", t_all)
 
     print(json.dumps({"main_path": {

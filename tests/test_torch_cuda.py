@@ -56,6 +56,113 @@ def test_k1_kernel_matches_plain_on_card(cuda_device):
     assert torch.equal(a.idx, b.idx) and torch.equal(a.t, b.t)
 
 
+# K1's edge tables: the slots K1 skips (r * r not > 0) anywhere in the
+# table, radii that hit although they are not > 0, exact ties across its
+# slices and rays that start inside a sphere (the far root). Also built on
+# the CPU by tests/test_torch_k1_pad.py, which holds the plain version to
+# JAX's on them.
+K1_CASES = ("zeros", "negative", "nan", "underflow", "padding", "single",
+            "duplicates", "inside")
+# the two copies of the sphere of "duplicates": near the two ends of the
+# table, so in different slices of the real slots at every count past one
+K1_DUP = (3, 509)
+
+
+def k1_edge_table(case: str, device, n: int = 512, seed: int = 0):
+    """(center [n,3], radius [n]) f32 of one of K1_CASES: a third of the
+    slots real (radii 0.05-0.25, centres in [-1, 1]^3), the rest radius-0
+    padding placed at random among them, then the case's change."""
+    g = np.random.default_rng(seed)
+    center = g.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    radius = np.zeros(n, np.float32)
+    real = g.permutation(n)[:n // 3]
+    radius[real] = g.uniform(0.05, 0.25, real.size)
+    if case == "negative":          # hits as |r| in both packages
+        radius[real[:8]] *= -1.0
+    elif case == "nan":
+        radius[[0, real[0], n - 1]] = np.nan
+    elif case == "underflow":       # r * r rounds to 0 in f32
+        radius[[1, real[1], n - 2]] = [1e-30, -1e-25, 1e-23]
+    elif case == "padding":
+        radius[:] = 0.0
+    elif case == "single":
+        radius[:] = 0.0
+        radius[77] = 0.5
+    elif case == "duplicates":
+        radius[list(K1_DUP)] = 0.8
+        center[list(K1_DUP)] = [0.1, -0.2, 0.05]
+    elif case == "inside":          # every origin inside it: the far root
+        radius[real[2]] = 3.0
+        center[real[2]] = 0.0
+    return (torch.as_tensor(center, device=device),
+            torch.as_tensor(radius, device=device))
+
+
+def k1_rays(r: int, device, seed: int = 1):
+    """r rays: origins in [-1.2, 1.2]^3 (many inside a sphere), unit
+    directions."""
+    g = np.random.default_rng(seed)
+    o = torch.as_tensor(g.uniform(-1.2, 1.2, (r, 3)).astype(np.float32),
+                        device=device)
+    d = torch.nn.functional.normalize(torch.as_tensor(
+        g.normal(size=(r, 3)).astype(np.float32), device=device), dim=1)
+    return o, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K1_CASES)
+def test_k1_edge_tables_match_plain_on_card(cuda_device, case):
+    """K1 bit-equal to nearest_hit on K1_CASES' tables at ray counts 0, 1,
+    37, 513 (not a multiple of a block's 512 rays) and 4,099, with the real
+    slots in the slices it picks and in 1, 2, 3 and 7 slices; two launches
+    bit-equal."""
+    center, radius = k1_edge_table(case, cuda_device)
+    o, d = k1_rays(4099, cuda_device)
+    for r in (0, 1, 37, 513, 4099):
+        b = nearest_hit_plain(center, radius, o[:r], d[:r])
+        for slices in (None, 1, 2, 3, 7):
+            a = sphere_nearest_hit(center, radius, o[:r], d[:r],
+                                   slices=slices)
+            a2 = sphere_nearest_hit(center, radius, o[:r], d[:r],
+                                    slices=slices)
+            torch.cuda.synchronize()
+            assert torch.equal(a.idx, b.idx) and torch.equal(_bits(a.t),
+                                                             _bits(b.t))
+            assert torch.equal(a2.idx, a.idx) and torch.equal(_bits(a2.t),
+                                                              _bits(a.t))
+            assert not a.t.requires_grad
+    hit = b.t < 1e29
+    if case == "padding":
+        assert not bool(hit.any()) and bool((b.idx == 0).all())
+    else:
+        assert bool(hit.any())
+    if case == "duplicates":
+        assert bool((b.idx == K1_DUP[0]).any())
+        assert not bool((b.idx == K1_DUP[1]).any())
+    if case == "negative":
+        assert bool((radius[b.idx.long()][hit] < 0).any())
+
+
+@pytest.mark.cuda
+def test_k1_launch_raises_on_bad_input(cuda_device):
+    """The wrapper refuses a wrong dtype or shape, a table off the card or
+    a strided ray tensor, and the launch refuses a slice count out of
+    range (no fallback)."""
+    center, radius = k1_edge_table("zeros", cuda_device)
+    o, d = k1_rays(64, cuda_device)
+    with pytest.raises(ValueError):
+        sphere_nearest_hit(center, radius.double(), o, d)
+    with pytest.raises(ValueError):
+        sphere_nearest_hit(center, radius[:-1], o, d)
+    with pytest.raises(ValueError):
+        sphere_nearest_hit(center.cpu(), radius, o, d)
+    with pytest.raises(ValueError):
+        sphere_nearest_hit(center, radius, o[::2], d[::2])
+    for slices in (0, 70000):
+        with pytest.raises(RuntimeError, match="trt_sphere_nearest_hit"):
+            sphere_nearest_hit(center, radius, o, d, slices=slices)
+
+
 @pytest.mark.cuda
 def test_k2_kernel_matches_plain_on_card(cuda_device):
     ts = make_scene("rtweekend", device=cuda_device)

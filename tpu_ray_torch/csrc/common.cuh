@@ -18,7 +18,7 @@
 #define TRT_MIX_BOUNCE 0x632BE59Bu
 #define TRT_MIX_SLOT 0xC2B2AE35u
 
-// The widest sphere table a block stages in shared memory (16 B a sphere).
+// The most dynamic shared memory a launch asks for.
 #define TRT_MAX_SMEM_BYTES (200 * 1024)
 
 // Stateless PCG permutation, bit-identical to core/rng.py pcg_hash.
@@ -660,15 +660,99 @@ struct TrtSphTiles {
   float o_lim;
 };
 
-// Stage n spheres (center [n,3], radius [n]) into shared memory.
-__device__ __forceinline__ void trt_stage_spheres(
-    float4* sph, const float* __restrict__ center,
-    const float* __restrict__ radius, int n) {
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    sph[k] = make_float4(center[3 * k], center[3 * k + 1],
-                         center[3 * k + 2], radius[k]);
+// The sliced search of K1 (csrc/sphere_intersect.cu) and K7
+// (csrc/tri_intersect.cu): where the ray blocks alone do not fill the
+// card, the grid is ray blocks x slices of the primitive axis. Each block
+// folds its slice in ascending id with strict <, then merges each hit into
+// its ray's 64-bit key (f32 bits of t << 32 | id) with atomicMin: t > 0,
+// so the bits order as the floats and an equal t keeps the lower id; the
+// global min is the ascending fold's winner whatever order the blocks run
+// in. The keys start all ones (trt_keys_clear; no hit makes that key, its
+// t being a NaN), and trt_keys_unpack turns them into t and idx. At one
+// slice the block writes t and idx itself.
+
+// The devices whose resident blocks a kernel caches (trt_wave_of).
+#define TRT_MAX_DEVICES 64
+
+// The resident blocks of kernel (threads a block, no dynamic shared
+// memory) a wave holds on the current device: its SMs x blocks an SM,
+// queried once a device and kept in cache[TRT_MAX_DEVICES] (0: not yet).
+// -> the count, or a negative CUDA error.
+template <typename K>
+__host__ inline int trt_wave_of(K kernel, int threads, int* cache) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  int wave = dev < TRT_MAX_DEVICES ? cache[dev] : 0;
+  if (wave == 0) {
+    int n_sm = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, 0);
+    }
+    if (err != cudaSuccess) return -(int)err;
+    wave = n_sm * per_sm;
+    if (dev < TRT_MAX_DEVICES) cache[dev] = wave;
   }
-  __syncthreads();
+  return wave;
+}
+
+// The slices of a launch of r rays over m primitives, block_rays rays a
+// block, wave resident blocks a wave -> at least 1; 1 where the ray
+// blocks alone make `waves` waves, else enough slices for that many
+// blocks, each slice at least min_slice primitives.
+__host__ inline int trt_search_slices(long long r, long long m,
+                                      int block_rays, int min_slice,
+                                      int waves, int wave) {
+  const long long want = (long long)waves * wave;
+  const long long ray_blocks = (r + block_rays - 1) / block_rays;
+  if (ray_blocks < 1 || ray_blocks >= want) return 1;
+  const long long s = (want + ray_blocks - 1) / ray_blocks;
+  const long long most = (m + min_slice - 1) / min_slice;
+  return (int)(s < most ? s : most > 1 ? most : 1);
+}
+
+// Merge a slice's hit (t, id) into its ray's key.
+__device__ __forceinline__ void trt_merge_hit(unsigned long long* key,
+                                              float t, int id) {
+  atomicMin(key, ((unsigned long long)__float_as_uint(t) << 32) |
+                     (unsigned)id);
+}
+
+// Set the keys [r] of a split launch to all ones: no slice hit.
+__host__ inline cudaError_t trt_keys_clear(unsigned long long* keys, int r,
+                                           cudaStream_t stream) {
+  return cudaMemsetAsync(keys, 0xff, (size_t)r * sizeof(unsigned long long),
+                         stream);
+}
+
+namespace {
+
+// keys [r] -> t_out, idx_out (all ones: a miss, t = 1e30, idx 0). K: the
+// number of the search kernel, so that a profiler tells K1's from K7's.
+template <int K>
+__global__ void trt_unpack_keys_kernel(
+    const unsigned long long* __restrict__ keys, int r,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= r) return;
+  const unsigned long long key = keys[i];
+  const bool hit = key != ~0ull;
+  t_out[i] = hit ? __uint_as_float((unsigned)(key >> 32)) : TRT_F32_MAX;
+  idx_out[i] = hit ? (int)(unsigned)key : 0;
+}
+
+}  // namespace
+
+// Launch trt_unpack_keys_kernel<K> over r keys.
+template <int K>
+__host__ inline cudaError_t trt_keys_unpack(
+    const unsigned long long* keys, int r, float* t_out, int* idx_out,
+    cudaStream_t stream) {
+  trt_unpack_keys_kernel<K><<<(r + 255) / 256, 256, 0, stream>>>(
+      keys, r, t_out, idx_out);
+  return cudaGetLastError();
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where needed.

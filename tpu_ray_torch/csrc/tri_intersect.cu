@@ -30,13 +30,9 @@
 //   padded to 12 floats) for all of them.
 // - The triangle axis is split where the rays alone do not fill the card
 //   (trt_tri_slices: the grid is ray blocks x triangle slices, aiming at
-//   TRT_K7_WAVES waves of resident blocks). Each block folds its slice in
-//   ascending id with strict <, then merges each hit into its ray's 64-bit
-//   key (f32 bits of t << 32 | id) with atomicMin: t > 0, so the bits
-//   order as the floats and an equal t keeps the lower id; the global min
-//   is the ascending fold's winner whatever order the blocks run in. The
-//   keys start all ones (a memset; no triangle can produce that key), and
-//   a second small launch unpacks them into t and idx. At one slice (the
+//   TRT_K7_WAVES waves of resident blocks), merged per ray by the 64-bit
+//   (t, id) atomicMin of the sliced search K1 shares (common.cuh
+//   trt_search_slices, trt_merge_hit, trt_keys_unpack). At one slice (the
 //   1920x1080 wavefront fills the card alone) the block writes t and idx
 //   itself, with no atomics and no second launch.
 // - Tiles of TRT_K7_TILE triangles are staged between two __syncthreads:
@@ -120,11 +116,7 @@ tri_nearest_hit_kernel(const float* __restrict__ tri, int m, int slice_m,
     const int i = i0 + k * TRT_K7_THREADS;
     if (i >= r) continue;
     if (SPLIT) {
-      if (best[k] < TRT_F32_MAX) {
-        atomicMin(keys + i,
-                  ((unsigned long long)__float_as_uint(best[k]) << 32) |
-                      (unsigned)bi[k]);
-      }
+      if (best[k] < TRT_F32_MAX) trt_merge_hit(keys + i, best[k], bi[k]);
     } else {
       t_out[i] = best[k];
       idx_out[i] = bi[k];
@@ -132,24 +124,11 @@ tri_nearest_hit_kernel(const float* __restrict__ tri, int m, int slice_m,
   }
 }
 
-// keys [r] (all ones: no slice hit) -> t_out, idx_out.
-__global__ void tri_unpack_kernel(const unsigned long long* __restrict__ keys,
-                                  int r, float* __restrict__ t_out,
-                                  int* __restrict__ idx_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= r) return;
-  const unsigned long long key = keys[i];
-  const bool hit = key != ~0ull;
-  t_out[i] = hit ? __uint_as_float((unsigned)(key >> 32)) : TRT_F32_MAX;
-  idx_out[i] = hit ? (int)(unsigned)key : 0;
-}
-
 }  // namespace
 
 // The resident blocks of tri_nearest_hit_kernel a wave holds on each
-// device (its SMs x blocks an SM), queried once a device; 0: not yet.
-#define TRT_K7_MAX_DEVICES 64
-static int trt_k7_wave[TRT_K7_MAX_DEVICES];
+// device (trt_wave_of).
+static int trt_k7_wave[TRT_MAX_DEVICES];
 
 // The triangle slices of a launch of r rays over m triangles on the
 // current device -> at least 1; 1 where the ray blocks alone make
@@ -157,29 +136,11 @@ static int trt_k7_wave[TRT_K7_MAX_DEVICES];
 // blocks, each slice at least TRT_K7_MIN_SLICE triangles. A negative
 // return is a CUDA error.
 extern "C" int trt_tri_slices(int r, int m) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return -(int)err;
-  int wave = dev < TRT_K7_MAX_DEVICES ? trt_k7_wave[dev] : 0;
-  if (wave == 0) {
-    int n_sm = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, tri_nearest_hit_kernel<true>, TRT_K7_THREADS, 0);
-    }
-    if (err != cudaSuccess) return -(int)err;
-    wave = n_sm * per_sm;
-    if (dev < TRT_K7_MAX_DEVICES) trt_k7_wave[dev] = wave;
-  }
-  const long long want = (long long)TRT_K7_WAVES * wave;
-  const long long ray_blocks =
-      ((long long)r + TRT_K7_BLOCK_RAYS - 1) / TRT_K7_BLOCK_RAYS;
-  if (ray_blocks < 1 || ray_blocks >= want) return 1;
-  const long long s = (want + ray_blocks - 1) / ray_blocks;
-  const long long most =
-      ((long long)m + TRT_K7_MIN_SLICE - 1) / TRT_K7_MIN_SLICE;
-  return (int)(s < most ? s : most > 1 ? most : 1);
+  const int wave = trt_wave_of(tri_nearest_hit_kernel<true>, TRT_K7_THREADS,
+                               trt_k7_wave);
+  if (wave < 0) return wave;
+  return trt_search_slices(r, m, TRT_K7_BLOCK_RAYS, TRT_K7_MIN_SLICE,
+                           TRT_K7_WAVES, wave);
 }
 
 // tri [m, 9] v0|e1|e2; origin, direction [r, 3]; slices >= 1 (the
@@ -190,11 +151,11 @@ extern "C" int trt_tri_nearest_hit(const float* tri, int m,
                                    const float* direction, int r, int slices,
                                    unsigned long long* keys, float* t_out,
                                    int* idx_out, cudaStream_t stream) {
-  if (m < 0 || r < 0 || slices < 1 || slices > 65535 ||
-      (slices > 1 && keys == nullptr)) {
+  if (m < 0 || r < 0 || slices < 1 || slices > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  if (r == 0) return 0;
+  if (r == 0) return 0;    // an empty keys tensor has no pointer
+  if (slices > 1 && keys == nullptr) return (int)cudaErrorInvalidValue;
   const int slice_m = (int)(((long long)m + slices - 1) / slices);
   const dim3 grid((r + TRT_K7_BLOCK_RAYS - 1) / TRT_K7_BLOCK_RAYS, slices);
   if (slices == 1) {
@@ -202,15 +163,11 @@ extern "C" int trt_tri_nearest_hit(const float* tri, int m,
         tri, m, slice_m, origin, direction, r, t_out, idx_out, nullptr);
     return (int)cudaGetLastError();
   }
-  cudaError_t err = cudaMemsetAsync(keys, 0xff,
-                                    (size_t)r * sizeof(unsigned long long),
-                                    stream);
+  cudaError_t err = trt_keys_clear(keys, r, stream);
   if (err != cudaSuccess) return (int)err;
   tri_nearest_hit_kernel<true><<<grid, TRT_K7_THREADS, 0, stream>>>(
       tri, m, slice_m, origin, direction, r, nullptr, nullptr, keys);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  tri_unpack_kernel<<<(r + 255) / 256, 256, 0, stream>>>(keys, r, t_out,
-                                                         idx_out);
-  return (int)cudaGetLastError();
+  return (int)trt_keys_unpack<7>(keys, r, t_out, idx_out, stream);
 }

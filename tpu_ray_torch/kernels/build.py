@@ -36,8 +36,12 @@ _F = ctypes.c_float
 # every entry point returns cudaGetLastError() after its launch; the caller
 # launches under ``torch.cuda.device`` of its tensors
 SIGNATURES = {
-    # center, radius, n, origin, direction, r, t_out, idx_out, stream
-    "trt_sphere_nearest_hit": [_P, _P, _I, _P, _P, _I, _P, _P, _P],
+    # center, radius, n, origin, direction, r, slices, keys, t_out,
+    # idx_out, stream
+    "trt_sphere_nearest_hit": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    # r, n -> K1's slices on the current device (a count; a negative
+    # return is a CUDA error)
+    "trt_sphere_slices": [_I, _I],
     # tri, m, origin, direction, r, slices, keys, t_out, idx_out, stream
     "trt_tri_nearest_hit": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
     # r, m -> K7's triangle slices on the current device (a count; a
