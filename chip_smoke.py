@@ -107,8 +107,22 @@ plain version's); the pass as the CLI drives it on
 backend fused, which falls back to the probe route (two calls, one more
 under torch.profiler, its image equal to backend cuda's, and one call at
 ray_chunk=43200); three forward+backward steps with remat="save_hits"
-(no search in the backward; gradients against remat=False's); and the
-fused flat estimator's warning and fallback.
+(no search in the backward; gradients against remat=False's) and one
+with remat="save_hits_bounce" (each bounce recomputed on its own from the
+saved hits: no search in the backward, its gradients within rtol 1e-4 /
+atol 1e-7 + 1e-5 x max of the "save_hits" step's, both steps' wall time
+and peak memory printed); and the fused flat estimator's warning and
+fallback. Then the CLI's progressive surface on the main path's
+configuration (rtweekend 1920x1080, fused + regen), through
+tpu_ray_torch.cli.main as a user runs it: render at 64 spp, two passes
+with --metrics and --profile, against one pass with --checkpoint and
+then --resume for one more (the accumulated means bit-equal, the rays
+equal, a metrics line a pass, K2's kernel named in the trace); animate,
+3 frames at 4 spp, each frame equal to a PathTracer.step at its orbit
+camera; and sharding on a 1-rank nccl group with a mesh of 1:
+render_pass_sharded at 64 spp bit-equal to render_pass, and
+render_mean_sharded forward+backward (K2-record and K3) within 3e-3 of
+each group's max of one process's gradients.
 Prints each phase's wall seconds, a
 JSON line of main-path numbers, one JSON line of per-kernel numbers and,
 last, one JSON line with the device. Any failed check raises, so the exit
@@ -1334,6 +1348,46 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
           flush=True)
     phase("big_fwd_bwd", t0)
 
+    # 32b. the same step with remat="save_hits_bounce" (each bounce
+    # recomputed on its own from its own stretch of the tape): the forward
+    # launches K1 and K10 as "save_hits" does, the backward none; every
+    # gradient within tests/test_grad.py:140-146's bound of the
+    # "save_hits" step's; wall time and peak memory beside that step's
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mem0_b = torch.cuda.memory_allocated()
+    g_b, rays_b, fwd_b, bwd_b, secs_b = fwd_bwd("save_hits_bounce")
+    peak_b = torch.cuda.max_memory_allocated() - mem0_b
+    require(rays_b == rays, f"bigmesh save_hits_bounce rays {rays_b}")
+    require(fwd_b == launches and fwd_b["sphere_nearest_hit"] > 0
+            and fwd_b["tri_nearest_hit_stream"] > 0
+            and sum(bwd_b.values()) == 0,
+            f"bigmesh save_hits_bounce launches: forward {fwd_b}, "
+            f"backward {bwd_b}")
+    err_b = {}
+    for k, v in g_s.items():
+        scale = v.abs().max().item()
+        d = (g_b[k] - v).abs()
+        err_b[k] = d.max().item() / max(scale, 1e-30)
+        require(bool(torch.isfinite(g_b[k]).all()) and bool(
+            (d <= 1e-7 + 1e-5 * scale + 1e-4 * v.abs()).all()),
+            f"bigmesh save_hits_bounce gradient of {k} off the save_hits "
+            f"step's by {err_b[k]:.3e} of its max")
+    k1_paths["bigmesh save_hits_bounce step"] = dict(
+        k1_paths["bigmesh pass"], ms=None,
+        launches=fwd_b["sphere_nearest_hit"],
+        shape=f"fwd+bwd step, remat=save_hits_bounce: "
+              f"{fwd_b['sphere_nearest_hit']} launches in the forward, none "
+              f"in the backward; ms_launch and bound: the pass's; ms: not "
+              f"profiled")
+    print(f"bigmesh fwd+bwd (remat=save_hits_bounce): {rays_b} rays, step "
+          f"{secs_b:.3f} s, peak {peak_b} B above {mem0_b} B; "
+          f"save_hits: steps {step_secs} s, peak {peak} B; launches forward "
+          f"{fwd_b}, backward {bwd_b}; gradients within "
+          f"{max(err_b.values()):.3e} of each group's max of save_hits' "
+          f"(rtol 1e-4, atol 1e-7 + 1e-5 x max)", flush=True)
+    phase("big_save_hits_bounce", t0)
+
     # 33. the flat estimator on fused past the rule: it warns and falls
     # back to the eager estimator, equal to backend cuda's over the same
     # tile-ordered lanes
@@ -1381,7 +1435,8 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
         pairs_tested=sum(p["pairs_tested"] for p in per_bounce),
         plain_lanes=checks[1]["plain_lanes"],
         ms_same_lanes=checks[1]["k10_ms"],
-        same_lanes="bounce 1's sorted state, every lane")}
+        same_lanes="bounce 1's sorted state, every lane",
+        launches_save_hits_bounce_step=fwd_b["tri_nearest_hit_stream"])}
     summary = dict(
         width=w, height=h, spp=spp, triangles=n_tri_real, rays_cast=rays,
         seconds=secs, rays_per_s=[rays / t for t in secs],
@@ -1394,8 +1449,220 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
         fwd_bwd_rays_per_s=[rays_g / t for t in step_secs],
         fwd_bwd_peak_bytes=peak, fwd_bwd_remat_false_seconds=secs_f,
         fwd_bwd_remat_false_peak_bytes=peak_f, grad_max_rel_err=err,
-        list_pass_rate=pass_rate)
+        list_pass_rate=pass_rate,
+        save_hits_bounce=dict(
+            fwd_bwd_seconds=secs_b, fwd_bwd_peak_bytes=peak_b,
+            save_hits_fwd_bwd_seconds=step_secs,
+            save_hits_fwd_bwd_peak_bytes=peak,
+            grad_max_rel_err_vs_save_hits=err_b))
     return kernels, summary
+
+
+def surface_phases(torch, dev, card, reset_counts, counts, scene):
+    """Phases 34-36: the CLI's progressive surface and sharding, on the
+    main path's configuration (rtweekend 1920x1080, fused + regen, K2 and
+    K2-record/K3), each driven with the counts set to 0 just before it and
+    read just after. 34: ``cli.main(["render", ...])`` at 64 spp, 2 passes
+    with --metrics and --profile, against 1 pass with --checkpoint, then
+    --resume for 1 more (the two means bit-equal, the rays equal; a
+    log_pass line a pass; the trace names K2's kernel). 35: ``animate``,
+    3 frames at 4 spp, each frame's PNG byte for byte a
+    ``PathTracer.step`` at that orbit camera. 36: a 1-rank ``nccl`` group
+    and a mesh of 1: ``render_pass_sharded`` at 64 spp bit-equal to
+    ``render_pass``, ``render_mean_sharded`` forward+backward within 3e-3
+    of each group's max of one process's. -> ({kernel key: {field:
+    launches}}, numbers)."""
+    import socket
+    from tpu_ray_torch import PathTracer, RenderConfig, cli, orbit_camera
+    from tpu_ray_torch.core.camera import default_camera, trainable_camera
+    from tpu_ray_torch.core.scene import trainable_scene
+    from tpu_ray_torch.grad import (image_mse, render_mean,
+                                    render_mean_sharded)
+    from tpu_ray_torch.models.path_tracer import render_pass
+    from tpu_ray_torch.parallel import make_mesh, render_pass_sharded
+    from tpu_ray_torch.parallel.multihost import ensure_initialized
+    from tpu_ray_torch.utils import load_checkpoint, write_png
+
+    out, extra = {}, {}
+    base = ["render", "--scene", "rtweekend", "--width", str(MAIN_W),
+            "--height", str(MAIN_H), "--spp", str(MAIN_SPP), "--backend",
+            "fused", "--regen", "--seed", str(SEED)]
+
+    def driven(fn):
+        """(fn(), wall s, the launches it made)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t, counts()
+
+    def only(launched, what, **want):
+        got = {k: v for k, v in launched.items() if v}
+        require(got == want, f"{what} launched {launched}, not {want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def f(name):
+            return os.path.join(tmp, name)
+
+        # 34. resume and --profile, through the CLI
+        t0 = time.perf_counter()
+        rc, secs_full, l_full = driven(lambda: cli.main(
+            base + ["--passes", "2", "--out", f("full.png"), "--checkpoint",
+                    f("full.npz"), "--metrics", f("m.jsonl"), "--profile",
+                    f("trace")]))
+        require(rc == 0, "render --passes 2 failed")
+        only(l_full, "render --passes 2", regen_steps=2)
+        rc, secs_half, l_half = driven(lambda: cli.main(
+            base + ["--passes", "1", "--out", f("half.png"), "--checkpoint",
+                    f("half.npz"), "--metrics", f("h.jsonl")]))
+        require(rc == 0, "render --passes 1 failed")
+        rc, secs_res, l_res = driven(lambda: cli.main(
+            ["render", "--resume", f("half.npz"), "--spp", str(MAIN_SPP),
+             "--backend", "fused", "--regen", "--passes", "1", "--out",
+             f("resumed.png"), "--checkpoint", f("resumed.npz"),
+             "--metrics", f("r.jsonl")]))
+        require(rc == 0, "render --resume failed")
+        only(l_half, "render --passes 1", regen_steps=1)
+        only(l_res, "render --resume", regen_steps=1)
+        s_full, _, _, _, rays_full = load_checkpoint(f("full.npz"), dev)
+        s_res, _, _, cfg_res, rays_res = load_checkpoint(f("resumed.npz"),
+                                                         dev)
+        require(s_full.samples == s_res.samples == 2 * MAIN_SPP
+                and cfg_res.scene == "rtweekend", "resume: samples or scene")
+        require(rays_full == rays_res > 0,
+                f"resume: rays {rays_res} != uninterrupted {rays_full}")
+        require(torch.equal(s_full.mean, s_res.mean),
+                "the resumed mean is not the uninterrupted one's bit for bit")
+        require(bool(torch.isfinite(s_full.mean).all())
+                and s_full.mean.mean().item() > 0.01, "resume: image")
+        with open(f("m.jsonl")) as fh:
+            rows = [json.loads(line) for line in fh]
+        require([r["render_pass"] for r in rows] == [0, 1]
+                and [r["samples"] for r in rows] == [MAIN_SPP, 2 * MAIN_SPP]
+                and sum(r["rays_cast"] for r in rows) == rays_full,
+                f"--metrics lines {rows}")
+        traces = os.listdir(f("trace"))
+        require(len(traces) == 1, f"--profile wrote {traces}")
+        with open(os.path.join(f("trace"), traces[0])) as fh:
+            text = fh.read()
+        require("regen_sph_kernel" in text,
+                "the --profile trace does not name K2 (regen_sph_kernel)")
+        print(f"resume: rtweekend {MAIN_W}x{MAIN_H} {MAIN_SPP} spp fused+"
+              f"regen on {card}: 2 passes (metrics, profiled) {secs_full:.3f}"
+              f" s, 1 pass + checkpoint {secs_half:.3f} s, resume 1 pass "
+              f"{secs_res:.3f} s (PNG and npz writes included); means bit-"
+              f"equal, {rays_full} rays both; metrics {rows}; trace "
+              f"{len(text)} B names regen_sph_kernel", flush=True)
+        out["resume"] = dict(
+            seconds_two_passes_profiled=secs_full,
+            seconds_one_pass_checkpoint=secs_half,
+            seconds_resumed_pass=secs_res, rays_cast=rays_full,
+            pass_seconds=[r["seconds"] for r in rows],
+            trace_bytes=len(text))
+        extra["regen_steps"] = dict(launches_resume=l_full["regen_steps"])
+        phase("cli_resume", t0)
+
+        # 35. animate: each frame a PathTracer.step at its orbit camera
+        t0 = time.perf_counter()
+        frames, spp_a = 3, 4
+        rc, secs_a, l_a = driven(lambda: cli.main(
+            ["animate", "--scene", "rtweekend", "--width", str(MAIN_W),
+             "--height", str(MAIN_H), "--spp", str(spp_a), "--frames",
+             str(frames), "--backend", "fused", "--regen", "--seed",
+             str(SEED), "--out-dir", f("frames"), "--metrics",
+             f("a.jsonl")]))
+        require(rc == 0, "animate failed")
+        only(l_a, "animate", regen_steps=frames)
+        tracer = PathTracer(RenderConfig(
+            scene="rtweekend", width=MAIN_W, height=MAIN_H, spp=spp_a,
+            backend="fused", seed=SEED, regen=True), scene=scene, device=dev)
+        look_at = scene.look_at.cpu().numpy()
+        for i in range(frames):
+            angle = scene.default_x_angle + 2.0 * math.pi * i / frames
+            cam_i = orbit_camera(look_at, scene.default_distance, angle,
+                                 scene.default_y_height, device=dev)
+            st, _ = tracer.step(tracer.init_state(), cam_i)
+            write_png(f("ref.png"), tracer.srgb_image(st).cpu().numpy())
+            with open(f("ref.png"), "rb") as a, open(os.path.join(
+                    f("frames"), f"frame_{i:04d}.png"), "rb") as b:
+                require(a.read() == b.read(),
+                        f"animate frame {i} differs from PathTracer.step")
+        with open(f("a.jsonl")) as fh:
+            arows = [json.loads(line) for line in fh]
+        require([r["frame"] for r in arows] == list(range(frames)),
+                f"animate metrics {arows}")
+        print(f"animate: {frames} frames {MAIN_W}x{MAIN_H} {spp_a} spp in "
+              f"{secs_a:.3f} s (PNG writes included), each equal to "
+              f"PathTracer.step; frame seconds "
+              f"{[r['seconds'] for r in arows]}", flush=True)
+        out["animate"] = dict(frames=frames, spp=spp_a, seconds=secs_a,
+                              frame_seconds=[r["seconds"] for r in arows])
+        extra["regen_steps"]["launches_animate"] = l_a["regen_steps"]
+        phase("cli_animate", t0)
+
+    # 36. sharding: a 1-rank nccl group, a mesh of 1
+    t0 = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ensure_initialized(init_method=f"tcp://localhost:{port}", world_size=1,
+                       rank=0, device_type="cuda")
+    mesh = make_mesh((1,), device_type="cuda")
+    cam = default_camera(scene)
+    kw = dict(width=MAIN_W, height=MAIN_H, spp=MAIN_SPP, seed=SEED,
+              max_bounces=MAX_BOUNCES, backend="fused", regen=True)
+    # two calls: the first sets up NCCL's communicator
+    secs_sh = []
+    for _ in range(2):
+        (img_sh, rays_sh), secs, l_sh = driven(
+            lambda: render_pass_sharded(scene, cam, mesh=mesh, **kw))
+        only(l_sh, "render_pass_sharded", regen_steps=1)
+        secs_sh.append(secs)
+    (img_1, rays_1), secs_1, _ = driven(lambda: render_pass(scene, cam,
+                                                            **kw))
+    require(rays_sh == rays_1 and torch.equal(img_sh, img_1),
+            "render_pass_sharded differs from render_pass")
+
+    def step(sharded):
+        sc, cm = trainable_scene(scene), trainable_camera(cam)
+        if sharded:
+            img = render_mean_sharded(sc, cm, mesh=mesh, **kw)
+        else:
+            img = render_mean(sc, cm, **kw)
+        image_mse(img, torch.zeros_like(img)).backward()
+        g = {k: sc.leaf(k).grad for k in sc.leaves}
+        g.update(position=cm.position.grad, look_at=cm.look_at.grad)
+        return g
+
+    secs_g = []
+    for _ in range(2):
+        g_sh, secs, l_g = driven(lambda: step(True))
+        only(l_g, "render_mean_sharded fwd+bwd", regen_record=1,
+             regen_bwd=1)
+        secs_g.append(secs)
+    g_1, secs_g1, _ = driven(lambda: step(False))
+    err = {k: ((g_sh[k] - g_1[k]).abs().max()
+               / g_1[k].abs().max().clamp_min(1e-12)).item() for k in g_1}
+    require(all(bool(torch.isfinite(v).all()) for v in g_sh.values())
+            and max(err.values()) <= 3e-3,
+            f"render_mean_sharded gradients off one process's: {err}")
+    torch.distributed.destroy_process_group()
+    print(f"sharded, 1-rank nccl, mesh (1,): render_pass_sharded {MAIN_W}x"
+          f"{MAIN_H} {MAIN_SPP} spp {secs_sh} s (render_pass {secs_1:.3f} s)"
+          f", {rays_sh} rays, bit-equal to render_pass; render_mean_sharded "
+          f"fwd+bwd {secs_g} s (render_mean {secs_g1:.3f} s), gradients "
+          f"within {max(err.values()):.3e} of each group's max of one "
+          f"process's", flush=True)
+    out["sharded"] = dict(pass_seconds=secs_sh, render_pass_seconds=secs_1,
+                          rays_cast=rays_sh, fwd_bwd_seconds=secs_g,
+                          render_mean_fwd_bwd_seconds=secs_g1,
+                          grad_max_rel_err=err)
+    extra["regen_steps"]["launches_sharded_pass"] = l_sh["regen_steps"]
+    extra["regen_record"] = dict(launches_sharded_step=l_g["regen_record"])
+    extra["regen_bwd"] = dict(launches_sharded_step=l_g["regen_bwd"])
+    phase("sharded", t0)
+    return extra, out
 
 
 def main() -> int:
@@ -3720,6 +3987,12 @@ def main() -> int:
         f"bounce {b}": {k: c[k] for k in ("k7_ms", "k7_slices", "k7_bound_ms")}
         for b, c in big_kernels["tri_nearest_hit_stream"]["checks"].items()}
 
+    # 34-36. the CLI's resume, --profile, animate, and sharding
+    surf_launches, surface = surface_phases(torch, dev, card, reset_counts,
+                                            counts, scene)
+    for key, fields in surf_launches.items():
+        kernels[key].update(fields)
+
     for key, rec in k1_paths.items():
         print(f"K1 on {key}: {rec}", flush=True)
     phase("total", t_all)
@@ -3764,7 +4037,7 @@ def main() -> int:
                     "rays_per_s": [rays_off / t for t in sweep_secs],
                     "pixels_differing_from_listed": n_px_off,
                     "device_idle_share": sweep_idle}}},
-        "estimators": est, "bigmesh": big}}))
+        "estimators": est, "bigmesh": big, "surface": surface}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

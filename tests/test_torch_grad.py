@@ -260,5 +260,5 @@ def test_cli_fit_writes_png(tmp_path, backend):
 def test_cli_fit_refuses_mesh(tmp_path):
     p = _cli("fit", "--device", "cpu", "--width", "8", "--height", "8",
              "--steps", "1", "--mesh", "8", "--out", str(tmp_path / "f.png"))
-    assert p.returncode != 0 and "not ported yet" in p.stderr
+    assert p.returncode != 0 and "needs 8 ranks" in p.stderr
     assert not (tmp_path / "f.png").exists()

@@ -173,7 +173,10 @@ def test_cli_scenes_and_unported_flags(tmp_path):
     assert p.returncode == 0 and "rtweekend" in p.stdout
     p = _cli("render", "--device", "cpu", "--width", "8", "--height", "8",
              "--mesh", "8", "--out", str(tmp_path / "y.png"))
-    assert p.returncode == 2 and "unrecognized arguments" in p.stderr
+    assert p.returncode != 0 and "needs 8 ranks" in p.stderr
+    assert not (tmp_path / "y.png").exists()
+    p = _cli("bench")
+    assert p.returncode == 2 and "invalid choice" in p.stderr
     p = _cli("render", "--device", "cpu", "--width", "8", "--height", "8",
              "--shading", "flat", "--out", str(tmp_path / "y.png"))
     assert p.returncode == 0, p.stderr

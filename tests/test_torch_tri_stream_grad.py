@@ -22,8 +22,9 @@ with their reasons:
   elsewhere), past the 1e-5 that tests/test_tri_stream.py holds JAX's
   two routes to; the stream route adds nothing in either package (the
   test above, and tests/test_tri_stream.py for JAX).
-- remat "save_hits", True and False: bit for bit, and the backward of
-  "save_hits" calls no search (a counter around each).
+- remat "save_hits", "save_hits_bounce", True and False: bit for bit,
+  and the backward of "save_hits" and "save_hits_bounce" calls no search
+  (a counter around each).
 """
 import numpy as np
 import jax
@@ -120,9 +121,9 @@ def test_stream_grads_match_jax(grads, sort):
 
 @pytest.mark.parametrize("backend", ["torch", "fused"])
 def test_save_hits_runs_no_search_in_the_backward(backend):
-    """remat "save_hits", True and False give the same gradients bit for
-    bit; only "save_hits" has a backward that searches nothing (True
-    re-runs every search)."""
+    """remat "save_hits", "save_hits_bounce", True and False give the same
+    gradients bit for bit; only "save_hits" and "save_hits_bounce" have a
+    backward that searches nothing (True re-runs every search)."""
     ts = make_trimesh_scene(subdivisions=1, device="cpu")
     calls = [0]
     sph_key = "torch" if backend == "torch" else "cuda"
@@ -141,7 +142,7 @@ def test_save_hits_runs_no_search_in_the_backward(backend):
                    counted(pt.tri_nearest_hit_stream))
         try:
             got = {}
-            for remat in (False, True, "save_hits"):
+            for remat in (False, True, "save_hits", "save_hits_bounce"):
                 s = trainable_scene(ts)
                 c = trainable_camera(default_camera(ts))
                 calls[0] = 0
@@ -156,7 +157,8 @@ def test_save_hits_runs_no_search_in_the_backward(backend):
     ref, ref_pos, fwd0, bwd0 = got[False]
     assert fwd0 == 2 * KW["max_bounces"] and bwd0 == 0
     assert got[True][3] == fwd0 and got["save_hits"][3] == 0
-    for remat in (True, "save_hits"):
+    assert got["save_hits_bounce"][3] == 0
+    for remat in (True, "save_hits", "save_hits_bounce"):
         g, pos, fwd, _ = got[remat]
         assert fwd == fwd0
         assert torch.equal(pos, ref_pos)
@@ -166,7 +168,10 @@ def test_save_hits_runs_no_search_in_the_backward(backend):
 
 def test_hit_tape_records_and_replays():
     """The tape keeps the hit mask and the winner (i16 below 2^15
-    primitives, i32 past it) and replays them in call order."""
+    primitives, i32 past it) and replays them in call order, or from a
+    position a bounce marked; and remat="save_hits_bounce", which replays
+    it a bounce at a time, gives "save_hits"'s gradients bit for bit on
+    the eager route."""
     hits = [Hit(t=torch.tensor([1.5, 1e30, 0.25]),
                 idx=torch.tensor([3, 0, 40000], dtype=torch.int32)),
             Hit(t=torch.tensor([1e30, 2.0, 3.0]),
@@ -181,11 +186,19 @@ def test_hit_tape_records_and_replays():
         got = tape.search(n, lambda: pytest.fail("searched on replay"))
         assert torch.equal(got.t < 1e29, h.t < 1e29)
         assert torch.equal(got.idx, h.idx)
-    with pytest.raises(ValueError, match="save_hits"):
-        render_mean(make_trimesh_scene(subdivisions=1, device="cpu"),
-                    default_camera(make_trimesh_scene(subdivisions=1,
-                                                      device="cpu")),
-                    remat="save_hits_bounce", **KW)
+    assert tape.mark() == 2
+    tape.seek(1)
+    got = tape.search(128, lambda: pytest.fail("searched on replay"))
+    assert torch.equal(got.idx, hits[1].idx) and tape.mark() == 2
+    fresh = pt.HitTape()
+    fresh.seek(fresh.mark())
+    assert fresh.search(128, lambda: hits[0]) is hits[0]
+    ts = make_trimesh_scene(subdivisions=1, device="cpu")
+    g = {remat: _port_grads(ts, backend="torch", remat=remat)
+         for remat in ("save_hits", "save_hits_bounce")}
+    for k, v in g["save_hits"].items():
+        np.testing.assert_array_equal(g["save_hits_bounce"][k], v,
+                                      err_msg=k)
 
 
 def test_bigmesh_save_hits_grads():

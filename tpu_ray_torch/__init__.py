@@ -14,7 +14,9 @@ Entry points take ``device=`` and default to ``"cuda"``; pass
 from tpu_ray_torch.config import RenderConfig
 from tpu_ray_torch.core.camera import Camera, default_camera, orbit_camera
 from tpu_ray_torch.core.scene import (SCENE_BUILDERS, Scene, SceneBuilder,
-                                      make_scene)
+                                      make_randomized_scene, make_rgb_scene,
+                                      make_rtweekend_scene, make_scene)
+from tpu_ray_torch.core.trimesh import Triangles, pack_triangles
 from tpu_ray_torch.models.path_tracer import PathTracer
 
 __version__ = "0.1.0"
@@ -25,6 +27,11 @@ __all__ = [
     "SceneBuilder",
     "Camera",
     "PathTracer",
+    "Triangles",
+    "pack_triangles",
+    "make_rgb_scene",
+    "make_randomized_scene",
+    "make_rtweekend_scene",
     "make_scene",
     "SCENE_BUILDERS",
     "orbit_camera",

@@ -1,32 +1,36 @@
-"""Command-line interface of the port, with the flags of ``tpu_ray/cli.py``
-for what is ported.
+"""Command-line interface of the port, with the flags of ``tpu_ray/cli.py``.
 
 Subcommands:
-  render  progressive render -> PNG
-  fit     inverse rendering: optimize scene/camera to match a target image
-  scenes  list built-in scenes
+  render   progressive render -> PNG (+ checkpoint/resume, JSONL metrics,
+           a torch.profiler trace, a --mesh of ranks)
+  fit      inverse rendering: optimize scene/camera to match a target image
+  animate  turntable orbit -> frame PNGs
+  scenes   list built-in scenes
 
 Run on the card (the default) or with ``--device cpu``, e.g.
   python -m tpu_ray_torch.cli render --scene rtweekend --width 1920 \\
-      --height 1080 --spp 64 --backend fused --regen --out /tmp/x.png
+      --height 1080 --spp 64 --backend fused --regen --out /tmp/x.png \\
+      --checkpoint /tmp/x.npz --metrics /tmp/x.jsonl --profile /tmp/trace
+  python -m tpu_ray_torch.cli render --resume /tmp/x.npz --passes 1 \\
+      --backend fused --out /tmp/x2.png
   python -m tpu_ray_torch.cli fit --scene rtweekend --width 512 \\
       --height 512 --spp 4 --backend fused --steps 200 --out /tmp/fit.png
-  python -m tpu_ray_torch.cli render --backend fused --no-regen \\
-      --cull-secondary --out /tmp/y.png
-  python -m tpu_ray_torch.cli render --scene bigmesh --width 1920 \\
-      --height 1080 --backend fused --out /tmp/big.png
+  python -m tpu_ray_torch.cli animate --scene rtweekend --frames 12 \\
+      --backend fused --out-dir /tmp/frames
+  torchrun --nproc_per_node=N -m tpu_ray_torch.cli render --mesh N ...
 
 --exact-argmin is accepted and changes nothing: the port's search is
-always exact. Not ported yet (ROADMAP.md queue A): --checkpoint/--resume,
-render's --metrics, --profile, --mesh and the animate and bench
-subcommands.
+always exact. --mesh 'R' or 'RxS' lays the ranks of a torchrun launch out
+as rays[xspheres] (parallel.make_mesh); rank 0 writes the outputs. Not
+ported yet: the bench subcommand (ROADMAP.md queue A, item 2).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import os
 import sys
-import time
 
 
 def _add_common(ap: argparse.ArgumentParser):
@@ -67,6 +71,16 @@ def _add_common(ap: argparse.ArgumentParser):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
+    ap.add_argument("--metrics", default=None, help="JSONL metrics file")
+    ap.add_argument("--profile", default=None,
+                    help="torch.profiler trace directory")
+
+
+def _add_mesh(ap: argparse.ArgumentParser):
+    ap.add_argument("--mesh", default=None,
+                    help="rank mesh of a torchrun launch, e.g. '8' or "
+                         "'4x2' (rays[xspheres]); its ranks must be the "
+                         "launch's")
 
 
 def _want_regen(flag, backend: str) -> bool:
@@ -75,31 +89,124 @@ def _want_regen(flag, backend: str) -> bool:
     return True if flag is None else bool(flag)
 
 
-def cmd_render(args) -> int:
-    import torch
-    from tpu_ray_torch import PathTracer, RenderConfig
-    from tpu_ray_torch.utils.png import write_png
+def _parse_mesh(spec, device: str):
+    """--mesh 'R' or 'RxS' -> a ``parallel.make_mesh`` mesh over the
+    launch's ranks (None without the flag); exits with a message when the
+    spec is malformed or needs other than the launch's rank count."""
+    if spec is None:
+        return None
+    try:
+        shape = tuple(int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"error: --mesh expects e.g. '8' or '4x2' "
+                         f"(rays[xspheres]), got {spec!r}")
+    import torch.distributed as dist
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if len(shape) > 2 or math.prod(shape) != world:
+        raise SystemExit(
+            f"error: --mesh {spec} needs {math.prod(shape)} ranks "
+            f"(rays[xspheres]), and this launch has {world}: run it under "
+            f"torchrun --nproc_per_node={math.prod(shape)}")
+    from tpu_ray_torch.parallel import make_mesh
+    return make_mesh(shape, device_type="cpu" if device == "cpu" else "cuda")
 
-    cfg = RenderConfig(scene=args.scene, width=args.width, height=args.height,
-                       spp=args.spp, max_bounces=args.max_bounces,
-                       backend=args.backend, seed=args.seed,
-                       ray_chunk=args.ray_chunk, shading=args.shading,
-                       cull_secondary=args.cull_secondary,
-                       regen=_want_regen(args.regen, args.backend))
-    tracer = PathTracer(cfg, device=args.device)
-    state = tracer.init_state()
-    total_rays, total_secs = 0, 0.0
-    for _ in range(args.passes):
-        t0 = time.perf_counter()
-        state, rays = tracer.step(state)
-        if state.mean.is_cuda:
-            torch.cuda.synchronize(state.mean.device)
-        total_secs += time.perf_counter() - t0
-        total_rays += rays
+
+def _is_main() -> bool:
+    """Rank 0 of a sharded run, or a lone process: the one that writes."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _logger(args):
+    """The JSONL metrics stream of rank 0 (stdout without --metrics);
+    None on the other ranks."""
+    from tpu_ray_torch.utils import MetricsLogger
+    return MetricsLogger(path=args.metrics) if _is_main() else None
+
+
+def _config(args):
+    from tpu_ray_torch import RenderConfig
+    return RenderConfig(scene=args.scene, width=args.width,
+                        height=args.height, spp=args.spp,
+                        max_bounces=args.max_bounces, backend=args.backend,
+                        seed=args.seed, ray_chunk=args.ray_chunk,
+                        shading=args.shading,
+                        exact_argmin=args.exact_argmin,
+                        cull_secondary=args.cull_secondary,
+                        regen=_want_regen(args.regen, args.backend))
+
+
+def cmd_render(args) -> int:
+    from tpu_ray_torch import PathTracer
+    from tpu_ray_torch.models.path_tracer import render_pass
+    from tpu_ray_torch.ops.accumulate import accumulate
+    from tpu_ray_torch.parallel import render_pass_sharded
+    from tpu_ray_torch.utils import (StepTimer, load_checkpoint,
+                                     save_checkpoint, write_png)
+    from tpu_ray_torch.utils.metrics import profiler_trace
+
+    cfg = _config(args)
+    mesh = _parse_mesh(args.mesh, args.device)
+    total_rays = 0
+    if args.resume:
+        state, scene, camera, saved_cfg, total_rays = load_checkpoint(
+            args.resume, device=args.device)
+        if saved_cfg is not None:
+            # what the running mean depends on (the scene, the frame, the
+            # RNG streams) comes from the file; the execution knobs from
+            # the command line
+            for field in ("scene", "width", "height", "seed"):
+                if getattr(saved_cfg, field) != getattr(cfg, field):
+                    print(f"resume: --{field}={getattr(cfg, field)} ignored, "
+                          f"checkpoint has {field}="
+                          f"{getattr(saved_cfg, field)}", file=sys.stderr)
+            cfg = dataclasses.replace(
+                saved_cfg, backend=cfg.backend, spp=cfg.spp,
+                max_bounces=cfg.max_bounces, ray_chunk=cfg.ray_chunk,
+                shading=cfg.shading, exact_argmin=cfg.exact_argmin,
+                cull_secondary=cfg.cull_secondary, regen=cfg.regen)
+        tracer = PathTracer(cfg, scene=scene, device=args.device)
+        tracer.camera = camera
+    else:
+        tracer = PathTracer(cfg, device=args.device)
+        state = tracer.init_state()
+    scene, camera = tracer.scene, tracer.camera
+    kw = dict(width=cfg.width, height=cfg.height, spp=cfg.spp, seed=cfg.seed,
+              max_bounces=cfg.max_bounces, backend=cfg.backend,
+              ray_chunk=cfg.ray_chunk, shading=cfg.shading,
+              lights=tracer.lights, regen=cfg.regen)
+
+    log = _logger(args)
+    total_secs = 0.0
+    with profiler_trace(args.profile):
+        for i in range(args.passes):
+            def one_pass():
+                if mesh is None:
+                    return render_pass(scene, camera,
+                                       sample_start=state.samples, **kw)
+                return render_pass_sharded(scene, camera, mesh=mesh,
+                                           sample_start=state.samples, **kw)
+
+            (img_sum, rays), secs = StepTimer.timed(one_pass)
+            state = accumulate(state, img_sum, cfg.spp)
+            total_rays += int(rays)
+            total_secs += secs
+            if log is not None:
+                log.log_pass(rays=int(rays), seconds=secs, render_pass=i,
+                             samples=int(state.samples))
+    if log is not None:
+        log.close()
+    if not _is_main():
+        return 0
     write_png(args.out, tracer.srgb_image(state).cpu().numpy())
     print(f"wrote {args.out} ({state.samples} spp accumulated, "
           f"{total_rays} rays, {total_secs:.3f} s on {args.device})",
           file=sys.stderr)
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, state, scene, camera, cfg,
+                        total_rays)
+        print(f"checkpoint -> {args.checkpoint}", file=sys.stderr)
     return 0
 
 
@@ -119,13 +226,10 @@ def cmd_fit(args) -> int:
     from tpu_ray_torch.core.scene import make_scene, trainable_scene
     from tpu_ray_torch.grad import image_mse, make_train_step, render_mean
     from tpu_ray_torch.ops.tonemap import linear_to_srgb, pack_rgba8
-    from tpu_ray_torch.utils.metrics import MetricsLogger, StepTimer
-    from tpu_ray_torch.utils.png import write_png
+    from tpu_ray_torch.utils import StepTimer, write_png
+    from tpu_ray_torch.utils.metrics import profiler_trace
 
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "--mesh: sharding is not ported yet (ROADMAP.md queue A, "
-            "item 4)")
+    mesh = _parse_mesh(args.mesh, args.device)
     scene = make_scene(args.scene, device=args.device)
     camera = default_camera(scene)
     kw = dict(width=args.width, height=args.height, spp=args.spp,
@@ -217,20 +321,26 @@ def cmd_fit(args) -> int:
 
     # remat=True as the JAX fit passes it (eager backends only)
     init_fn, step_fn = make_train_step(
-        optimizer=optimizer, train_camera=fit_camera, fixed_samples=True,
-        remat=True, **kw)
+        mesh=mesh, optimizer=optimizer, train_camera=fit_camera,
+        fixed_samples=True, remat=True, **kw)
     state = init_fn(perturbed, cam0)
 
-    log = MetricsLogger(path=args.metrics)
+    log = _logger(args)
     before = recovery(perturbed, cam0)
-    log.log(fit_step=-1, **before)
+    if log is not None:
+        log.log(fit_step=-1, **before)
     loss = float("nan")
-    for i in range(args.steps):
-        (state, loss), secs = StepTimer.timed(step_fn, state, target)
-        log.log(fit_step=i, loss=float(loss), seconds=round(secs, 4))
+    with profiler_trace(args.profile):
+        for i in range(args.steps):
+            (state, loss), secs = StepTimer.timed(step_fn, state, target)
+            if log is not None:
+                log.log(fit_step=i, loss=float(loss), seconds=round(secs, 4))
     after = recovery(state.scene, state.camera)
-    log.log(fit_step=args.steps, **after)
-    log.close()
+    if log is not None:
+        log.log(fit_step=args.steps, **after)
+        log.close()
+    if not _is_main():
+        return 0
     with torch.no_grad():
         img = render_mean(state.scene, state.camera, sample_start=0, **kw)
     write_png(args.out, torch.flip(pack_rgba8(linear_to_srgb(img)),
@@ -239,6 +349,35 @@ def cmd_fit(args) -> int:
           file=sys.stderr)
     for k in before:
         print(f"  {k}: {before[k]:.6f} -> {after[k]:.6f}", file=sys.stderr)
+    return 0
+
+
+def cmd_animate(args) -> int:
+    """Turntable orbit render (the reference's orbit camera,
+    main.cpp:730-781): one frame per orbit angle, ``frame_%04d.png`` in
+    --out-dir, a metrics line per frame."""
+    from tpu_ray_torch import PathTracer, orbit_camera
+    from tpu_ray_torch.utils import StepTimer, write_png
+    from tpu_ray_torch.utils.metrics import profiler_trace
+
+    tracer = PathTracer(_config(args), device=args.device)
+    scene = tracer.scene
+    look_at = scene.look_at.cpu().numpy()
+    os.makedirs(args.out_dir, exist_ok=True)
+    log = _logger(args)
+    with profiler_trace(args.profile):
+        for f in range(args.frames):
+            angle = scene.default_x_angle + 2.0 * math.pi * f / args.frames
+            camera = orbit_camera(look_at, scene.default_distance, angle,
+                                  scene.default_y_height,
+                                  device=scene.device)
+            (state, rays), secs = StepTimer.timed(
+                tracer.step, tracer.init_state(), camera)
+            write_png(os.path.join(args.out_dir, f"frame_{f:04d}.png"),
+                      tracer.srgb_image(state).cpu().numpy())
+            log.log_pass(rays=int(rays), seconds=secs, frame=f)
+    log.close()
+    print(f"wrote {args.frames} frames -> {args.out_dir}", file=sys.stderr)
     return 0
 
 
@@ -262,6 +401,9 @@ def main(argv=None) -> int:
     r.add_argument("--passes", type=int, default=1,
                    help="progressive passes (each adds spp samples)")
     r.add_argument("--out", default="out.png")
+    r.add_argument("--checkpoint", default=None, help="save state npz here")
+    r.add_argument("--resume", default=None, help="resume from checkpoint")
+    _add_mesh(r)
 
     f = sub.add_parser("fit", help="inverse-rendering optimization demo")
     _add_common(f)
@@ -277,9 +419,12 @@ def main(argv=None) -> int:
     f.add_argument("--fit-camera", action="store_true",
                    help="also nudge + recover the camera position")
     f.add_argument("--out", default="fit.png")
-    f.add_argument("--metrics", default=None, help="JSONL metrics file")
-    f.add_argument("--mesh", default=None,
-                   help="device mesh (not ported yet: raises)")
+    _add_mesh(f)
+
+    a = sub.add_parser("animate", help="turntable orbit -> frame PNGs")
+    _add_common(a)
+    a.add_argument("--frames", type=int, default=12)
+    a.add_argument("--out-dir", default="frames")
 
     sub.add_parser("scenes", help="list built-in scenes")
 
@@ -288,6 +433,8 @@ def main(argv=None) -> int:
         return cmd_render(args)
     if args.cmd == "fit":
         return cmd_fit(args)
+    if args.cmd == "animate":
+        return cmd_animate(args)
     return cmd_scenes(args)
 
 

@@ -16,6 +16,11 @@ Backends (the JAX package's names on the left):
 shading "flat" and "lambert_shadow" (ops/shading_modes.py) run eagerly on
 "torch" and "cuda", and through the CUDA estimator kernel
 (kernels/simple_shade.py) on "fused".
+
+The gradient's memory policy is not a field here: ``remat`` of
+``grad.render_mean`` and ``grad.make_train_step`` (False, True,
+"save_hits", "save_hits_bounce") applies on "torch" and "cuda" and on the
+route "fused" falls back to past the residency rule; "fused" ignores it.
 """
 from __future__ import annotations
 

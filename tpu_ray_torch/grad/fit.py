@@ -13,10 +13,12 @@ import dataclasses
 from typing import Callable, Dict, Optional, Union
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from tpu_ray_torch.core.camera import CAMERA_LEAVES, Camera, trainable_camera
 from tpu_ray_torch.core.scene import Scene, trainable_scene
-from tpu_ray_torch.grad.render_grad import image_mse, render_mean
+from tpu_ray_torch.grad.render_grad import (image_mse, render_mean,
+                                             render_mean_sharded)
 
 # params (leaf name -> tensor, the trained leaves only) -> optimizer
 OptimizerFactory = Callable[[Dict[str, torch.Tensor]], torch.optim.Optimizer]
@@ -33,6 +35,7 @@ class TrainState:
 def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
                     max_bounces: int = 5, backend: str = "torch",
                     ray_chunk: Optional[int] = None,
+                    mesh: Optional[DeviceMesh] = None,
                     optimizer: Optional[OptimizerFactory] = None,
                     train_camera: bool = True, train_scene: bool = True,
                     remat: Union[bool, str] = False,
@@ -51,7 +54,11 @@ def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
     estimator never reuses RNG streams); fixed_samples=True pins
     sample_start=0, a deterministic loss for fitting a target rendered
     with the same streams. The optimizer updates the leaves in place.
-    remat goes to ``render_mean``; exact_argmin and cull_secondary change
+    remat (False, True, "save_hits" or "save_hits_bounce") goes to
+    ``render_mean``, or with a mesh (``parallel.make_mesh``) to
+    ``render_mean_sharded``, which every rank runs with the same target
+    and which gives every rank the same gradients, so each rank's
+    optimizer takes the same step; exact_argmin and cull_secondary change
     nothing (the port's search is always exact, and always culled)."""
     del exact_argmin, cull_secondary
     make_opt = optimizer or (
@@ -70,11 +77,15 @@ def make_train_step(*, width: int, height: int, spp: int, seed: int = 0,
     def step_fn(state: TrainState, target):
         sample_start = 0 if fixed_samples else state.step * spp
         state.optimizer.zero_grad(set_to_none=True)
-        image = render_mean(state.scene, state.camera, width=width,
-                            height=height, spp=spp,
-                            sample_start=sample_start, seed=seed,
-                            max_bounces=max_bounces, backend=backend,
-                            ray_chunk=ray_chunk, remat=remat, regen=regen)
+        kw = dict(width=width, height=height, spp=spp,
+                  sample_start=sample_start, seed=seed,
+                  max_bounces=max_bounces, backend=backend,
+                  ray_chunk=ray_chunk, remat=remat, regen=regen)
+        if mesh is None:
+            image = render_mean(state.scene, state.camera, **kw)
+        else:
+            image = render_mean_sharded(state.scene, state.camera,
+                                        mesh=mesh, **kw)
         loss = image_mse(image, target)
         loss.backward()
         state.optimizer.step()

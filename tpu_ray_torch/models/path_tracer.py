@@ -43,7 +43,10 @@ replay and K6 backward) without regen, or ``simple_shade.SimpleTrace``
 (K9 forward; its backward re-runs the eager estimator on K1/K7).
 On the eager routes remat=True recomputes each sample in the backward,
 and remat="save_hits" recomputes it from the hits its forward recorded
-(``HitTape``), so the backward runs no search.
+(``HitTape``), so the backward runs no search; remat="save_hits_bounce"
+does too, and recomputes each bounce of the sample on its own from its
+own stretch of the tape, so the backward holds one bounce's intermediates
+at a time.
 """
 from __future__ import annotations
 
@@ -102,12 +105,13 @@ def past_residency(scene: Scene) -> bool:
 
 class HitTape:
     """The outcome of every search of one sample, for remat="save_hits"
-    (the JAX ``_name_hit`` policy). The sample's first run records, in
-    call order, each search's hit mask and winner (the winner as i16 below
-    2^15 primitives, else i32: 3 or 5 B a ray); a rerun after ``rewind``
-    (the checkpoint's recompute in the backward) replays them instead of
-    searching. t is not kept: its one consumer is the miss test, so a
-    replayed hit has t = 0 and a replayed miss F32_MAX."""
+    and "save_hits_bounce" (the JAX ``_name_hit`` policy). The sample's
+    first run records, in call order, each search's hit mask and winner
+    (the winner as i16 below 2^15 primitives, else i32: 3 or 5 B a ray); a
+    rerun after ``rewind`` or ``seek`` (a checkpoint's recompute in the
+    backward) replays them instead of searching. t is not kept: its one
+    consumer is the miss test, so a replayed hit has t = 0 and a replayed
+    miss F32_MAX."""
 
     def __init__(self):
         self.saved = []
@@ -116,6 +120,17 @@ class HitTape:
     def rewind(self):
         """Replay from the first search if a run was recorded."""
         self.next = 0 if self.saved else None
+
+    def mark(self) -> int:
+        """The position of the next search: a rerun of what follows
+        replays from there (``seek``)."""
+        return len(self.saved) if self.next is None else self.next
+
+    def seek(self, pos: int):
+        """Replay from ``pos`` (a ``mark``) if that search was recorded; a
+        recording run goes on recording."""
+        if pos < len(self.saved):
+            self.next = pos
 
     def search(self, n_prim: int, fn, *args) -> Hit:
         if self.next is None:
@@ -172,8 +187,8 @@ def probe(scene: Scene, origins, directions, search: SearchFn = nearest_hit,
     is ``tri_nearest_hit_stream`` over the tile boxes (``tri_tile_boxes``)
     whatever tri_search is, and only the alive lanes [R] bool (None: all)
     feed its lists; a dead lane's payload is then a miss's. tape: records
-    or replays each search (remat="save_hits"). tables/tri_tab/tri_tables/
-    boxes: the scene's, built here when None."""
+    or replays each search (remat="save_hits", "save_hits_bounce").
+    tables/tri_tab/tri_tables/boxes: the scene's, built here when None."""
     hit = _search(tape, scene.n_pad, search, scene.center, scene.radius,
                   origins, directions)
     p = hit_payload(scene, origins, directions, hit, tables)
@@ -212,7 +227,8 @@ def probe_for(scene: Scene, backend: str) -> ProbeFn:
 
 def trace_rays(scene: Scene, origins, directions, stream_base,
                max_bounces: int, probe_fn: ProbeFn = probe,
-               sort_rays: Optional[bool] = None):
+               sort_rays: Optional[bool] = None,
+               tape: Optional[HitTape] = None):
     """Trace a flat ray wavefront to completion (reference main.cpp:388-482
     with alive-masking) -> (color [R,3] linear radiance, rays_cast [R]).
     probe_fn(scene, origins, directions, alive=) -> Payload (``probe``,
@@ -225,20 +241,22 @@ def trace_rays(scene: Scene, origins, directions, stream_base,
     list of reachable tiles stays short, and all-dead blocks list nothing.
     Every per-lane value rides the permutation (origin, direction,
     attenuation, colour, alive, rays, RNG base, slot) and the output is
-    unsorted at the end, so each lane computes what it computes unsorted."""
+    unsorted at the end, so each lane computes what it computes unsorted.
+
+    tape (remat="save_hits_bounce", with a probe_fn that searches through
+    the same tape): each bounce runs under its own
+    ``torch.utils.checkpoint``, so the backward recomputes one bounce at a
+    time; the bounce's recompute seeks the tape to the bounce's own first
+    search (``HitTape.mark`` at the bounce's first run) and replays it."""
     if sort_rays is None:
         sort_rays = past_residency(scene)
     n = origins.shape[0]
     dev = origins.device
-    origin, direction, base = origins, directions, stream_base
-    atten = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    color = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    rays_cast = torch.zeros(n, dtype=torch.int64, device=dev)
-    slot = torch.arange(n, device=dev)
-    for b in range(max_bounces):
-        if not bool(alive.any()):
-            break   # later bounces change nothing
+
+    def bounce(b, pos, origin, direction, atten, color, alive, rays_cast,
+               base, slot):
+        if tape is not None:
+            tape.seek(pos)
         if sort_rays:
             octant = ((direction[:, 0] > 0.0).to(torch.int64) * 4
                       + (direction[:, 1] > 0.0).to(torch.int64) * 2
@@ -248,7 +266,7 @@ def trace_rays(scene: Scene, origins, directions, stream_base,
                 origin[order], direction[order], atten[order], color[order])
             alive, rays_cast, base, slot = (
                 alive[order], rays_cast[order], base[order], slot[order])
-        rays_cast += alive
+        rays_cast = rays_cast + alive
         p = probe_fn(scene, origin, direction, alive=alive)
         # miss: optional sky emission, then the ray dies (main.cpp:433-440)
         if scene.use_sky:
@@ -267,7 +285,24 @@ def trace_rays(scene: Scene, origins, directions, stream_base,
                                     p.specular, p.ior, rand3, rand_reflect)
         direction = torch.where(lh, new_dir, direction)
         origin = torch.where(lh, p.next_origin, origin)
-        alive = live_hit
+        return (origin, direction, atten, color, live_hit, rays_cast, base,
+                slot)
+
+    state = (origins, directions,
+             torch.ones((n, 3), dtype=torch.float32, device=dev),
+             torch.zeros((n, 3), dtype=torch.float32, device=dev),
+             torch.ones(n, dtype=torch.bool, device=dev),
+             torch.zeros(n, dtype=torch.int64, device=dev), stream_base,
+             torch.arange(n, device=dev))
+    for b in range(max_bounces):
+        if not bool(state[4].any()):
+            break   # later bounces change nothing
+        if tape is None:
+            state = bounce(b, None, *state)
+        else:
+            state = checkpoint(bounce, b, tape.mark(), *state,
+                               use_reentrant=False)
+    color, rays_cast, slot = state[3], state[5], state[7]
     if sort_rays:
         inv = torch.empty_like(slot)
         inv[slot] = torch.arange(n, device=dev)
@@ -275,25 +310,36 @@ def trace_rays(scene: Scene, origins, directions, stream_base,
     return color, rays_cast
 
 
+REMATS = (False, True, "save_hits", "save_hits_bounce")
+
+
 def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
                   height: int, spp: int, sample_start: int, seed: int = 0,
                   max_bounces: int = 5, backend: str = "torch",
                   ray_chunk: Optional[int] = None, shading: str = "path",
                   lights: tuple = (), regen: bool = False,
-                  remat: Union[bool, str] = False):
+                  remat: Union[bool, str] = False,
+                  probe_fn: Optional[ProbeFn] = None, light_data=None):
     """``spp`` jittered samples for a flat pixel subset [R] ->
     (color_sum [R,3] summed over spp, rays_cast int). Differentiable.
 
     shading "flat"/"lambert_shadow" (lights: the global indices of the
-    light spheres, ``ops/shading_modes.scene_light_indices``) run the
+    light spheres, ``ops/shading_modes.scene_light_indices``; light_data:
+    their ``scene_light_data``, gathered from ``scene`` when None) run the
     estimator of ``ops/shading_modes``; on "fused" through K9, which
     ignores max_bounces and regen. remat=True (backends
     "torch"/"cuda") recomputes each sample in the backward instead of
     keeping its activations (``torch.utils.checkpoint``); remat=
     "save_hits" does too, but its forward records each search's hit mask
     and winner (``HitTape``) and the recompute replays them, so the
-    backward searches nothing. "fused" ignores remat, since its backward
-    keeps only the winner records or, for the estimators, nothing.
+    backward searches nothing; remat="save_hits_bounce" is "save_hits"
+    with each bounce of the path estimator checkpointed again on its own
+    (``trace_rays(tape=)``), as the JAX package's per-bounce policy: the
+    backward holds one bounce's intermediates at a time. "fused" ignores
+    remat, since its backward keeps only the winner records or, for the
+    estimators, nothing. probe_fn (backends "torch"/"cuda"): the probe of
+    every search, in place of ``probe_for(scene, backend)`` (the
+    sphere-sharded probe of ``parallel.render``).
 
     Past the residency rule "fused" (with or without regen, and its
     estimators, which warn) falls back to the probe route of backend
@@ -303,10 +349,8 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
     if shading not in SHADINGS:
         raise ValueError(f"shading must be one of {SHADINGS}, got "
                          f"{shading!r}")
-    if remat not in (False, True, "save_hits"):
-        raise ValueError(f"remat must be False, True or 'save_hits' "
-                         f"('save_hits_bounce' is not ported: ROADMAP.md "
-                         f"queue B), got {remat!r}")
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
     if backend == "fused" and past_residency(scene):
         if shading != "path":
             warnings.warn(
@@ -349,34 +393,38 @@ def render_pixels(scene: Scene, camera: Camera, pixel, *, width: int,
             rays = rays + sum(rc.sum() for _, rc in parts)
         return color_sum, int(rays)
 
-    probe_fn = probe_for(scene, backend)
+    if probe_fn is None:
+        probe_fn = probe_for(scene, backend)
+    per_bounce = remat == "save_hits_bounce" and shading == "path"
     if shading == "path":
-        def trace(o, d, base, pf):
-            return trace_rays(scene, o, d, base, max_bounces, pf)
+        def trace(o, d, base, pf, tape):
+            return trace_rays(scene, o, d, base, max_bounces, pf,
+                              tape=tape if per_bounce else None)
     elif shading == "flat":
-        def trace(o, d, base, pf):
+        def trace(o, d, base, pf, tape):
             return trace_flat(scene, o, d, pf)
     else:
-        def trace(o, d, base, pf):
-            return trace_lambert_shadow(scene, o, d, pf, lights)
+        def trace(o, d, base, pf, tape):
+            return trace_lambert_shadow(scene, o, d, pf, lights, light_data)
 
     def one_sample(s, tape=None):
         pf = probe_fn
-        if tape is not None:     # remat="save_hits": record, or replay
+        if tape is not None:     # remat="save_hits*": record, or replay
             tape.rewind()
             pf = functools.partial(probe_fn, tape=tape)
         o, d, base = camera_rays(camera, width, height, pixel, s, seed)
         colors, rays = [], 0
         for k in range(0, n, chunk):
             c, rc = trace(o[k:k + chunk], d[k:k + chunk], base[k:k + chunk],
-                          pf)
+                          pf, tape)
             colors.append(c)
             rays += int(rc.sum())
         return torch.cat(colors), rays
 
     rays = 0
     for s in range(sample_start, sample_start + spp):
-        if remat == "save_hits" and torch.is_grad_enabled():
+        if remat in ("save_hits", "save_hits_bounce") and \
+                torch.is_grad_enabled():
             c, rc = checkpoint(one_sample, s, HitTape(),
                                use_reentrant=False)
         elif remat and torch.is_grad_enabled():
