@@ -122,7 +122,17 @@ equal, a metrics line a pass, K2's kernel named in the trace); animate,
 camera; and sharding on a 1-rank nccl group with a mesh of 1:
 render_pass_sharded at 64 spp bit-equal to render_pass, and
 render_mean_sharded forward+backward (K2-record and K3) within 3e-3 of
-each group's max of one process's gradients.
+each group's max of one process's gradients. Then the eight library
+examples (tpu_ray_torch/examples), each main() at its defaults as a user
+runs it: a first call under torch.profiler whose trace must name the
+kernels of its route (K4 on 1-4, K5 and K6 on 3-4, K1 on 5, K8 on 6, K9
+on 7, K1 and K10 on 8), then a counted call with its wall seconds, rays
+cast and peak memory; example 2's fused image equal to backend cuda's,
+3's fused gradients within 3e-3 of each group's max of backend cuda
+autograd, 4's albedo error falling, 5 with --mesh 1 on the 1-rank nccl
+group bit-equal to render_pass, 6's fused image within 20 pixels of
+backend cuda's (past rtol 1e-5 / atol 1e-6), 8 with --grad past the
+residency rule (finite gradients, a nonzero vertex norm).
 Prints each phase's wall seconds, a
 JSON line of main-path numbers, one JSON line of per-kernel numbers and,
 last, one JSON line with the device. Any failed check raises, so the exit
@@ -131,6 +141,8 @@ package beside this file, it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -1647,7 +1659,6 @@ def surface_phases(torch, dev, card, reset_counts, counts, scene):
     require(all(bool(torch.isfinite(v).all()) for v in g_sh.values())
             and max(err.values()) <= 3e-3,
             f"render_mean_sharded gradients off one process's: {err}")
-    torch.distributed.destroy_process_group()
     print(f"sharded, 1-rank nccl, mesh (1,): render_pass_sharded {MAIN_W}x"
           f"{MAIN_H} {MAIN_SPP} spp {secs_sh} s (render_pass {secs_1:.3f} s)"
           f", {rays_sh} rays, bit-equal to render_pass; render_mean_sharded "
@@ -1663,6 +1674,195 @@ def surface_phases(torch, dev, card, reset_counts, counts, scene):
     extra["regen_bwd"] = dict(launches_sharded_step=l_g["regen_bwd"])
     phase("sharded", t0)
     return extra, out
+
+
+# phase 37: the library examples (tpu_ray_torch/examples) at their
+# defaults: (script, flags past them, the wrappers their defaults launch)
+EXAMPLES = (
+    ("01_progressive_render", [], ("bounce_fwd",)),
+    ("02_custom_scene", [], ("bounce_fwd",)),
+    ("03_pixel_gradients", [], ("bounce_fwd", "bounce_replay",
+                                "bounce_bwd")),
+    ("04_inverse_rendering", [], ("bounce_fwd", "bounce_replay",
+                                  "bounce_bwd")),
+    ("05_sharded_render", ["--mesh", "1"], ("sphere_nearest_hit",)),
+    ("06_triangle_mesh", [], ("bounce_fwd_list",)),
+    ("07_simple_estimators", [], ("simple_trace",)),
+    ("08_big_meshes", ["--grad"], ("sphere_nearest_hit",
+                                   "tri_nearest_hit_stream")))
+EX5_SPP = 2                 # 05_sharded_render.py's default --spp
+# each counted wrapper's CUDA kernels as torch.profiler names them: all of
+# `must` in an example's trace (K4 in its sphere mode), `names` summed
+KERNEL_NAMES = {
+    "bounce_fwd": dict(must=("bounce_fwd_kernel<false>",),
+                       names=BOUNCE_KERNELS["bounce_fwd"]),
+    "bounce_replay": dict(must=BOUNCE_KERNELS["bounce_replay"],
+                          names=BOUNCE_KERNELS["bounce_replay"]),
+    "bounce_bwd": dict(must=BOUNCE_KERNELS["bounce_bwd"],
+                       names=BOUNCE_KERNELS["bounce_bwd"]),
+    "bounce_fwd_list": dict(must=BOUNCE_KERNELS["bounce_fwd_list"],
+                            names=BOUNCE_KERNELS["bounce_fwd_list"]),
+    "sphere_nearest_hit": dict(must=K1_NAMES[:1], names=K1_NAMES),
+    "simple_trace": dict(must=("simple_trace_kernel",),
+                         names=("simple_trace_kernel",)),
+    "tri_nearest_hit_stream": dict(must=("tri_stream_kernel",),
+                                   names=("tri_stream_kernel",))}
+
+
+@contextlib.contextmanager
+def rays_counted():
+    """Sum the rays cast of every render_pixels call (the renders of
+    render_pass, render_mean and render_pass_sharded) into the yielded
+    one-item list while the block runs."""
+    from tpu_ray_torch.grad import render_grad
+    from tpu_ray_torch.models import path_tracer
+    from tpu_ray_torch.parallel import render
+    inner, total = path_tracer.render_pixels, [0]
+
+    def render_pixels(*args, **kw):
+        color, rays = inner(*args, **kw)
+        total[0] += int(rays)
+        return color, rays
+
+    mods = (path_tracer, render_grad, render)
+    for mod in mods:
+        mod.render_pixels = render_pixels
+    try:
+        yield total
+    finally:
+        for mod in mods:
+            mod.render_pixels = inner
+
+
+def example_phases(torch, dev, card, reset_counts, counts):
+    """Phase 37: each library example's main() on the card at its
+    defaults (its default backend, the flags of EXAMPLES), as a user runs
+    it: a first call under torch.profiler, whose trace must name the
+    kernels the example's route launches (KERNEL_NAMES), then a second
+    call with the counts set to 0 just before and read just after (only
+    EXAMPLES' wrappers launched, K4 in its culled sphere mode), its wall
+    seconds, rays cast and peak device memory. Checks: 2's image on fused
+    equal to backend cuda's; 3's fused gradients within 3e-3 of each
+    group's max of backend cuda autograd; 4's albedo error falls; 5 (--mesh
+    1, on phase 36's 1-rank nccl group, destroyed after it) bit-equal to
+    render_pass; 6's fused image within 20 pixels of backend cuda's past
+    rtol 1e-5 / atol 1e-6; 8 (--grad) gradients finite, the vertex norm
+    nonzero. -> ({kernel key: {example: {launches, ms}}}, numbers)."""
+    from tpu_ray_torch import default_camera, make_scene
+    from tpu_ray_torch.kernels.bounce_step import bounce_fwd
+    from tpu_ray_torch.models.path_tracer import render_pass
+
+    ex_dir = os.path.join(HERE, "tpu_ray_torch", "examples")
+    paths, out = {}, {}
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ex_dir, name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags, want in EXAMPLES:
+            t0 = time.perf_counter()
+            main_of = load(name).main
+            png = ["--out", os.path.join(tmp, name + ".png")]
+            argv = flags + (png if name[:2] not in ("03", "04") else [])
+            got, wall_first, by_key, busy = profiled(
+                torch, lambda: main_of(argv))
+            for key in want:
+                for kname in KERNEL_NAMES[key]["must"]:
+                    require(any(kname in k for k in by_key),
+                            f"example {name}: {kname} is not in its trace")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            reset_counts()
+            with rays_counted() as rays:
+                t = time.perf_counter()
+                got = main_of(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            launched = {k: v for k, v in counts().items() if v}
+            culled = bounce_fwd.culled_launches
+            peak = torch.cuda.max_memory_allocated()
+            require(set(launched) == set(want),
+                    f"example {name} launched {launched}, not {want}")
+            require("bounce_fwd" not in want
+                    or culled == launched["bounce_fwd"],
+                    f"example {name}: {culled} of {launched} K4 launches "
+                    f"culled")
+            rec = dict(seconds=wall, first_call_seconds_profiled=wall_first,
+                       rays_cast=rays[0], rays_per_s=rays[0] / wall,
+                       peak_bytes=peak, bytes_before=mem0,
+                       launches=launched, device_busy_ms_profiled=busy)
+
+            # the example's own checks
+            if name == "02_custom_scene":
+                ref = load(name).main(argv + ["--backend", "cuda"])
+                require(torch.equal(got, ref), "example 02: the fused "
+                        "image differs from backend cuda's")
+            elif name == "03_pixel_gradients":
+                ref_s, ref_c = load(name).main(argv + ["--backend", "cuda"])
+                d_s, d_c = got
+                err = {k: ((d_s.leaf(k) - ref_s.leaf(k)).abs().max()
+                           / ref_s.leaf(k).abs().max().clamp_min(1e-12))
+                       .item() for k in d_s.leaves}
+                err.update({k: ((getattr(d_c, k) - getattr(ref_c, k))
+                                .abs().max() / getattr(ref_c, k).abs().max()
+                                .clamp_min(1e-12)).item()
+                            for k in ("position", "look_at")})
+                require(max(err.values()) < 3e-3, f"example 03: fused "
+                        f"gradients off backend cuda autograd's: {err}")
+                rec["grad_max_rel_err_vs_cuda"] = max(err.values())
+            elif name == "04_inverse_rendering":
+                _, err0, err = got
+                require(err < err0, f"example 04: albedo error {err0} -> "
+                        f"{err}")
+                rec["albedo_error"] = [err0, err]
+            elif name == "05_sharded_render":
+                scene = make_scene("rtweekend", device=dev)
+                img, rays_1 = render_pass(
+                    scene, default_camera(scene), width=got.shape[1],
+                    height=got.shape[0], spp=EX5_SPP, backend="cuda")
+                require(torch.equal(got, img / EX5_SPP)
+                        and rays[0] == rays_1,
+                        "example 05 differs from render_pass")
+                torch.distributed.destroy_process_group()
+            elif name == "06_triangle_mesh":
+                # K8's shading takes a triangle's plane form, the eager
+                # route its edges: the two round apart by an ulp or so,
+                # so pixels are counted past the goldens' bound
+                ref = load(name).main(argv + ["--backend", "cuda"])
+                n_px = int((~torch.isclose(got, ref, rtol=1e-5, atol=1e-6))
+                           .any(-1).sum())
+                require(n_px <= 20, f"example 06: the fused image differs "
+                        f"from backend cuda's in {n_px} pixels")
+                rec.update(pixels_differing_from_cuda=n_px,
+                           pixels_not_bit_equal_to_cuda=int(
+                               (got != ref).any(-1).sum()),
+                           max_abs_diff_from_cuda=float(
+                               (got - ref).abs().max()))
+            elif name == "08_big_meshes":
+                img, gs = got
+                norm = float(torch.linalg.norm(gs.tris.v0))
+                require(bool(torch.isfinite(img).all())
+                        and all(bool(torch.isfinite(gs.leaf(k)).all())
+                                for k in gs.leaves) and norm > 0,
+                        f"example 08: gradients (|d v0| {norm})")
+                rec["d_vertices_norm"] = norm
+            for key in want:
+                paths.setdefault(key, {})[f"example {name}"] = dict(
+                    launches=launched[key],
+                    ms_profiled_first_call=kernel_ms(
+                        by_key, KERNEL_NAMES[key]["names"]))
+            print(f"example {name} on {card}: {wall:.3f} s after a first "
+                  f"call of {wall_first:.3f} s (profiled), {rays[0]} rays "
+                  f"cast, peak {peak / 1e9:.3f} GB ({mem0 / 1e9:.3f} GB "
+                  f"before), launches {launched}; {rec}", flush=True)
+            out[name] = rec
+            phase(f"example_{name[:2]}", t0)
+    return paths, out
 
 
 def main() -> int:
@@ -3993,6 +4193,12 @@ def main() -> int:
     for key, fields in surf_launches.items():
         kernels[key].update(fields)
 
+    # 37. the library examples, each at its defaults
+    ex_paths, examples = example_phases(torch, dev, card, reset_counts,
+                                        counts)
+    for key, recs in ex_paths.items():
+        kernels[key].setdefault("paths", {}).update(recs)
+
     for key, rec in k1_paths.items():
         print(f"K1 on {key}: {rec}", flush=True)
     phase("total", t_all)
@@ -4037,7 +4243,8 @@ def main() -> int:
                     "rays_per_s": [rays_off / t for t in sweep_secs],
                     "pixels_differing_from_listed": n_px_off,
                     "device_idle_share": sweep_idle}}},
-        "estimators": est, "bigmesh": big, "surface": surface}}))
+        "estimators": est, "bigmesh": big, "surface": surface,
+        "examples": examples}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

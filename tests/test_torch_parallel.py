@@ -29,6 +29,13 @@ sizes them (tests/test_parallel.py, tests/test_grad.py:17-18):
   lowest global id, the single process's.
 - ``render --mesh 1x2`` through the CLI: rank 0's PNG equal to one
   process's.
+- The sharded example (tpu_ray_torch/examples/05_sharded_render.py) with
+  ``--device cpu --mesh 2`` and ``--mesh 1x2 --backend cuda``, rtweekend
+  32x16, 1 spp: every rank's image bit for bit one process's
+  ``render_pass``.
+- ``make_mesh`` with no device asks for the card: without one it fails
+  naming the device and starts no group, and ``device_type="cpu"`` builds
+  a gloo mesh (a subprocess, so the test worker keeps no group).
 """
 import os
 import socket
@@ -48,8 +55,8 @@ from tpu_ray.parallel import render_pass_sharded as jrender_pass_sharded
 from tpu_ray.parallel import shard_scene as jshard_scene
 
 from tests.test_torch_threads import one_thread  # noqa: F401
-from tests.torch_parallel_job import (GH, GRADS, GW, RENDERS, TIE_H, TIE_W,
-                                      case_scene)
+from tests.torch_parallel_job import (EX5, EX5_H, EX5_W, GH, GRADS, GW,
+                                      RENDERS, TIE_H, TIE_W, case_scene)
 from tpu_ray_torch import cli
 from tpu_ray_torch.core.camera import (camera_to_numpy, default_camera,
                                        trainable_camera)
@@ -195,6 +202,45 @@ def test_cli_render_mesh(job, tmp_path):
                      "--width", "32", "--height", "16", "--spp", "1",
                      "--passes", "2", "--out", str(png)]) == 0
     assert (out / "cli.png").read_bytes() == png.read_bytes()
+
+
+@pytest.mark.parametrize("case", [c for c, _ in EX5])
+def test_sharded_example_equals_single_process(job, case):
+    """examples/05 under the job's two ranks, --mesh 2 and 1x2 on backend
+    "cuda": every rank's image bit for bit one process's render_pass."""
+    ranks, out = job
+    scene = case_scene("rtweekend")
+    img, _ = render_pass(scene, default_camera(scene), width=EX5_W,
+                         height=EX5_H, spp=1, backend="cuda")
+    for got in ranks:
+        np.testing.assert_array_equal(got[f"{case}/image"], img.numpy())
+    assert (out / f"{case}.png").stat().st_size > 100
+
+
+def test_make_mesh_defaults_to_the_card():
+    """make_mesh() names no device: it asks for "cuda", and without a card
+    it fails naming the device and starts no group; "cpu" by name still
+    builds a gloo mesh. In a subprocess, so no group is left in the test
+    worker."""
+    code = (
+        "import torch.distributed as dist\n"
+        "from tpu_ray_torch.parallel import make_mesh\n"
+        "mesh = make_mesh((1,), device_type='cpu')\n"
+        "print(dist.get_backend(), mesh.device_type, tuple(mesh.shape))\n"
+        "dist.destroy_process_group()\n"
+        "try:\n"
+        "    make_mesh((1,))\n"
+        "finally:\n"
+        "    print('initialized', dist.is_initialized())\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=root,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert p.returncode != 0
+    assert p.stdout.split("\n")[:2] == ["gloo cpu (1,)",
+                                         "initialized False"], p.stdout
+    assert "device_type 'cuda': no CUDA device" in p.stderr, p.stderr
 
 
 def test_scene_pspec_names_fields():

@@ -5,6 +5,7 @@ rank writes what it got to ``<out>/rank<r>.npz`` for the tests to read.
     WORLD_SIZE=2 RANK=r MASTER_ADDR=localhost MASTER_PORT=p \\
         python tests/torch_parallel_job.py OUT_DIR
 """
+import importlib.util
 import os
 import sys
 
@@ -34,6 +35,14 @@ RENDERS = [("rtw_2", "rtweekend", (2,), 32, 32, "torch"),
 GRADS = [("grad_2", (2,)), ("grad_1x2", (1, 2))]
 GW, GH = 16, 16                     # tests/test_grad.py:17-18
 TIE_W, TIE_H = 32, 32
+# the sharded example (tpu_ray_torch/examples/05_sharded_render.py) on the
+# CPU: (case, its flags past the size); rtweekend, backend "cuda" (its
+# default: the plain search on CPU tensors)
+EX5 = [("ex5_2", ["--mesh", "2"]),
+       ("ex5_1x2", ["--mesh", "1x2", "--backend", "cuda"])]
+EX5_W, EX5_H = 32, 16
+EXAMPLE5 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tpu_ray_torch", "examples", "05_sharded_render.py")
 
 
 def case_scene(name):
@@ -90,6 +99,14 @@ def main(out_dir: str) -> None:
     got["tie/idx"], got["tie/hit"] = p.idx.numpy(), p.hit.numpy()
     got["tie/image"] = render_pass_sharded(
         scene, cam, mesh=mesh, width=TIE_W, height=TIE_H, spp=1)[0].numpy()
+    spec = importlib.util.spec_from_file_location("example05", EXAMPLE5)
+    example5 = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example5)
+    for case, flags in EX5:
+        got[f"{case}/image"] = example5.main(
+            ["--device", "cpu", "--width", str(EX5_W), "--height",
+             str(EX5_H), "--spp", "1", "--out",
+             os.path.join(out_dir, f"{case}.png")] + flags).numpy()
     png = os.path.join(out_dir, "cli.png")
     assert cli.main(["render", "--device", "cpu", "--mesh", "1x2",
                      "--scene", "rgb", "--width", "32", "--height", "16",

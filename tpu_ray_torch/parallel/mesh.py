@@ -18,7 +18,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from tpu_ray_torch.core.scene import SCENE_LEAVES, Scene
 from tpu_ray_torch.core.trimesh import TRI_LEAVES
-from tpu_ray_torch.parallel.multihost import (default_device_type,
+from tpu_ray_torch.parallel.multihost import (check_device_type,
                                               ensure_initialized)
 
 RAY_AXIS = "rays"
@@ -26,16 +26,17 @@ SPHERE_AXIS = "spheres"
 
 
 def make_mesh(mesh_shape: Optional[Tuple[int, ...]] = None,
-              device_type: Optional[str] = None) -> DeviceMesh:
+              device_type: str = "cuda") -> DeviceMesh:
     """A ("rays",) or ("rays", "spheres") mesh over every rank.
 
     mesh_shape () or None -> 1D over the world; (r,) -> 1D over r ranks;
     (r, s) -> 2D rays x spheres. The mesh must take the whole world (a
     ValueError says how many ranks it needs). The process group is joined
     first (``ensure_initialized``); a bare single process gets a group of
-    one on an in-process store. device_type: "cuda" (default where there
-    is a card) or "cpu"."""
-    device_type = device_type or default_device_type()
+    one on an in-process store. device_type: "cuda" (the default; without
+    a card it raises, naming the device, and starts no group) or "cpu" by
+    name (a gloo group)."""
+    check_device_type(device_type)
     ensure_initialized(device_type=device_type)
     if not dist.is_initialized():
         dist.init_process_group(
