@@ -103,11 +103,17 @@ slices and bound there recorded), and its
 bound counted on every bounce's state, beside each bounce's time, the
 time of a launch that only builds the lists, and the pairs tested
 against the pairs listed (the kernel's counters, its lists held to the
-plain version's); the pass as the CLI drives it on
+plain version's); K11 (csrc/gather_rows.cu, the payload gathers'
+backward) at the sphere and triangle winners of the primary rays and of
+bounce 1, and with all lanes on row 0 of the triangle table, bit for bit
+against its plain version, two launches bit-equal, rows no lane gathers
++0.0, its time beside autograd of table[idx] and index_add_; the pass as
+the CLI drives it on
 backend fused, which falls back to the probe route (two calls, one more
 under torch.profiler, its image equal to backend cuda's, and one call at
 ray_chunk=43200); three forward+backward steps with remat="save_hits"
-(no search in the backward; gradients against remat=False's) and one
+(no search in the backward, K11 there; gradients against remat=False's;
+K11's device time in a profiled step) and one
 with remat="save_hits_bounce" (each bounce recomputed on its own from the
 saved hits: no search in the backward, its gradients within rtol 1e-4 /
 atol 1e-7 + 1e-5 x max of the "save_hits" step's, both steps' wall time
@@ -126,7 +132,7 @@ each group's max of one process's gradients. Then the eight library
 examples (tpu_ray_torch/examples), each main() at its defaults as a user
 runs it: a first call under torch.profiler whose trace must name the
 kernels of its route (K4 on 1-4, K5 and K6 on 3-4, K1 on 5, K8 on 6, K9
-on 7, K1 and K10 on 8), then a counted call with its wall seconds, rays
+on 7, K1, K10 and K11 on 8), then a counted call with its wall seconds, rays
 cast and peak memory; example 2's fused image equal to backend cuda's,
 3's fused gradients within 3e-3 of each group's max of backend cuda
 autograd, 4's albedo error falling, 5 with --mesh 1 on the 1-rank nccl
@@ -378,6 +384,100 @@ def k1_path(torch, center, radius, o, d, launches: int, ms: float,
                 slices=sphere_slices(r, n, o.device), launches=launches,
                 ms=ms, ms_launch=ms_launch, bound_ms=b[0], bound_by=b[1],
                 **extra)
+
+
+# K11, the payload gathers' backward (kernels/gather_rows.gather_rows_bwd):
+# its counted key, its CUDA kernels as torch.profiler names them (the
+# stable sort before them is PyTorch's, named by CUB), and the bytes a
+# lane of its stable order moves besides its g row and idx: an int32 key
+# and an int64 lane id, each written once and read once. These belong to
+# this design's ordering, not to the function, so they stay out of its
+# bound and are reported beside it.
+K11 = "gather_rows_bwd"
+K11_NAMES = ("gather_rows_down_kernel", "gather_rows_up_kernel")
+K11_ORDER_BYTES = 2 * (4 + 8)
+
+
+def searches(launched: dict) -> dict:
+    """The launches of the search and render kernels: launched without
+    K11's."""
+    return {k: v for k, v in launched.items() if k != K11}
+
+
+def k11_held(torch, idx, n: int, w: int, what: str, gen) -> dict:
+    """K11 on idx [R] int32 into an [n, w] table, its cotangent g [R, w]
+    drawn from gen: bit for bit its plain version on the card, two
+    launches bit-equal, rows no lane gathers +0.0 (the launches not
+    counted); its device ms (CUDA events, the stable sort included; the
+    sort alone beside it), the plain version's, and the two PyTorch calls
+    that compute the same function: autograd of table[idx] (IndexBackward0,
+    index_put_ with accumulate, the port's path before K11) and index_add_
+    into zeros (float atomics), with how far each lies from K11 in units
+    of the entry's sum of |g| (each within 1e-6 of it, or the smoke
+    fails: a witness independent of K11's ordering) and whether two of its
+    calls agree bit for bit; the bound by the function's bytes (each lane's
+    idx and g row read once, d_table written once), and beside it the
+    bytes of the order's key and lane id, written and read once."""
+    from tpu_ray_torch.kernels.gather_rows import (gather_rows_bwd,
+                                                   gather_rows_bwd_plain)
+    r, dev = idx.shape[0], idx.device
+    g = torch.randn((r, w), generator=gen, device=dev)
+    before = gather_rows_bwd.launches
+    a = gather_rows_bwd(idx, g, n)
+    b = gather_rows_bwd(idx, g, n)
+    p = gather_rows_bwd_plain(idx, g, n)
+    torch.cuda.synchronize()
+    require(bits_equal(torch, a, p), f"K11 ({what}): differs from plain "
+            f"by max {(a - p).abs().max().item()}")
+    require(bits_equal(torch, a, b), f"K11 ({what}): two launches differ")
+    rows_hit = torch.bincount(idx.long(), minlength=n) > 0
+    require(not bool(a[~rows_hit].view(torch.int32).any()),
+            f"K11 ({what}): a row no lane gathers is not +0.0")
+    ms = cuda_ms(torch, lambda: gather_rows_bwd(idx, g, n), 10)
+    sort_ms = cuda_ms(torch, lambda: torch.sort(idx, stable=True), 10)
+    plain_ms = cuda_ms(torch, lambda: gather_rows_bwd_plain(idx, g, n), 2)
+    gather_rows_bwd.launches = before
+    leaf = torch.zeros((n, w), device=dev, requires_grad=True)
+    out = leaf[idx.long()]
+
+    def autograd():
+        return torch.autograd.grad(out, leaf, g, retain_graph=True)[0]
+
+    def index_add():
+        return torch.zeros((n, w), device=dev).index_add_(0, idx, g)
+
+    abs_sum = torch.zeros((n, w), dtype=torch.float64, device=dev).index_add_(
+        0, idx, g.abs().double())
+    lib = {}
+    for key, fn in (("autograd", autograd), ("index_add", index_add)):
+        x, y = fn(), fn()
+        lib[key] = dict(
+            ms=cuda_ms(torch, fn, 2),
+            max_err_in_abs_sums=((x.double() - a.double()).abs()
+                                 / abs_sum.clamp_min(1e-30)).max().item(),
+            two_calls_bit_equal=bits_equal(torch, x, y))
+        require(lib[key]["max_err_in_abs_sums"] <= 1e-6,
+                f"K11 ({what}): {key} lies {lib[key]['max_err_in_abs_sums']}"
+                f" of an entry's sum of |g| from K11, more than 1e-6")
+    del out, leaf
+    b_ms, b_by = bound(0.0, r * (w + 1) * 4 + n * w * 4)
+    order_bytes = r * K11_ORDER_BYTES
+    rec = dict(lanes=r, rows=n, width=w, rows_gathered=int(rows_hit.sum()),
+               row0_lanes=int((idx == 0).sum()), ms=ms, sort_ms=sort_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               order_bytes=order_bytes,
+               order_ms=bound(0.0, order_bytes)[0],
+               autograd_ms=lib["autograd"]["ms"],
+               index_add_ms=lib["index_add"]["ms"], library=lib)
+    print(f"K11 check, {what}: {r} lanes into [{n},{w}] ({rec['row0_lanes']} "
+          f"on row 0, {rec['rows_gathered']} rows gathered): bit-equal to "
+          f"plain, two launches bit-equal, rows no lane gathers +0.0; K11 "
+          f"{ms:.4f} ms (the sort {sort_ms:.4f} of it; CUDA events), bound "
+          f"{b_ms:.4f} ms by {b_by} (the order's {order_bytes} bytes "
+          f"{rec['order_ms']:.4f} ms more), plain {plain_ms:.3f} ms; autograd of "
+          f"table[idx] {lib['autograd']['ms']:.3f} ms, index_add_ "
+          f"{lib['index_add']['ms']:.4f} ms; {lib}", flush=True)
+    return rec
 
 
 # the CUDA kernels of each bounce wrapper, as torch.profiler names them
@@ -673,7 +773,8 @@ def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
     n_probe = spp2 * (1 + len(l16))
     require(step_launches2["simple_trace"] == 1
             and step_launches2["sphere_nearest_hit"] == n_probe
-            and sum(step_launches2.values()) == 1 + n_probe,
+            and sum(searches(step_launches2).values()) == 1 + n_probe
+            and step_launches2[K11] > 0,
             f"config 2 fwd+bwd launches {step_launches2}")
     require(rays_g2 == rays2, "config 2 fwd+bwd rays differ from the pass")
     (_, _, launches_q2, _), _, by_key_q2, _ = profiled(
@@ -891,7 +992,8 @@ def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
     n_probel = sppl * (1 + len(ll))
     require(launches_gl["simple_trace"] == 1
             and launches_gl["sphere_nearest_hit"] == n_probel
-            and launches_gl["tri_nearest_hit"] == n_probel,
+            and launches_gl["tri_nearest_hit"] == n_probel
+            and launches_gl[K11] > 0,
             f"trilight fwd+bwd launches {launches_gl}")
     (_, _, launches_ql, _), _, by_key_ql, _ = profiled(
         torch, lambda: grads_of(sl_, caml, cfgl_g, "fused", ll))
@@ -959,6 +1061,7 @@ def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
           f"{n_real16} real spheres; ms: torch.profiler, one pass; bound: "
           f"the lesser of what it tested and every real sphere",
           ms_events=k9_ev2, fwd_bwd_launches=step_launches2,
+          fwd_bwd_k11_ms=kernel_ms(by_key_q2, K11_NAMES),
           stats=sk2.tolist())
     entry("simple_trace_flat", cfg1, launches1,
           (out_k1 - out_p1).abs().max().item(), prof["config1"][0], plain1,
@@ -984,6 +1087,7 @@ def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
           f"256-lane block; bound: the lesser of what it tested and the "
           f"listed pairs", ms_events=k9_evl,
           plain_lanes=int(out_pl.shape[1]), fwd_bwd_launches=launches_gl,
+          fwd_bwd_k11_ms=kernel_ms(by_key_ql, K11_NAMES),
           stats=skl.tolist(), ms_swept=k9_swept_l,
           lanes_changed_by_lists=n_lanes_fuzz_l,
           shadow_winners_differing=n_shadow_diff,
@@ -1015,8 +1119,10 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
     triangles, 1,281 tiles of 128) at 1920x1080, 1 spp: K10 (the listed
     triangle search, kernels/tri_intersect.tri_nearest_hit_stream) against
     its plain version and against K7, K1 bit for bit on the same states,
+    K11 (kernels/gather_rows.gather_rows_bwd) at the same states' winners,
     the pass as the CLI drives it on backend fused (which falls back to the
-    probe route), forward+backward with remat="save_hits", and the flat
+    probe route), forward+backward with remat="save_hits" (K11 in the
+    backward), and the flat
     estimator's fallback; K1's records of the pass and the step go into
     k1_paths. -> ({kernel key: entry}, numbers)."""
     import warnings
@@ -1077,11 +1183,14 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
     torch.cuda.synchronize()
     require(len(states) >= 2, f"bigmesh traced {len(states)} bounces")
     checks = {}
+    k11_inputs = []
     for b in (0, 1):
         o, d, al = states[b]
-        _, k1_sl = k1_held(torch, big.center, big.radius, o, d,
-                           f"bigmesh bounce {b}")
+        hs, k1_sl = k1_held(torch, big.center, big.radius, o, d,
+                            f"bigmesh bounce {b}")
         k = tri_nearest_hit_stream(tab, boxes, o, d, al)
+        k11_inputs += [(f"bounce {b}, spheres", hs.idx, big.n_pad, 12),
+                       (f"bounce {b}, triangles", k.idx, big.tris.n_pad, 17)]
         k2 = tri_nearest_hit_stream(tab, boxes, o, d, al)
         lanes = torch.arange(0, r, SLICE_STRIDE, device=dev)
         p = tri_stream_plain(tab, boxes, o, d, al, lanes=lanes)
@@ -1196,6 +1305,23 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
                       for p in per_bounce),
           flush=True)
     phase("big_stream_check", t0)
+
+    # 30b. K11 (the payload gathers' backward) at the main path's own
+    # winners: the sphere and triangle idx of the primary rays and of the
+    # sorted bounce-1 state (every miss and dead lane on row 0), and all
+    # lanes on row 0 of the triangle table; cotangents from a seeded
+    # generator. Each bit for bit against its plain version, two launches
+    # bit-equal, rows no lane gathers +0.0, timed beside the two PyTorch
+    # calls that compute the same function
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    k11_inputs.append(("all lanes on row 0, triangles",
+                       torch.zeros(r, dtype=torch.int32, device=dev),
+                       big.tris.n_pad, 17))
+    k11_checks = {what: k11_held(torch, idx, n, w, what, gen)
+                  for what, idx, n, w in k11_inputs}
+    phase("k11_check", t0)
 
     # 31. the main path as the CLI drives it: PathTracer.step on bigmesh,
     # backend fused (it falls back to the probe route: K1 + K10), two
@@ -1316,8 +1442,10 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
         step_secs.append(t_s)
     peak = torch.cuda.max_memory_allocated() - mem0
     require(rays_g == rays, f"bigmesh fwd+bwd rays {rays_g} != {rays}")
-    require(fwd_l == launches and sum(bwd_l.values()) == 0,
-            f"bigmesh fwd+bwd launches: forward {fwd_l}, backward {bwd_l}")
+    require(fwd_l == launches and sum(searches(bwd_l).values()) == 0
+            and bwd_l[K11] > 0,
+            f"bigmesh fwd+bwd launches: forward {fwd_l}, backward {bwd_l} "
+            f"(no search, K11)")
     for k, v in g_s.items():
         require(v is not None and bool(torch.isfinite(v).all()),
                 f"bigmesh gradient of {k} missing or not finite")
@@ -1335,10 +1463,14 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
     # one more step under torch.profiler: where the step's device time goes
     (g_p, _, _, bwd_p, _), step_prof_wall, by_key_s, busy_s = profiled(
         torch, lambda: fwd_bwd("save_hits"))
-    require(sum(bwd_p.values()) == 0, "the profiled step's backward searched")
+    require(sum(searches(bwd_p).values()) == 0 and bwd_p[K11] > 0,
+            f"the profiled step's backward launched {bwd_p} (no search, "
+            f"K11)")
     require(all(torch.equal(g_p[k], g_s[k]) for k in g_s),
             "the profiled bigmesh step's gradients differ")
     step_k10_ms = kernel_ms(by_key_s, k10_names)
+    step_k11_ms = kernel_ms(by_key_s, K11_NAMES)
+    require(step_k11_ms > 0, "torch.profiler recorded no K11 time")
     k1_paths["bigmesh fwd+bwd step"] = dict(
         k1_paths["bigmesh pass"], ms=kernel_ms(by_key_s, K1_NAMES),
         launches=fwd_l["sphere_nearest_hit"],
@@ -1355,7 +1487,8 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
           f"{max(err.values()):.3e} of each group's max of remat=False's; "
           f"profiled step {step_prof_wall:.3f} s wall, device busy "
           f"{busy_s:.3f} ms (idle share {step_idle:.3f}), K10 "
-          f"{step_k10_ms:.3f} ms, top device kernels "
+          f"{step_k10_ms:.3f} ms, K11 {step_k11_ms:.3f} ms ({bwd_p[K11]} "
+          f"launches in the backward), top device kernels "
           + "; ".join(f"{k[:80]} {v:.3f} ms" for k, v in step_top),
           flush=True)
     phase("big_fwd_bwd", t0)
@@ -1373,7 +1506,7 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
     require(rays_b == rays, f"bigmesh save_hits_bounce rays {rays_b}")
     require(fwd_b == launches and fwd_b["sphere_nearest_hit"] > 0
             and fwd_b["tri_nearest_hit_stream"] > 0
-            and sum(bwd_b.values()) == 0,
+            and sum(searches(bwd_b).values()) == 0 and bwd_b[K11] > 0,
             f"bigmesh save_hits_bounce launches: forward {fwd_b}, "
             f"backward {bwd_b}")
     err_b = {}
@@ -1449,6 +1582,32 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
         ms_same_lanes=checks[1]["k10_ms"],
         same_lanes="bounce 1's sorted state, every lane",
         launches_save_hits_bounce_step=fwd_b["tri_nearest_hit_stream"])}
+    k11_main = k11_checks["bounce 1, triangles"]
+    kernels[K11] = dict(
+        name=K11, route="cuda", source="tpu_ray_torch/csrc/gather_rows.cu",
+        replaces="tpu_ray/ops/intersect.py:81",
+        replaces_note="_gather_rows_bwd, the custom VJP of gather_rows "
+                      "(tpu_ray/ops/intersect.py:64-92); not a pallas_call",
+        launches=bwd_l[K11], max_abs_err=0.0, ms=k11_main["ms"],
+        plain_ms=k11_main["plain_ms"], bound_ms=k11_main["bound_ms"],
+        bound_by=k11_main["bound_by"], order_bytes=k11_main["order_bytes"],
+        order_ms=k11_main["order_ms"], library_ms=k11_main["autograd_ms"],
+        library_call="autograd of table[idx] (IndexBackward0: index_put_ "
+                     "with accumulate)",
+        library_index_add_ms=k11_main["index_add_ms"],
+        path=f"image_mse(render_mean(bigmesh, {w}x{h}, {spp} spp, backend "
+             f"fused, remat='save_hits'), 0).backward()",
+        shape=f"launches: the step's backward ({bwd_l[K11]}); ms, plain, "
+              f"bound and library: one call on bounce 1's triangle winners "
+              f"({r} lanes into [{big.tris.n_pad},17]), CUDA events, the "
+              f"stable sort included",
+        checks=k11_checks,
+        paths={"bigmesh fwd+bwd step, remat=save_hits": dict(
+                   launches=bwd_l[K11], ms_profiled=step_k11_ms),
+               "bigmesh fwd+bwd step, remat=False": dict(
+                   launches=bwd_f[K11]),
+               "bigmesh fwd+bwd step, remat=save_hits_bounce": dict(
+                   launches=bwd_b[K11])})
     summary = dict(
         width=w, height=h, spp=spp, triangles=n_tri_real, rays_cast=rays,
         seconds=secs, rays_per_s=[rays / t for t in secs],
@@ -1457,6 +1616,7 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
         device_idle_share=idle, k10_ms=k10_ms, k1_ms=k1_ms,
         k10_per_bounce=per_bounce, fwd_bwd_device_idle_share=step_idle,
         fwd_bwd_top_device_ms=dict(step_top),
+        fwd_bwd_k11_ms=step_k11_ms, fwd_bwd_k11_launches=bwd_p[K11],
         fwd_bwd_seconds=step_secs,
         fwd_bwd_rays_per_s=[rays_g / t for t in step_secs],
         fwd_bwd_peak_bytes=peak, fwd_bwd_remat_false_seconds=secs_f,
@@ -1689,7 +1849,7 @@ EXAMPLES = (
     ("06_triangle_mesh", [], ("bounce_fwd_list",)),
     ("07_simple_estimators", [], ("simple_trace",)),
     ("08_big_meshes", ["--grad"], ("sphere_nearest_hit",
-                                   "tri_nearest_hit_stream")))
+                                   "tri_nearest_hit_stream", K11)))
 EX5_SPP = 2                 # 05_sharded_render.py's default --spp
 # each counted wrapper's CUDA kernels as torch.profiler names them: all of
 # `must` in an example's trace (K4 in its sphere mode), `names` summed
@@ -1706,7 +1866,8 @@ KERNEL_NAMES = {
     "simple_trace": dict(must=("simple_trace_kernel",),
                          names=("simple_trace_kernel",)),
     "tri_nearest_hit_stream": dict(must=("tri_stream_kernel",),
-                                   names=("tri_stream_kernel",))}
+                                   names=("tri_stream_kernel",)),
+    K11: dict(must=K11_NAMES[:1], names=K11_NAMES)}
 
 
 @contextlib.contextmanager
@@ -1907,12 +2068,14 @@ def main() -> int:
     from tpu_ray_torch.ops.raygen import camera_rays
     from tpu_ray_torch.utils.png import write_png
 
+    from tpu_ray_torch.kernels.gather_rows import gather_rows_bwd
     from tpu_ray_torch.kernels.simple_shade import simple_trace
     from tpu_ray_torch.kernels.tri_intersect import tri_nearest_hit_stream
 
     counted = (sphere_nearest_hit, regen_steps, regen_record, regen_bwd,
                bounce_fwd, bounce_replay, bounce_bwd, tri_nearest_hit,
-               bounce_fwd_list, simple_trace, tri_nearest_hit_stream)
+               bounce_fwd_list, simple_trace, tri_nearest_hit_stream,
+               gather_rows_bwd)
 
     def reset_counts():
         for fn in counted:
@@ -2452,16 +2615,18 @@ def main() -> int:
     # per-sample fused route's (K4/K5/K6) against fused+regen's, at
     # 320x180, 4 spp on the card: each group within 3e-3 of its max
     t0 = time.perf_counter()
-    small = {}
+    small, k11_small = {}, {}
     for route, backend, regen in (("fused", "fused", True),
                                   ("torch", "torch", False),
                                   ("sample", "fused", False)):
+        k11_before = gather_rows_bwd.launches
         s2 = trainable_scene(scene)
         c2 = trainable_camera(tracer.camera)
         img2 = render_mean(s2, c2, width=CHECK_W, height=CHECK_H,
                            spp=CHECK_SPP, seed=SEED, max_bounces=MAX_BOUNCES,
                            backend=backend, regen=regen)
         image_mse(img2, torch.zeros_like(img2)).backward()
+        k11_small[route] = gather_rows_bwd.launches - k11_before
         small[route] = [getattr(s2, k).grad for k in SCENE_LEAVES] + [
             c2.position.grad, c2.look_at.grad]
     small_err, sample_err = 0.0, 0.0
@@ -3550,16 +3715,18 @@ def main() -> int:
     # eager route: Möller-Trumbore payload, K1 and K7 searches) on trimesh
     # at 320x180, 4 spp: each group within 3e-3 of its max
     t0 = time.perf_counter()
-    tsmall = {}
+    tsmall, k11_tsmall = {}, {}
     for route, backend, regen in (("fused", "fused", True),
                                   ("sample", "fused", False),
                                   ("cuda", "cuda", False)):
+        k11_before = gather_rows_bwd.launches
         s2 = trainable_scene(tscene)
         c2 = trainable_camera(tcam)
         img2 = render_mean(s2, c2, width=CHECK_W, height=CHECK_H,
                            spp=CHECK_SPP, seed=SEED, max_bounces=MAX_BOUNCES,
                            backend=backend, regen=regen)
         image_mse(img2, torch.zeros_like(img2)).backward()
+        k11_tsmall[route] = gather_rows_bwd.launches - k11_before
         tsmall[route] = {k: s2.leaf(k).grad for k in s2.leaves}
         tsmall[route].update(position=c2.position.grad,
                              look_at=c2.look_at.grad)
@@ -4182,6 +4349,28 @@ def main() -> int:
     big_kernels, big = bigmesh_phases(torch, dev, card, reset_counts, counts,
                                       k1_paths)
     kernels.update(big_kernels)
+    # K11 on the other steps that differentiate the eager probe: phase 11's
+    # backend torch and 21's backend cuda gradients (320x180), the
+    # estimators' backward (sixteen, trilight); only these launch it
+    require(k11_small["torch"] > 0 and k11_tsmall["cuda"] > 0
+            and k11_small["fused"] == k11_small["sample"] == 0
+            and k11_tsmall["fused"] == k11_tsmall["sample"] == 0,
+            f"K11 launches on the gradient checks: {k11_small}, "
+            f"{k11_tsmall}")
+    kernels[K11]["paths"].update({
+        f"rtweekend backend torch fwd+bwd {CHECK_W}x{CHECK_H} {CHECK_SPP} "
+        f"spp": dict(launches=k11_small["torch"]),
+        f"trimesh backend cuda fwd+bwd {CHECK_W}x{CHECK_H} {CHECK_SPP} "
+        f"spp": dict(launches=k11_tsmall["cuda"]),
+        **{f"{label} on fused, fwd+bwd step (the eager estimator's "
+           f"backward)": dict(
+               launches=est_kernels[key]["fwd_bwd_launches"][K11],
+               ms_profiled=est_kernels[key]["fwd_bwd_k11_ms"])
+           for key, label in (
+               ("simple_trace", "sixteen lambert_shadow {}x{} {} spp"
+                .format(*EST_CONFIG2[2:])),
+               ("simple_trace_trilight", "trilight lambert_shadow {}x{} {} "
+                "spp".format(CHECK_W, CHECK_H, EST_TRILIGHT[4])))}})
     # K7 is K10's reference on bigmesh's states (phase 30)
     kernels["tri_nearest_hit"]["bigmesh"] = {
         f"bounce {b}": {k: c[k] for k in ("k7_ms", "k7_slices", "k7_bound_ms")}

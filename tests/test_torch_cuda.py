@@ -1483,3 +1483,54 @@ def test_stream_route_on_card(cuda_device):
         assert torch.isfinite(want).all(), k
         assert torch.equal(grads["save_hits"][k], want), k
     assert grads[False]["tris.v0"].abs().max() > 0
+
+
+# K11 at bigmesh's triangle table: [163,968, 17], 2^21 lanes
+K11_N, K11_W, K11_R = 163968, 17, 1 << 21
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["all on row 0", "random"])
+def test_k11_matches_plain_on_card(cuda_device, pattern):
+    """K11 bit for bit against its plain version on the card, two launches
+    bit-equal, rows no lane gathers +0.0."""
+    from tpu_ray_torch.kernels.gather_rows import (gather_rows_bwd,
+                                                   gather_rows_bwd_plain)
+    g = np.random.default_rng(11)
+    idx = (np.zeros(K11_R, np.int32) if pattern == "all on row 0"
+           else g.integers(0, K11_N, K11_R).astype(np.int32))
+    idx = torch.as_tensor(idx, device=cuda_device)
+    cot = torch.as_tensor(g.standard_normal((K11_R, K11_W))
+                          .astype(np.float32), device=cuda_device)
+    a = gather_rows_bwd(idx, cot, K11_N)
+    b = gather_rows_bwd(idx, cot, K11_N)
+    p = gather_rows_bwd_plain(idx, cot, K11_N)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), p.view(torch.int32))
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    untouched = torch.bincount(idx.long(), minlength=K11_N) == 0
+    assert untouched.any()
+    assert not a[untouched].view(torch.int32).any()
+
+
+@pytest.mark.cuda
+def test_gather_rows_backward_launches_k11_on_card(cuda_device):
+    """GatherRows' backward on CUDA tensors is one K11 launch, whose
+    d_table is the plain version's."""
+    from tpu_ray_torch.kernels.gather_rows import (gather_rows_bwd,
+                                                   gather_rows_bwd_plain)
+    from tpu_ray_torch.ops.intersect import gather_rows
+    g = np.random.default_rng(12)
+    table = torch.tensor(g.standard_normal((128, 12)).astype(np.float32),
+                         device=cuda_device, requires_grad=True)
+    idx = torch.as_tensor(g.integers(0, 16, 1 << 16).astype(np.int32),
+                          device=cuda_device)
+    cot = torch.as_tensor(g.standard_normal((1 << 16, 12))
+                          .astype(np.float32), device=cuda_device)
+    out = gather_rows(table, idx)
+    assert torch.equal(out, table.detach()[idx.long()])
+    n0 = gather_rows_bwd.launches
+    out.backward(cot)
+    assert gather_rows_bwd.launches == n0 + 1
+    want = gather_rows_bwd_plain(idx, cot, 128)
+    assert torch.equal(table.grad.view(torch.int32), want.view(torch.int32))

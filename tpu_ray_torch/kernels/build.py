@@ -99,6 +99,10 @@ SIGNATURES = {
     "trt_simple_trace": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P,
                          _P, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                          _P, _P, _P],
+    # keys, perm, g, r, w, n, d_table, skeys, svals, sout, stream (K11)
+    "trt_gather_rows_bwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    # r -> rows of trt_gather_rows_bwd's scratch (a count, not an error)
+    "trt_gather_rows_scratch": [_I],
 }
 
 _lock = threading.Lock()

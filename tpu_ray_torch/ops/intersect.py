@@ -7,8 +7,9 @@ the projection form of the reference SIMD kernel (main.cpp:401-429):
 project the centre onto the ray, compare the squared distance with r^2,
 take the near root t_proj - x, the far root when the near one is behind the
 origin, and reject t <= 1e-4. Radius-0 padding never passes ``dsq < r^2``.
-The JAX package's matmul-transpose gather is a TPU workaround; the port
-indexes the table directly. Gradients flow through ``hit_payload`` only.
+Gradients flow through ``hit_payload`` only, whose row gather
+``gather_rows`` has a hand-written backward as in the JAX package: there
+a one-hot product on the MXU, here K11 (``kernels/gather_rows.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from tpu_ray_torch.core.scene import F32_EPS, F32_MAX, Scene
+from tpu_ray_torch.kernels.gather_rows import GatherRows
 from tpu_ray_torch.ops.vec import dot, safe_sqrt
 
 _EPS = float(F32_EPS)
@@ -60,6 +62,13 @@ def nearest_hit(center, radius, origin, direction, allowed=None) -> Hit:
     return Hit(t=tmin, idx=idx.to(torch.int32))
 
 
+def gather_rows(table, idx):
+    """table[idx] (table [N,W], idx [R] int) -> [R,W], with the table's
+    gradient summed in one fixed order by ``GatherRows`` (K11 on the card,
+    its plain version on the CPU) and none for idx. JAX ``gather_rows``."""
+    return GatherRows.apply(table, idx.to(torch.int32))
+
+
 class Payload(NamedTuple):
     hit: torch.Tensor          # [R] bool, False = miss
     idx: torch.Tensor          # [R] i32 winning sphere index
@@ -85,7 +94,7 @@ def hit_payload(scene: Scene, origin, direction, hit: Hit,
     """Recompute the hit attributes from the winning sphere (reference
     main.cpp:413-429 roots and inside flag, 443-455 payload)."""
     table = payload_tables(scene) if tables is None else tables
-    g = table[hit.idx.long()]      # [R,12]
+    g = gather_rows(table, hit.idx)    # [R,12]
     c = g[:, 0:3]
     r = g[:, 3]
 

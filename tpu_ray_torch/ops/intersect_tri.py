@@ -16,7 +16,7 @@ import torch
 
 from tpu_ray_torch.core.scene import F32_EPS, F32_MAX
 from tpu_ray_torch.core.trimesh import Triangles
-from tpu_ray_torch.ops.intersect import Hit, Payload
+from tpu_ray_torch.ops.intersect import Hit, Payload, gather_rows
 
 _EPS = float(F32_EPS)
 _MAX = float(F32_MAX)
@@ -121,7 +121,7 @@ def tri_payload(tris: Triangles, origin, direction, hit: Hit,
     (d . n > 0, n = e1 x e2) counts as inside, for the shading's normal
     flip and dielectric rules."""
     table = tri_payload_tables(tris) if tables is None else tables
-    g = table[hit.idx.long()]
+    g = gather_rows(table, hit.idx)
     v0, e1, e2 = g[:, 0:3], g[:, 3:6], g[:, 6:9]
     pvec = cross(direction, e2)
     det = _dot(e1, pvec)
