@@ -105,9 +105,12 @@ time of a launch that only builds the lists, and the pairs tested
 against the pairs listed (the kernel's counters, its lists held to the
 plain version's); K11 (csrc/gather_rows.cu, the payload gathers'
 backward) at the sphere and triangle winners of the primary rays and of
-bounce 1, and with all lanes on row 0 of the triangle table, bit for bit
-against its plain version, two launches bit-equal, rows no lane gathers
-+0.0, its time beside autograd of table[idx] and index_add_; the pass as
+bounce 1, with all lanes on row 0 of the triangle table and of a
+one-row table, bit for bit against its plain version, two launches
+bit-equal, rows no lane gathers +0.0, its own sort's order equal to
+torch.sort(stable=True)'s, one profiled call launching only K11's kernels
+and a memset, its time (and its sort's and its fold's apart) beside
+autograd of table[idx], index_add_ and torch.sort; the pass as
 the CLI drives it on
 backend fused, which falls back to the probe route (two calls, one more
 under torch.profiler, its image equal to backend cuda's, and one call at
@@ -387,15 +390,18 @@ def k1_path(torch, center, radius, o, d, launches: int, ms: float,
 
 
 # K11, the payload gathers' backward (kernels/gather_rows.gather_rows_bwd):
-# its counted key, its CUDA kernels as torch.profiler names them (the
-# stable sort before them is PyTorch's, named by CUB), and the bytes a
-# lane of its stable order moves besides its g row and idx: an int32 key
-# and an int64 lane id, each written once and read once. These belong to
-# this design's ordering, not to the function, so they stay out of its
-# bound and are reported beside it.
+# its counted key; its CUDA kernels as torch.profiler names them (the top
+# kernel first: every call with lanes launches it; the sort's kernels
+# last), and the bytes a lane of its stable order moves besides its g row
+# and idx: an int32 key and an int32 lane id, each written once and read
+# once. These belong to this design's ordering, not to the function, so
+# they stay out of its bound and are reported beside it.
 K11 = "gather_rows_bwd"
-K11_NAMES = ("gather_rows_down_kernel", "gather_rows_up_kernel")
-K11_ORDER_BYTES = 2 * (4 + 8)
+K11_NAMES = ("gather_rows_top_kernel", "gather_rows_down_kernel",
+             "gather_rows_up_kernel", "gather_rows_hist_kernel",
+             "gather_rows_scan_kernel", "gather_rows_scatter_kernel",
+             "gather_rows_iota_kernel")
+K11_ORDER_BYTES = 2 * (4 + 4)
 
 
 def searches(launched: dict) -> dict:
@@ -407,36 +413,77 @@ def searches(launched: dict) -> dict:
 def k11_held(torch, idx, n: int, w: int, what: str, gen) -> dict:
     """K11 on idx [R] int32 into an [n, w] table, its cotangent g [R, w]
     drawn from gen: bit for bit its plain version on the card, two
-    launches bit-equal, rows no lane gathers +0.0 (the launches not
-    counted); its device ms (CUDA events, the stable sort included; the
-    sort alone beside it), the plain version's, and the two PyTorch calls
-    that compute the same function: autograd of table[idx] (IndexBackward0,
-    index_put_ with accumulate, the port's path before K11) and index_add_
-    into zeros (float atomics), with how far each lies from K11 in units
-    of the entry's sum of |g| (each within 1e-6 of it, or the smoke
-    fails: a witness independent of K11's ordering) and whether two of its
-    calls agree bit for bit; the bound by the function's bytes (each lane's
-    idx and g row read once, d_table written once), and beside it the
-    bytes of the order's key and lane id, written and read once."""
+    launches bit-equal, rows no lane gathers +0.0, its own sort's keys and
+    lane ids equal to torch.sort(idx, stable=True)'s (the launches not
+    counted); its calls under torch.profiler launching no kernel but K11's
+    and a memset (no library sort); its device ms (CUDA events, the calls
+    queued behind a spin: queued_ms), its sort's and its fold's apart, and
+    the plain version's; the PyTorch
+    calls that compute the same function, autograd of table[idx]
+    (IndexBackward0, index_put_ with accumulate, the port's path before
+    K11) and index_add_ into zeros (float atomics), with how far each lies
+    from K11 in units of the entry's sum of |g| (each within 1e-6 of it,
+    or the smoke fails: a witness independent of K11's ordering) and
+    whether two of its calls agree bit for bit, and torch.sort's ms; the
+    bound by the function's bytes (each lane's idx and g row read once,
+    d_table written once), and beside it the bytes of the order's key and
+    lane id, written and read once."""
     from tpu_ray_torch.kernels.gather_rows import (gather_rows_bwd,
-                                                   gather_rows_bwd_plain)
+                                                   gather_rows_bwd_plain,
+                                                   gather_rows_fold,
+                                                   radix_passes,
+                                                   stable_order)
     r, dev = idx.shape[0], idx.device
     g = torch.randn((r, w), generator=gen, device=dev)
-    before = gather_rows_bwd.launches
+    counters = (gather_rows_bwd, stable_order, gather_rows_fold)
+    before = [f.launches for f in counters]
     a = gather_rows_bwd(idx, g, n)
     b = gather_rows_bwd(idx, g, n)
     p = gather_rows_bwd_plain(idx, g, n)
+    keys, ids = stable_order(idx, n)
+    want_keys, want_ids = torch.sort(idx, stable=True)
+    f = gather_rows_fold(keys, ids, g, n)
     torch.cuda.synchronize()
     require(bits_equal(torch, a, p), f"K11 ({what}): differs from plain "
             f"by max {(a - p).abs().max().item()}")
     require(bits_equal(torch, a, b), f"K11 ({what}): two launches differ")
+    require(torch.equal(keys, want_keys)
+            and torch.equal(ids.long(), want_ids),
+            f"K11 ({what}): its sort's order differs from torch.sort's")
+    require(bits_equal(torch, f, a),
+            f"K11 ({what}): its fold alone differs from the whole call")
     rows_hit = torch.bincount(idx.long(), minlength=n) > 0
     require(not bool(a[~rows_hit].view(torch.int32).any()),
             f"K11 ({what}): a row no lane gathers is not +0.0")
-    ms = cuda_ms(torch, lambda: gather_rows_bwd(idx, g, n), 10)
-    sort_ms = cuda_ms(torch, lambda: torch.sort(idx, stable=True), 10)
+    # the kernels its calls launch under torch.profiler: K11's own and a
+    # memset, every one this input needs (the trace can miss a kernel's
+    # record, so up to three tries of three calls each)
+    expect = {K11_NAMES[0]}
+    if radix_passes(n):
+        expect |= set(K11_NAMES[3:6])
+    if r > 32 * 32:
+        expect |= set(K11_NAMES[1:3])
+    for _ in range(3):
+        _, _, by_key, _ = profiled(
+            torch, lambda: [gather_rows_bwd(idx, g, n) for _ in range(3)])
+        launched = {k: v for k, v in by_key.items() if v > 0}
+        foreign = [k for k in launched if "memset" not in k.lower()
+                   and not any(nm in k for nm in K11_NAMES)]
+        seen = {nm for nm in K11_NAMES if any(nm in k for k in launched)}
+        require(not foreign, f"K11 ({what}): profiled calls launched "
+                f"{sorted(launched)}")
+        if expect <= seen:
+            break
+    require(expect <= seen, f"K11 ({what}): profiled calls launched "
+            f"{sorted(launched)}, not all of {sorted(expect)}")
+    ms = queued_ms(torch, lambda: gather_rows_bwd(idx, g, n), 10)
+    sort_ms = queued_ms(torch, lambda: stable_order(idx, n), 10)
+    fold_ms = queued_ms(torch, lambda: gather_rows_fold(keys, ids, g, n), 10)
+    torch_sort_ms = queued_ms(torch, lambda: torch.sort(idx, stable=True),
+                              10)
     plain_ms = cuda_ms(torch, lambda: gather_rows_bwd_plain(idx, g, n), 2)
-    gather_rows_bwd.launches = before
+    for fn, n0 in zip(counters, before):
+        fn.launches = n0
     leaf = torch.zeros((n, w), device=dev, requires_grad=True)
     out = leaf[idx.long()]
 
@@ -464,19 +511,25 @@ def k11_held(torch, idx, n: int, w: int, what: str, gen) -> dict:
     order_bytes = r * K11_ORDER_BYTES
     rec = dict(lanes=r, rows=n, width=w, rows_gathered=int(rows_hit.sum()),
                row0_lanes=int((idx == 0).sum()), ms=ms, sort_ms=sort_ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               order_bytes=order_bytes,
+               fold_ms=fold_ms, sort_passes=radix_passes(n),
+               kernels_a_call=sorted(launched), plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, order_bytes=order_bytes,
                order_ms=bound(0.0, order_bytes)[0],
                autograd_ms=lib["autograd"]["ms"],
-               index_add_ms=lib["index_add"]["ms"], library=lib)
+               index_add_ms=lib["index_add"]["ms"],
+               torch_sort_ms=torch_sort_ms, library=lib)
     print(f"K11 check, {what}: {r} lanes into [{n},{w}] ({rec['row0_lanes']} "
           f"on row 0, {rec['rows_gathered']} rows gathered): bit-equal to "
-          f"plain, two launches bit-equal, rows no lane gathers +0.0; K11 "
-          f"{ms:.4f} ms (the sort {sort_ms:.4f} of it; CUDA events), bound "
+          f"plain, two launches bit-equal, rows no lane gathers +0.0, its "
+          f"sort's order torch.sort's ({len(rec['sort_passes'])} passes); "
+          f"K11 {ms:.4f} ms (CUDA events, queued; its sort {sort_ms:.4f}, "
+          f"its fold {fold_ms:.4f} alone), {len(launched)} kernels a call "
+          f"({'; '.join(k[:60] for k in sorted(launched))}), bound "
           f"{b_ms:.4f} ms by {b_by} (the order's {order_bytes} bytes "
-          f"{rec['order_ms']:.4f} ms more), plain {plain_ms:.3f} ms; autograd of "
-          f"table[idx] {lib['autograd']['ms']:.3f} ms, index_add_ "
-          f"{lib['index_add']['ms']:.4f} ms; {lib}", flush=True)
+          f"{rec['order_ms']:.4f} ms more), plain {plain_ms:.3f} ms; autograd "
+          f"of table[idx] {lib['autograd']['ms']:.3f} ms, index_add_ "
+          f"{lib['index_add']['ms']:.4f} ms, torch.sort {torch_sort_ms:.4f} "
+          f"ms; {lib}", flush=True)
     return rec
 
 
@@ -1308,17 +1361,21 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
 
     # 30b. K11 (the payload gathers' backward) at the main path's own
     # winners: the sphere and triangle idx of the primary rays and of the
-    # sorted bounce-1 state (every miss and dead lane on row 0), and all
-    # lanes on row 0 of the triangle table; cotangents from a seeded
-    # generator. Each bit for bit against its plain version, two launches
-    # bit-equal, rows no lane gathers +0.0, timed beside the two PyTorch
-    # calls that compute the same function
+    # sorted bounce-1 state (every miss and dead lane on row 0), all lanes
+    # on row 0 of the triangle table, and of a one-row table (n = 1: a
+    # sort over no bits); cotangents from a seeded generator. Each bit for
+    # bit against its plain version, two launches bit-equal, rows no lane
+    # gathers +0.0, its sort's order torch.sort's, a profiled call of
+    # K11's kernels alone, timed (its sort and fold apart) beside the
+    # PyTorch calls that compute the same function
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    k11_inputs.append(("all lanes on row 0, triangles",
-                       torch.zeros(r, dtype=torch.int32, device=dev),
-                       big.tris.n_pad, 17))
+    k11_inputs += [("all lanes on row 0, triangles",
+                    torch.zeros(r, dtype=torch.int32, device=dev),
+                    big.tris.n_pad, 17),
+                   ("all lanes on row 0, a one-row table",
+                    torch.zeros(r, dtype=torch.int32, device=dev), 1, 12)]
     k11_checks = {what: k11_held(torch, idx, n, w, what, gen)
                   for what, idx, n, w in k11_inputs}
     phase("k11_check", t0)
@@ -1595,12 +1652,17 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
         library_call="autograd of table[idx] (IndexBackward0: index_put_ "
                      "with accumulate)",
         library_index_add_ms=k11_main["index_add_ms"],
+        sort_ms=k11_main["sort_ms"], fold_ms=k11_main["fold_ms"],
+        library_sort_ms=k11_main["torch_sort_ms"],
+        kernels_a_call=k11_main["kernels_a_call"],
         path=f"image_mse(render_mean(bigmesh, {w}x{h}, {spp} spp, backend "
              f"fused, remat='save_hits'), 0).backward()",
         shape=f"launches: the step's backward ({bwd_l[K11]}); ms, plain, "
               f"bound and library: one call on bounce 1's triangle winners "
-              f"({r} lanes into [{big.tris.n_pad},17]), CUDA events, the "
-              f"stable sort included",
+              f"({r} lanes into [{big.tris.n_pad},17]), CUDA events, K11's "
+              f"own stable sort included (sort_ms, fold_ms: each alone; "
+              f"library_sort_ms: torch.sort(stable=True), a yardstick the "
+              f"port does not call)",
         checks=k11_checks,
         paths={"bigmesh fwd+bwd step, remat=save_hits": dict(
                    launches=bwd_l[K11], ms_profiled=step_k11_ms),

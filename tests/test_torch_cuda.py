@@ -1514,6 +1514,31 @@ def test_k11_matches_plain_on_card(cuda_device, pattern):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 128, K11_N])
+def test_k11_sort_is_torch_sort_on_card(cuda_device, n):
+    """K11's own stable sort: keys and lane ids equal to
+    torch.sort(stable=True)'s, and its fold over them the whole call's
+    d_table bit for bit."""
+    from tpu_ray_torch.kernels.gather_rows import (gather_rows_bwd,
+                                                   gather_rows_fold,
+                                                   stable_order)
+    g = np.random.default_rng(13)
+    idx = g.integers(0, n, K11_R).astype(np.int32)
+    idx[g.random(K11_R) < 0.5] = 0
+    idx = torch.as_tensor(idx, device=cuda_device)
+    cot = torch.as_tensor(g.standard_normal((K11_R, K11_W))
+                          .astype(np.float32), device=cuda_device)
+    keys, ids = stable_order(idx, n)
+    want_keys, want_ids = torch.sort(idx, stable=True)
+    assert torch.equal(keys, want_keys)
+    assert torch.equal(ids.long(), want_ids)
+    a = gather_rows_fold(keys, ids, cot, n)
+    b = gather_rows_bwd(idx, cot, n)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_gather_rows_backward_launches_k11_on_card(cuda_device):
     """GatherRows' backward on CUDA tensors is one K11 launch, whose
     d_table is the plain version's."""

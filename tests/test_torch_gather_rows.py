@@ -10,6 +10,8 @@ each within 1.5e-7 of that against an f64 sum, and not bit-equal to each
 other. The forward is table[idx] bit for bit, and the plain backward
 repeats itself bit for bit. The payloads' table gradients: the bounds of
 tests/test_grad.py's remat equality (rtol 1e-4, atol 1e-7 + 1e-5 x max).
+K11's stable order: its plain mirror (``stable_order_plain``, the
+kernel's passes) equal to numpy's stable argsort, exactly.
 """
 import os
 
@@ -26,8 +28,12 @@ from tpu_ray.ops import intersect_tri as jtri
 
 from tpu_ray_torch.core.camera import default_camera
 from tpu_ray_torch.core.scene import make_scene
-from tpu_ray_torch.kernels.gather_rows import (gather_rows_bwd,
-                                               gather_rows_bwd_plain)
+from tpu_ray_torch.kernels.gather_rows import (TILE, fold_plain,
+                                               gather_rows_bwd,
+                                               gather_rows_bwd_plain,
+                                               gather_rows_fold, radix_passes,
+                                               stable_order,
+                                               stable_order_plain)
 from tpu_ray_torch.ops import intersect_tri as ttri
 from tpu_ray_torch.ops.intersect import (gather_rows, hit_payload,
                                          nearest_hit, payload_tables)
@@ -44,7 +50,8 @@ def _case(w, n, r, row0, seed=0):
     to row 0; g standard normal."""
     rng = np.random.default_rng(seed)
     table = rng.standard_normal((n, w)).astype(np.float32)
-    rows = np.array([k for k in range(n) if k % SKIP != SKIP_AT] or [0])
+    rows = np.arange(n)[np.arange(n) % SKIP != SKIP_AT]
+    rows = rows if rows.size else np.zeros(1, np.int64)
     idx = rows[rng.integers(0, rows.size, r)].astype(np.int32)
     idx[rng.permutation(r)[:int(round(row0 * r))]] = 0
     g = rng.standard_normal((r, w)).astype(np.float32)
@@ -111,6 +118,50 @@ def test_gather_rows_matches_jax_vjp(w, n, r, row0):
     wrapped = gather_rows_bwd(t_idx, torch.as_tensor(g), n)
     assert gather_rows_bwd.launches == before
     assert torch.equal(wrapped.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("row0", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("r", [0, 1, 31, 1025, 3 * TILE + 77])
+@pytest.mark.parametrize("n", [1, 128, 163968, 1 << 20])
+def test_stable_order_plain_matches_numpy(n, r, row0):
+    """K11's sort, mirrored pass by pass: keys and lane ids equal to
+    numpy's stable argsort, exactly; the wrapper takes it on CPU
+    tensors."""
+    _, idx, _ = _case(1, n, r, row0, seed=n % 1009 + r)
+    keys, ids = stable_order_plain(torch.as_tensor(idx), n)
+    want = np.argsort(idx, kind="stable")
+    assert keys.dtype == ids.dtype == torch.int32
+    assert np.array_equal(ids.numpy(), want)
+    assert np.array_equal(keys.numpy(), idx[want])
+    before = stable_order.launches
+    k2, i2 = stable_order(torch.as_tensor(idx), n)
+    assert stable_order.launches == before
+    assert torch.equal(k2, keys) and torch.equal(i2, ids)
+
+
+def test_radix_passes():
+    """The bits n - 1 needs, over the fewest passes of at most 9 bits."""
+    assert radix_passes(1) == []
+    assert radix_passes(2) == [(0, 1)]
+    assert radix_passes(128) == [(0, 7)]
+    assert radix_passes(513) == [(0, 5), (5, 5)]
+    assert radix_passes(163968) == [(0, 9), (9, 9)]
+    assert radix_passes(1 << 20) == [(0, 7), (7, 7), (14, 6)]
+
+
+def test_fold_on_plain_order_is_plain_bwd():
+    """The fold alone over the plain sort's order: gather_rows_bwd_plain's
+    d_table bit for bit, as the wrapper gives it on CPU tensors."""
+    _, idx, g = _case(17, 1000, 3 * TILE + 77, 0.5, seed=5)
+    t_idx, t_g = torch.as_tensor(idx), torch.as_tensor(g)
+    keys, ids = stable_order_plain(t_idx, 1000)
+    want = gather_rows_bwd_plain(t_idx, t_g, 1000)
+    got = fold_plain(keys, ids, t_g, 1000)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    before = gather_rows_fold.launches
+    wrapped = gather_rows_fold(keys, ids, t_g, 1000)
+    assert gather_rows_fold.launches == before
+    assert torch.equal(wrapped.view(torch.int32), want.view(torch.int32))
 
 
 def _gather_nodes(t):

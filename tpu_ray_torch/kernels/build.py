@@ -99,10 +99,16 @@ SIGNATURES = {
     "trt_simple_trace": [_P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P,
                          _P, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                          _P, _P, _P],
-    # keys, perm, g, r, w, n, d_table, skeys, svals, sout, stream (K11)
-    "trt_gather_rows_bwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    # r -> rows of trt_gather_rows_bwd's scratch (a count, not an error)
-    "trt_gather_rows_scratch": [_I],
+    # idx, g, r, w, n, d_table, scratch, stream (K11: its sort, then its
+    # fold)
+    "trt_gather_rows_bwd": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # idx, r, n, keys, ids, scratch, stream (K11's sort alone)
+    "trt_gather_rows_sort": [_P, _I, _I, _P, _P, _P, _P],
+    # keys, ids, g, r, w, n, d_table, scratch, stream (K11's fold alone)
+    "trt_gather_rows_fold": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # r, w, n -> int32 words of K11's scratch (a count, not an error; -1
+    # where it passes 2^31 - 1)
+    "trt_gather_rows_scratch": [_I, _I, _I],
 }
 
 _lock = threading.Lock()
