@@ -141,7 +141,21 @@ cast and peak memory; example 2's fused image equal to backend cuda's,
 autograd, 4's albedo error falling, 5 with --mesh 1 on the 1-rank nccl
 group bit-equal to render_pass, 6's fused image within 20 pixels of
 backend cuda's (past rtol 1e-5 / atol 1e-6), 8 with --grad past the
-residency rule (finite gradients, a nonzero vertex norm).
+residency rule (finite gradients, a nonzero vertex norm). Last, the
+card's routes against the native C++ oracle (tpu_ray_torch/oracle,
+csrc/oracle.cpp, built by g++ at first use), an independent re-execution
+on the host, at full scene size on small films: rtweekend at 320x180, 4
+spp on fused + regen (K2's culled search) and per-sample (K4 culled),
+trimesh at 320x180, 2 spp on both (K2's listed mode, K8), bigmesh at
+256x144, 1 spp on fused (K1 + K10): the rays, the share of values within
+rtol 1e-5 / atol 1e-6, the largest difference and the pixels past 2e-3
+against the oracle's own camera basis, and against the oracle given the
+route's basis bit for bit (on trimesh, where the fused routes take a
+triangle's plane form, at most 20 pixels past rtol 1e-5 / atol 1e-6);
+and central differences through the oracle against the fused + regen
+route's gradients (K2-record, K3) with the setup and bounds of
+tests/test_grad_oracle.py (rtweekend materials, geometry and camera,
+trimesh triangle albedo and v0 at 64x64, 2 spp).
 Prints each phase's wall seconds, a
 JSON line of main-path numbers, one JSON line of per-kernel numbers and,
 last, one JSON line with the device. Any failed check raises, so the exit
@@ -2086,6 +2100,329 @@ def example_phases(torch, dev, card, reset_counts, counts):
             out[name] = rec
             phase(f"example_{name[:2]}", t0)
     return paths, out
+
+
+# the native oracle's cases (tpu_ray_torch/oracle/native.py): each route
+# at its scene's full size on a small film, since the oracle is brute force
+# on the host: (scene, width, height, spp, the routes); a route is regen
+# True (K2) or False (the per-sample kernels); bigmesh falls back to the
+# probe route (K1 + K10) on fused, so it takes one route
+ORC_CASES = (("rtweekend", CHECK_W, CHECK_H, CHECK_SPP, (True, False)),
+             ("trimesh", CHECK_W, CHECK_H, TRI_SPP, (True, False)),
+             ("bigmesh", 256, 144, 1, (True,)))
+# the bounds of tests/test_torch_examples.py against an oracle: >= 0.97 of
+# the values within rtol 1e-5 / atol 1e-6, at most 1 pixel in 512 past
+# 2e-3, and the rays within the bounces of those pixels
+ORC_SHARE, ORC_OFF, ORC_PX_SHARE = 0.97, 2e-3, 1 / 512
+# pixels past rtol 1e-5 / atol 1e-6 where two renders shade triangles
+# apart by an ulp (the cross-route gate of phases 18, 23 and 24b)
+ORC_TRI_PX = 20
+# the central-difference gradient check of tests/test_grad_oracle.py
+ORC_GRAD_W = ORC_GRAD_H = 64
+ORC_GRAD_SPP = 2
+
+
+def oracle_phases(torch, dev, card, reset_counts, counts):
+    """Phases 38-39: the card's routes held against the native C++ oracle
+    (tpu_ray_torch/oracle/native.py, built by g++ at first use), an
+    independent re-execution on the host (its seconds are host seconds,
+    on every hardware thread the process may use).
+
+    38: each ORC_CASES route on fused as render_pass drives it (K2's
+    culled sphere search and K4 culled on rtweekend, K2's listed mode and
+    K8 on trimesh, K1 + K10 on bigmesh; each route's own kernels must have
+    launched), its image sum and rays against the oracle's at the same
+    scene, camera, seed and film: the share of values within rtol 1e-5 /
+    atol 1e-6, the largest difference, the pixels past 2e-3 and the rays.
+    The oracle builds its camera basis with reciprocal multiplies where
+    the port divides: one ulp on rtweekend's, which moves every primary
+    ray by ulps and turns a few paths at near ties (ROADMAP.md queue C).
+
+    Given the route's basis (``Camera.basis``) the oracle repeats the
+    route's f32 ops: bit for bit on spheres and on the probe route; on
+    trimesh the fused routes take a hit's point and normal from the
+    triangle's plane form (the oracle its edges, an ulp apart), so a ray
+    leaving at a grazing angle can hit or pass its own triangle at t near
+    F32_EPS on one side only: at most ORC_TRI_PX pixels past rtol 1e-5 /
+    atol 1e-6 there, and the rays within the bounces of those past 2e-3.
+
+    39: central differences through the oracle against the fused + regen
+    route's gradients (K2-record, K3) on the card, with the setup, stencils
+    and bounds of tests/test_grad_oracle.py: rtweekend 64x64 2 spp,
+    materials by raw differences (eps 2e-3), geometry and camera on the
+    smooth-pixel mask (eps 1e-3) with the route's own forward differences
+    beside the oracle's; trimesh (subdivisions=2) triangle albedo and v0.
+    -> numbers."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_ray_torch.core.camera import (Camera, default_camera,
+                                           trainable_camera)
+    from tpu_ray_torch.core.scene import (make_scene, make_trimesh_scene,
+                                          trainable_scene)
+    from tpu_ray_torch.grad import render_mean
+    from tpu_ray_torch.kernels.bounce_step import bounce_fwd
+    from tpu_ray_torch.kernels.regen import regen_record, regen_steps
+    from tpu_ray_torch.models.path_tracer import render_pass
+    from tpu_ray_torch.oracle import native
+    from tpu_ray_torch.oracle.native import NativeOracle
+
+    threads = len(os.sched_getaffinity(0))
+    out = {"host_threads": threads}
+
+    # 38. images and rays
+    t0 = time.perf_counter()
+    t_build = time.perf_counter()
+    native.load()
+    out["build"] = dict(native.build_info,
+                        wall_s=time.perf_counter() - t_build)
+    print(f"native oracle: {native.build_info}", flush=True)
+    images = {}
+    for name, w, h, spp, routes in ORC_CASES:
+        scene = make_scene(name, device=dev)
+        cam = default_camera(scene)
+        oracle = NativeOracle(scene, n_threads=threads)
+        t = time.perf_counter()
+        o_img, o_rays = oracle.render_pass(
+            cam.position, cam.look_at, w, h, spp=spp, seed=SEED,
+            max_bounces=MAX_BOUNCES)
+        o_secs = time.perf_counter() - t
+        # the same pass given the camera basis the routes compute on the
+        # card (Camera.basis), in place of the oracle's own
+        t = time.perf_counter()
+        b_img, b_rays = oracle.render_pass(
+            cam.position, cam.look_at, w, h, spp=spp, seed=SEED,
+            max_bounces=MAX_BOUNCES, basis=cam.basis()[:3])
+        b_secs = time.perf_counter() - t
+        for regen in routes:
+            label = (f"{name} fused {'+ regen' if regen else 'per-sample'}"
+                     if name != "bigmesh" else f"{name} fused (probe + K10)")
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            img, rays = render_pass(scene, cam, width=w, height=h, spp=spp,
+                                    seed=SEED, max_bounces=MAX_BOUNCES,
+                                    backend="fused", regen=regen)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launched = {k: v for k, v in counts().items() if v}
+            if name == "bigmesh":
+                ok = (set(launched) == {"sphere_nearest_hit",
+                                        "tri_nearest_hit_stream"})
+            elif regen:
+                ok = (set(launched) == {"regen_steps"} and (
+                    regen_steps.listed_launches if name == "trimesh"
+                    else regen_steps.culled_launches) == launched[
+                        "regen_steps"])
+            elif name == "trimesh":
+                ok = set(launched) == {"bounce_fwd_list"}
+            else:
+                ok = (set(launched) == {"bounce_fwd"}
+                      and bounce_fwd.culled_launches == launched["bounce_fwd"])
+            require(ok, f"oracle check {label}: launched {launched}")
+            a = img.cpu().numpy()
+            require(a.shape == o_img.shape and bool(np.isfinite(a).all()),
+                    f"oracle check {label}: image {a.shape}")
+            diff = np.abs(a - o_img)
+            share = float(np.isclose(a, o_img, rtol=1e-5, atol=1e-6).mean())
+            off = diff.max(axis=-1) > ORC_OFF
+            n_off = int(off.sum())
+            n_bits = int((a != b_img).any(-1).sum())
+            n_near = int((~np.isclose(a, b_img, rtol=1e-5, atol=1e-6))
+                         .any(-1).sum())
+            rec = dict(width=w, height=h, spp=spp, rays=rays,
+                       oracle_rays=o_rays, share_within=share,
+                       max_abs_diff=float(diff.max()), pixels_past=n_off,
+                       pixels_past_at=np.argwhere(off)[:20].tolist(),
+                       pixels_not_bit_equal=int((a != o_img).any(-1).sum()),
+                       oracle_host_s=o_secs, oracle_threads=threads,
+                       port_basis=dict(
+                           oracle_rays=b_rays, pixels_not_bit_equal=n_bits,
+                           pixels_past_rtol=n_near,
+                           max_abs_diff=float(np.abs(a - b_img).max()),
+                           oracle_host_s=b_secs),
+                       route_s=secs, launches=launched)
+            print(f"oracle check, {label} {w}x{h} {spp} spp on {card}: rays "
+                  f"{rays} / oracle {o_rays}; {share:.6f} of values within "
+                  f"rtol 1e-5 / atol 1e-6, max |d| {rec['max_abs_diff']:.3e}"
+                  f", {n_off} of {w * h} pixels past {ORC_OFF} (at "
+                  f"{rec['pixels_past_at']}), {rec['pixels_not_bit_equal']} "
+                  f"not bit-equal; given the route's camera basis: rays "
+                  f"{b_rays}, {n_bits} pixels not bit-equal, {n_near} "
+                  f"past rtol 1e-5 / atol 1e-6; the oracle "
+                  f"{o_secs:.3f} s and {b_secs:.3f} s on {threads} host "
+                  f"threads, the route {secs:.3f} s; launches {launched}",
+                  flush=True)
+            # given the route's basis: the image and the rays bit for bit,
+            # but where the fused routes take a triangle's hit point and
+            # normal from its plane form (the oracle and the eager route
+            # from its edges, an ulp apart): there at most ORC_TRI_PX
+            # pixels past rtol 1e-5 / atol 1e-6 and the rays within the
+            # bounces of those past 2e-3
+            b_off = int((np.abs(a - b_img).max(axis=-1) > ORC_OFF).sum())
+            rec["port_basis"]["pixels_past"] = b_off
+            if name == "trimesh":
+                ok = (n_near <= ORC_TRI_PX
+                      and abs(rays - b_rays) <= (MAX_BOUNCES - 1) * b_off)
+            else:
+                ok = n_bits == 0 and rays == b_rays
+            require(ok, f"oracle check {label}: given the route's basis, "
+                    f"rays {rays} / {b_rays}, {n_bits} pixels not bit-equal,"
+                    f" {n_near} past rtol 1e-5 / atol 1e-6, {b_off} past "
+                    f"{ORC_OFF}")
+            require(share >= ORC_SHARE, f"oracle check {label}: {share} of "
+                    f"values within rtol 1e-5 / atol 1e-6")
+            require(n_off <= ORC_PX_SHARE * w * h, f"oracle check {label}: "
+                    f"{n_off} pixels past {ORC_OFF}")
+            require(abs(rays - o_rays) <= (MAX_BOUNCES - 1) * n_off,
+                    f"oracle check {label}: rays {rays} against the "
+                    f"oracle's {o_rays} with {n_off} pixels past {ORC_OFF}")
+            images[label] = rec
+    out["images"] = images
+    phase("oracle_images", t0)
+
+    # 39. gradients: central differences through the oracle
+    t0 = time.perf_counter()
+    gw, gh, gspp = ORC_GRAD_W, ORC_GRAD_H, ORC_GRAD_SPP
+    full = np.ones((gh, gw), bool)
+    target = np.zeros((gh, gw, 3))
+    grads = {}
+
+    def oracle_image(scene, pos, look_at):
+        img_sum, _ = NativeOracle(scene, n_threads=threads).render_pass(
+            pos, look_at, gw, gh, spp=gspp, sample_start=0, seed=SEED)
+        return img_sum.astype(np.float64) / gspp
+
+    def route_image(scene, cam):
+        with torch.no_grad():
+            img = render_mean(scene, cam, width=gw, height=gh, spp=gspp,
+                              seed=SEED, backend="fused", regen=True)
+        return img.cpu().numpy().astype(np.float64)
+
+    def masked_mse(img, mask):
+        return float(np.sum(mask[..., None] * (img - target) ** 2)
+                     / (3 * mask.sum()))
+
+    def ad_grad(scene, cam, mask):
+        """The route's gradients of the masked MSE on the card, every
+        scene leaf and the camera's position; K2-record and K3 must run."""
+        ts, tc = trainable_scene(scene), trainable_camera(cam)
+        m = torch.as_tensor(mask, dtype=torch.float32, device=dev)
+        reset_counts()
+        img = render_mean(ts, tc, width=gw, height=gh, spp=gspp, seed=SEED,
+                          backend="fused", regen=True)
+        loss = torch.sum(m[..., None] * img ** 2) / (3 * m.sum())
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts().items() if v}
+        require(set(launched) == {"regen_record", "regen_bwd"},
+                f"oracle gradients: the route launched {launched}")
+        return ts, tc
+
+    def bump(scene, field, index, eps):
+        """(scene + eps e_index, scene - eps e_index) in one leaf (a
+        "tris." leaf names the triangles')."""
+        tri = field.startswith("tris.")
+        holder = scene.tris if tri else scene
+        key = field[5:] if tri else field
+        base = getattr(holder, key).detach()
+        basis = torch.zeros_like(base)
+        basis[index] = 1.0
+        pair = []
+        for sign in (1.0, -1.0):
+            moved = dataclasses.replace(holder, **{key: base
+                                                   + sign * eps * basis})
+            pair.append(dataclasses.replace(scene, tris=moved) if tri
+                        else moved)
+        return pair
+
+    def leaf_grad(ts, field, index):
+        return float(ts.leaf(field).grad[index])
+
+    def smooth_fd(sp, sm, cp, cm, look_at, eps):
+        """The oracle's and the route's central differences of the masked
+        MSE, and the smooth-pixel mask (tests/test_grad_oracle.py
+        _fd_and_mask)."""
+        ip = oracle_image(sp, cp.position, look_at)
+        im = oracle_image(sm, cm.position, look_at)
+        jp, jm = route_image(sp, cp), route_image(sm, cm)
+        jump = np.maximum(np.abs(ip - im).max(axis=-1),
+                          np.abs(jp - jm).max(axis=-1))
+        mask = jump < 10.0 * eps
+        require(mask.mean() > 0.6, f"oracle gradients: smooth share "
+                f"{mask.mean()}")
+        fd_o = (masked_mse(ip, mask) - masked_mse(im, mask)) / (2 * eps)
+        fd_j = (masked_mse(jp, mask) - masked_mse(jm, mask)) / (2 * eps)
+        return fd_o, fd_j, mask
+
+    def raw_check(key, scene, cam, ts, field, index, eps):
+        sp, sm = bump(scene, field, index, eps)
+        ip = oracle_image(sp, cam.position, cam.look_at)
+        im = oracle_image(sm, cam.position, cam.look_at)
+        fd = (masked_mse(ip, full) - masked_mse(im, full)) / (2 * eps)
+        ad = leaf_grad(ts, field, index)
+        grads[key] = dict(fd_oracle=fd, ad=ad, bound=1e-4 + 0.05 * abs(fd))
+        print(f"oracle gradients, {key}: fd {fd:.6e}, the route's "
+              f"{ad:.6e}", flush=True)
+        require(abs(fd - ad) < 1e-4 + 0.05 * abs(fd),
+                f"oracle gradients {key}: fd {fd} ad {ad}")
+
+    def smooth_check(key, scene, cam, sp, sm, cp, cm, eps, grad_of):
+        fd_o, fd_j, mask = smooth_fd(sp, sm, cp, cm, cam.look_at, eps)
+        ts, tc = ad_grad(scene, cam, mask)
+        ad = grad_of(ts, tc)
+        grads[key] = dict(fd_oracle=fd_o, fd_route=fd_j, ad=ad,
+                          smooth_share=float(mask.mean()))
+        print(f"oracle gradients, {key}: fd {fd_o:.6e}, the route's fd "
+              f"{fd_j:.6e} and ad {ad:.6e} on {mask.mean():.4f} of pixels",
+              flush=True)
+        require(abs(fd_o - fd_j) < 1e-4 + 0.03 * abs(fd_o),
+                f"oracle gradients {key}: fd {fd_o} route fd {fd_j}")
+        require(abs(fd_o - ad) < 3e-3 + 0.6 * abs(fd_o),
+                f"oracle gradients {key}: fd {fd_o} ad {ad}")
+
+    scene = make_scene("rtweekend", device=dev)
+    cam = default_camera(scene)
+    # materials move no boundaries: raw differences must match
+    ts, _ = ad_grad(scene, cam, full)
+    for field, index in (("albedo", (0, 0)), ("albedo", (0, 2)),
+                         ("emissive", (0, 0)), ("specular", (4,))):
+        raw_check(f"rtweekend {field}{list(index)}", scene, cam, ts, field,
+                  index, 2e-3)
+    # geometry: the ground sphere's height and radius, a grid sphere's x
+    for field, index in (("center", (0, 1)), ("radius", (0,)),
+                         ("center", (2, 0))):
+        sp, sm = bump(scene, field, index, 1e-3)
+        smooth_check(f"rtweekend {field}{list(index)}", scene, cam, sp, sm,
+                     cam, cam, 1e-3,
+                     lambda s, c, f=field, i=index: leaf_grad(s, f, i))
+    # the camera's position
+    for axis in range(3):
+        basis = torch.zeros(3, device=dev)
+        basis[axis] = 1e-3
+        cp = Camera(position=cam.position + basis, look_at=cam.look_at)
+        cm = Camera(position=cam.position - basis, look_at=cam.look_at)
+        smooth_check(f"rtweekend camera position[{axis}]", scene, cam,
+                     scene, scene, cp, cm, 1e-3,
+                     lambda s, c, a=axis: float(c.position.grad[a]))
+    # triangles: a face's albedo (raw) and its v0.y (smooth mask)
+    tscene = make_trimesh_scene(subdivisions=2, device=dev)
+    tcam = default_camera(tscene)
+    ts, _ = ad_grad(tscene, tcam, full)
+    # face 7 (tests/test_grad_oracle.py's) and the face whose v0.y moves
+    # the loss most by the route's gradient
+    top = int(ts.tris.v0.grad[:, 1].abs().argmax())
+    for face in sorted({7, top}):
+        raw_check(f"trimesh tris.albedo[{face}, 1]", tscene, tcam, ts,
+                  "tris.albedo", (face, 1), 2e-3)
+        sp, sm = bump(tscene, "tris.v0", (face, 1), 1e-3)
+        smooth_check(f"trimesh tris.v0[{face}, 1]", tscene, tcam, sp, sm,
+                     tcam, tcam, 1e-3,
+                     lambda s, c, f=face: leaf_grad(s, "tris.v0", (f, 1)))
+    out["gradients"] = grads
+    phase("oracle_grads", t0)
+    return out
 
 
 def main() -> int:
@@ -4450,6 +4787,9 @@ def main() -> int:
     for key, recs in ex_paths.items():
         kernels[key].setdefault("paths", {}).update(recs)
 
+    # 38-39. the card's routes against the native oracle
+    oracle = oracle_phases(torch, dev, card, reset_counts, counts)
+
     for key, rec in k1_paths.items():
         print(f"K1 on {key}: {rec}", flush=True)
     phase("total", t_all)
@@ -4495,7 +4835,7 @@ def main() -> int:
                     "pixels_differing_from_listed": n_px_off,
                     "device_idle_share": sweep_idle}}},
         "estimators": est, "bigmesh": big, "surface": surface,
-        "examples": examples}}))
+        "examples": examples, "oracle": oracle}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

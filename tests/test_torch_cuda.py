@@ -1559,3 +1559,35 @@ def test_gather_rows_backward_launches_k11_on_card(cuda_device):
     assert gather_rows_bwd.launches == n0 + 1
     want = gather_rows_bwd_plain(idx, cot, 128)
     assert torch.equal(table.grad.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fused_regen_route_matches_native_oracle_on_card(cuda_device):
+    """The main route (fused + regen, K2's culled sphere search) at 64x48
+    against the port's native C++ oracle on the host: given the route's
+    camera basis the oracle's image and rays bit for bit; with its own
+    basis (reciprocal roots, an ulp from the route's) the bounds of
+    tests/test_torch_examples.py against an oracle."""
+    from tpu_ray_torch.kernels.regen import regen_steps
+    from tpu_ray_torch.models.path_tracer import render_pass
+    from tpu_ray_torch.oracle.native import NativeOracle
+    scene = make_scene("rtweekend", device=cuda_device)
+    cam = default_camera(scene)
+    w, h, spp = 64, 48, 2
+    n0 = regen_steps.culled_launches
+    img, rays = render_pass(scene, cam, width=w, height=h, spp=spp,
+                            backend="fused", regen=True)
+    torch.cuda.synchronize()
+    assert regen_steps.culled_launches == n0 + 1
+    got = img.cpu().numpy()
+    oracle = NativeOracle(scene)
+    exact, exact_rays = oracle.render_pass(cam.position, cam.look_at, w, h,
+                                           spp=spp, basis=cam.basis()[:3])
+    assert rays == exact_rays
+    np.testing.assert_array_equal(got, exact)
+    own, own_rays = oracle.render_pass(cam.position, cam.look_at, w, h,
+                                       spp=spp)
+    assert np.isclose(got, own, rtol=1e-5, atol=1e-6).mean() >= 0.97
+    off = np.abs(got - own).max(axis=-1) > 2e-3
+    assert off.mean() <= 1 / 512, off.sum()
+    assert abs(rays - own_rays) <= 4 * off.sum()

@@ -4,13 +4,13 @@ its ``__all__``, and each name resolves.
 
 One stated exception: ``tpu_ray.kernels`` exports ``nearest_hit_pallas``,
 the Pallas sphere search, a TPU mechanism; the port's contract for it is
-K1, ``tpu_ray_torch.kernels.sphere_intersect.sphere_nearest_hit``. And
-``tpu_ray.oracle`` has no port by design (its NumPy and C++ oracles are
-framework-neutral; the port's tests use them as they are), which its case
-holds.
+K1, ``tpu_ray_torch.kernels.sphere_intersect.sphere_nearest_hit``.
+``tpu_ray.oracle`` is ported like every other subpackage: its modules
+import ``tpu_ray.core.scene``, which imports jax, and the card's machine
+has no JAX, so the port keeps its own oracles (``tpu_ray_torch.oracle``),
+and the oracle's case holds their ``__all__`` as it holds the others'.
 """
 import importlib
-import importlib.util
 import pkgutil
 
 import pytest
@@ -23,7 +23,6 @@ SUBPACKAGES = [""] + sorted(m.name for m in pkgutil.iter_modules(
 RENAMED = {"kernels": {"nearest_hit_pallas":
                        "tpu_ray_torch.kernels.sphere_intersect:"
                        "sphere_nearest_hit"}}
-NOT_PORTED = {"oracle"}
 
 
 def _module(pkg: str, sub: str):
@@ -38,10 +37,6 @@ def test_subpackages_listed():
 @pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_port_exports_jax_names(sub):
     jax_names = list(getattr(_module("tpu_ray", sub), "__all__", []))
-    if sub in NOT_PORTED:
-        assert jax_names
-        assert importlib.util.find_spec(f"tpu_ray_torch.{sub}") is None
-        return
     port = _module("tpu_ray_torch", sub)
     port_names = list(getattr(port, "__all__", []))
     renamed = RENAMED.get(sub, {})
