@@ -1,0 +1,32 @@
+"""Host syncs a step over the traced stretch: the program's blocking
+copies to the card and reads from it (``to_device``/``to_host`` in
+``tpu_ray_torch/utils/metrics.py``, ``TRANSFERS.host_syncs``), each of
+which holds the host until the stream reaches it. Counted in the traced
+run, whose host is slowed by the profiler; the count is the same
+untraced. None where the program has no such counter."""
+from benchmark import harness
+
+PATHS = ("tpu_ray_torch.utils.metrics:TRANSFERS.host_syncs",)
+
+
+def _present(paths):
+    """paths, or () where the program does not have them all."""
+    try:
+        for p in paths:
+            harness.counter(p)
+    except (ImportError, AttributeError):
+        return ()
+    return paths
+
+
+COUNTERS = _present(PATHS)
+
+
+def per_step(r):
+    if r.trace is None or not COUNTERS or not r.trace_steps:
+        return None
+    return r.launches[COUNTERS[0]] / r.trace_steps
+
+
+def read(r):
+    return per_step(r) if r.loop == "fwdbwd" else None

@@ -22,8 +22,9 @@ class Camera:
 
     def basis(self):
         """-> (cam_x, cam_y, cam_z, film_center). Reference main.cpp:811-814."""
-        up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                          device=self.position.device)
+        # imported here: tpu_ray_torch.utils imports this module
+        from tpu_ray_torch.utils.metrics import to_device
+        up = to_device([0.0, 1.0, 0.0], self.position.device, torch.float32)
         z = _normalize(self.position - self.look_at)
         x = _normalize(torch.linalg.cross(up, z))
         y = _normalize(torch.linalg.cross(z, x))

@@ -24,6 +24,7 @@ from tpu_ray_torch.core.trimesh import TRI_LEAVES
 from tpu_ray_torch.models.path_tracer import (render_pixels, tile_order,
                                               untile_image)
 from tpu_ray_torch.parallel.render import _GatherRays, _image, _plan
+from tpu_ray_torch.utils.metrics import span, to_device
 
 
 def render_mean(scene: Scene, camera: Camera, *, width: int, height: int,
@@ -56,22 +57,25 @@ def render_mean(scene: Scene, camera: Camera, *, width: int, height: int,
     return_rays=True also returns the rays-cast count (an int, no
     gradient)."""
     del exact_argmin, cull_secondary
-    dev = scene.device
-    fused = backend == "fused"
-    if fused:
-        perm, inv = tile_order(width, height)
-        pixel = torch.as_tensor(perm, device=dev)
-    else:
-        pixel = torch.arange(width * height, dtype=torch.int64, device=dev)
-    color_sum, rays = render_pixels(
-        scene, camera, pixel, width=width, height=height, spp=spp,
-        sample_start=sample_start, seed=seed, max_bounces=max_bounces,
-        backend=backend, ray_chunk=ray_chunk, regen=regen, remat=remat)
-    if fused:
-        img = untile_image(color_sum, width, height, inv)
-    else:
-        img = color_sum.reshape(height, width, 3)
-    img = img / torch.tensor(float(spp), dtype=torch.float32, device=dev)
+    with span("render_mean"):
+        dev = scene.device
+        fused = backend == "fused"
+        if fused:
+            with span("tile_order"):
+                perm, inv = tile_order(width, height)
+                pixel = to_device(perm, dev)
+        else:
+            pixel = torch.arange(width * height, dtype=torch.int64,
+                                 device=dev)
+        color_sum, rays = render_pixels(
+            scene, camera, pixel, width=width, height=height, spp=spp,
+            sample_start=sample_start, seed=seed, max_bounces=max_bounces,
+            backend=backend, ray_chunk=ray_chunk, regen=regen, remat=remat)
+        if fused:
+            img = untile_image(color_sum, width, height, inv)
+        else:
+            img = color_sum.reshape(height, width, 3)
+        img = img / to_device(float(spp), dev, torch.float32)
     if return_rays:
         return img, rays
     return img

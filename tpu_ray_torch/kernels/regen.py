@@ -93,6 +93,7 @@ from tpu_ray_torch.kernels.bounce_step import (BLOCK_R, MERGE_STATS,
 from tpu_ray_torch.ops.intersect_tri import tri_search_table
 from tpu_ray_torch.ops.raygen import camera_rays, film_offsets, film_rays
 from tpu_ray_torch.ops.vec import safe_sqrt
+from tpu_ray_torch.utils.metrics import span, to_device, to_host
 
 __all__ = ["regen_steps", "regen_steps_plain", "regen_record",
            "regen_bwd", "regen_bwd_plain", "step_tail_plain", "wave_init",
@@ -176,7 +177,8 @@ def sphere_tiles(table, origin_bound: float = 0.0) -> SphereTiles:
     boxes: f32 rounding is monotone, so a ray's entry into a group's box is
     at most its entry into each of the group's tiles, and a lane that
     skips a group skips only tiles it would skip one by one."""
-    cr = table[:, 0:4].detach().to("cpu", torch.float64)    # one copy
+    cr = to_host(table[:, 0:4].detach(),                    # one copy
+                 lambda t: t.to("cpu", torch.float64))
     c, rad = cr[:, 0:3], cr[:, 3]
     n = rad.shape[0]
     valid = rad > 0.0
@@ -205,8 +207,8 @@ def sphere_tiles(table, origin_bound: float = 0.0) -> SphereTiles:
     gboxes = _span_boxes(boxes[:, 0:3], boxes[:, 3:6], gstarts)
     # two copies to the device: the boxes, then the starts
     dev, n_t = table.device, len(starts) - 1
-    f = torch.cat([boxes, gboxes]).to(dev, torch.float32)
-    i = torch.tensor(starts + gstarts, dtype=torch.int32).to(dev)
+    f = to_device(torch.cat([boxes, gboxes]), dev, torch.float32)
+    i = to_device(starts + gstarts, dev, torch.int32)
     return SphereTiles(f[:n_t], i[:n_t + 1], f[n_t:], i[n_t + 1:], o_lim, n)
 
 
@@ -329,8 +331,7 @@ class Records(NamedTuple):
 def cam13(camera: Camera, s_end: int) -> torch.Tensor:
     """Camera basis + sample end -> [13] f32 (see module docstring)."""
     cam_x, cam_y, _, film_center = camera.basis()
-    s = torch.tensor([float(s_end)], dtype=torch.float32,
-                     device=camera.position.device)
+    s = to_device([float(s_end)], camera.position.device, torch.float32)
     return torch.cat([camera.position, film_center, cam_x, cam_y, s])
 
 
@@ -357,10 +358,11 @@ def wave_init(camera: Camera, pixel, spp: int, seed: int, sample_start: int,
     """Initial [24, R] state for the pixel set [R]: sample ``sample_start``'s
     primary rays plus the per-lane regeneration constants.
     -> (state, cam13 [13], R)."""
-    o, d, base0 = camera_rays(camera, width, height, pixel, sample_start,
-                              seed)
-    st = _init_state(o, d, base0, pixel, seed, sample_start, width)
-    return st, cam13(camera, sample_start + spp), pixel.shape[0]
+    with span("wave_init"):
+        o, d, base0 = camera_rays(camera, width, height, pixel,
+                                  sample_start, seed)
+        st = _init_state(o, d, base0, pixel, seed, sample_start, width)
+        return st, cam13(camera, sample_start + spp), pixel.shape[0]
 
 
 def _draws(st):
@@ -839,11 +841,12 @@ def regen_tables(scene: Scene):
     None; n_tri). The listed mode's tile boxes are
     ``bounce_step.tab_tile_boxes(tri)``; a sphere scene's tiles, with
     their boxes, ``sphere_tiles(table, camera bound)`` (``_search_of``)."""
-    sp = permute_scene(scene)
-    table = prim_table(sp)
-    if sp.tris is None:
-        return table, None, 0
-    return table, tri_search_table(sp.tris), sp.tris.n_pad
+    with span("regen_tables"):
+        sp = permute_scene(scene)
+        table = prim_table(sp)
+        if sp.tris is None:
+            return table, None, 0
+        return table, tri_search_table(sp.tris), sp.tris.n_pad
 
 
 def _search_of(table, tri, camera: Camera):
@@ -851,10 +854,11 @@ def _search_of(table, tri, camera: Camera):
     scene's tile boxes (the listed mode), or a sphere scene's tiles (the
     culled sphere mode, its origins bounded by the camera's) -> (boxes,
     sph), one of them None."""
-    if tri is not None:
-        return tab_tile_boxes(tri), None
-    bound = float(camera.position.detach().abs().max())
-    return None, sphere_tiles(table, bound)
+    with span("search_tables"):
+        if tri is not None:
+            return tab_tile_boxes(tri), None
+        bound = to_host(camera.position.detach().abs().max(), float)
+        return None, sphere_tiles(table, bound)
 
 
 def trace_regen(scene: Scene, camera: Camera, pixel, *, width: int,
@@ -870,11 +874,12 @@ def trace_regen(scene: Scene, camera: Camera, pixel, *, width: int,
         boxes, sph = _search_of(table, tri, camera)
         st, cam, _ = wave_init(camera, pixel, spp, seed, sample_start,
                                width, height)
-        regen_steps(st, cam, table, spp * max_bounces,
-                    use_sky=scene.use_sky, max_bounces=max_bounces,
-                    width=width, height=height, tri=tri, boxes=boxes,
-                    sph=sph)
-    return st[16:19].T, int(st[22].to(torch.int64).sum())
+        with span("regen_forward"):
+            regen_steps(st, cam, table, spp * max_bounces,
+                        use_sky=scene.use_sky, max_bounces=max_bounces,
+                        width=width, height=height, tri=tri, boxes=boxes,
+                        sph=sph)
+    return st[16:19].T, to_host(st[22].to(torch.int64).sum(), int)
 
 
 class RegenTrace(torch.autograd.Function):
@@ -895,32 +900,36 @@ class RegenTrace(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, rows, o0, d0, base0, pixel, tri, boxes, sph,
                 cfg):
-        width, height, seed, max_bounces, spp, s0, seg, use_sky = cfg
-        st = _init_state(o0, d0, base0, pixel, seed, s0, width)
-        cam = torch.cat([rows, rows.new_tensor([float(s0 + spp)])])
-        table = table.contiguous()
-        recs = regen_record(st, cam, table, spp * max_bounces, seg,
-                            use_sky=use_sky, max_bounces=max_bounces,
-                            width=width, height=height, tri=tri,
-                            boxes=boxes, sph=sph)
-        ctx.save_for_backward(table, cam, recs.rec, recs.chk, recs.t_end)
-        ctx.cfg = cfg
-        ctx.n_tri = 0 if tri is None else tri.shape[0]
-        rays = st[22].to(torch.int64).sum()
-        ctx.mark_non_differentiable(rays)
-        return st[16:19].T.contiguous(), rays
+        with span("regen_forward"):
+            width, height, seed, max_bounces, spp, s0, seg, use_sky = cfg
+            st = _init_state(o0, d0, base0, pixel, seed, s0, width)
+            cam = torch.cat([rows, to_device([float(s0 + spp)],
+                                             rows.device, rows.dtype)])
+            table = table.contiguous()
+            recs = regen_record(st, cam, table, spp * max_bounces, seg,
+                                use_sky=use_sky, max_bounces=max_bounces,
+                                width=width, height=height, tri=tri,
+                                boxes=boxes, sph=sph)
+            ctx.save_for_backward(table, cam, recs.rec, recs.chk,
+                                  recs.t_end)
+            ctx.cfg = cfg
+            ctx.n_tri = 0 if tri is None else tri.shape[0]
+            rays = st[22].to(torch.int64).sum()
+            ctx.mark_non_differentiable(rays)
+            return st[16:19].T.contiguous(), rays
 
     @staticmethod
     def backward(ctx, d_color, _):
-        width, height, _, max_bounces, _, _, seg, use_sky = ctx.cfg
-        table, cam, rec, chk, t_end = ctx.saved_tensors
-        d_out = torch.zeros((24, d_color.shape[0]), dtype=torch.float32,
-                            device=d_color.device)
-        d_out[16:19] = d_color.T
-        d_st, d_tab, d_cam = regen_bwd(
-            Records(rec, chk, t_end, seg), d_out, cam, table,
-            use_sky=use_sky, max_bounces=max_bounces, width=width,
-            height=height, n_tri=ctx.n_tri)
+        with span("regen_backward"):
+            width, height, _, max_bounces, _, _, seg, use_sky = ctx.cfg
+            table, cam, rec, chk, t_end = ctx.saved_tensors
+            d_out = torch.zeros((24, d_color.shape[0]), dtype=torch.float32,
+                                device=d_color.device)
+            d_out[16:19] = d_color.T
+            d_st, d_tab, d_cam = regen_bwd(
+                Records(rec, chk, t_end, seg), d_out, cam, table,
+                use_sky=use_sky, max_bounces=max_bounces, width=width,
+                height=height, n_tri=ctx.n_tri)
         return (d_tab, d_cam[0:12], d_st[0:3].T, d_st[3:6].T, None, None,
                 None, None, None, None)
 
@@ -950,14 +959,16 @@ def make_regen_trace(width: int, height: int, seed: int, max_bounces: int,
                                height=height, spp=spp, seed=seed,
                                max_bounces=max_bounces, sample_start=s0)
         table, tri, _ = regen_tables(scene)
-        cam_x, cam_y, _, film_center = camera.basis()
-        rows = torch.cat([camera.position, film_center, cam_x, cam_y])
-        o, d, base0 = camera_rays(camera, width, height, pixel, s0, seed)
+        with span("wave_init"):
+            cam_x, cam_y, _, film_center = camera.basis()
+            rows = torch.cat([camera.position, film_center, cam_x, cam_y])
+            o, d, base0 = camera_rays(camera, width, height, pixel, s0,
+                                      seed)
         cfg = (width, height, seed, max_bounces, spp, int(s0), seg,
                scene.use_sky)
         boxes, sph = _search_of(table, tri, camera)
         color, rays = RegenTrace.apply(table, rows, o, d, base0, pixel, tri,
                                        boxes, sph, cfg)
-        return color, int(rays)
+        return color, to_host(rays, int)
 
     return trace

@@ -84,6 +84,7 @@ from tpu_ray_torch.ops.shade import scatter_direction, sky_color
 from tpu_ray_torch.ops.shading_modes import (scene_light_indices,
                                              trace_flat, trace_lambert_shadow)
 from tpu_ray_torch.ops.tonemap import linear_to_srgb, pack_rgba8
+from tpu_ray_torch.utils.metrics import span, to_device
 
 # search(center, radius, origins, directions) -> Hit
 SearchFn = Callable[..., Hit]
@@ -171,8 +172,9 @@ def _tile_order(width: int, height: int, tile: int):
 
 def untile_image(color_sum, width: int, height: int, inv):
     """Tile-major [n,3] colour buffer -> [H,W,3] image."""
-    inv = torch.as_tensor(inv, device=color_sum.device)
-    return color_sum[inv].reshape(height, width, 3)
+    with span("untile"):
+        inv = to_device(inv, color_sum.device)
+        return color_sum[inv].reshape(height, width, 3)
 
 
 def probe(scene: Scene, origins, directions, search: SearchFn = nearest_hit,
@@ -454,8 +456,9 @@ def render_pass(scene: Scene, camera: Camera, *, width: int, height: int,
     dev = scene.device
     fused = backend == "fused"
     if fused:
-        perm, inv = tile_order(width, height)
-        pixel = torch.as_tensor(perm, device=dev)
+        with span("tile_order"):
+            perm, inv = tile_order(width, height)
+            pixel = to_device(perm, dev)
     else:
         pixel = torch.arange(width * height, dtype=torch.int64, device=dev)
     color_sum, rays = render_pixels(
@@ -489,13 +492,16 @@ class PathTracer:
     def step(self, state: AccumState, camera: Camera | None = None):
         """One progressive pass -> (new AccumState, rays_cast int)."""
         cfg = self.config
-        img_sum, rays = render_pass(
-            self.scene, camera or self.camera, width=cfg.width,
-            height=cfg.height, spp=cfg.spp, sample_start=state.samples,
-            seed=cfg.seed, max_bounces=cfg.max_bounces, backend=cfg.backend,
-            ray_chunk=cfg.ray_chunk, shading=cfg.shading, lights=self.lights,
-            regen=cfg.regen)
-        return accumulate(state, img_sum, cfg.spp), rays
+        with span("pass"):
+            img_sum, rays = render_pass(
+                self.scene, camera or self.camera, width=cfg.width,
+                height=cfg.height, spp=cfg.spp, sample_start=state.samples,
+                seed=cfg.seed, max_bounces=cfg.max_bounces,
+                backend=cfg.backend, ray_chunk=cfg.ray_chunk,
+                shading=cfg.shading, lights=self.lights, regen=cfg.regen)
+            with span("accumulate"):
+                state = accumulate(state, img_sum, cfg.spp)
+        return state, rays
 
     def srgb_image(self, state: AccumState):
         """u8 RGBA frame [H,W,4], rows flipped so row 0 is the image top."""

@@ -23,8 +23,9 @@ class AccumState:
 
 def accumulate(state: AccumState, batch_sum, batch_samples: int) -> AccumState:
     """Fold a batch of ``batch_samples`` sample sums into the running mean."""
+    # imported here: tpu_ray_torch.utils imports this module
+    from tpu_ray_torch.utils.metrics import to_device
     n = float(state.samples)
-    total = torch.tensor(n + batch_samples, dtype=torch.float32,
-                         device=batch_sum.device)
+    total = to_device(n + batch_samples, batch_sum.device, torch.float32)
     mean = torch.div(state.mean * n + batch_sum, total)
     return AccumState(mean=mean, samples=state.samples + batch_samples)

@@ -15,6 +15,7 @@ import torch
 from tpu_ray_torch.core import rng
 from tpu_ray_torch.core.camera import Camera, film_extent
 from tpu_ray_torch.ops.vec import normalize_eps
+from tpu_ray_torch.utils.metrics import to_device
 
 JITTER_SLOT_X = 4
 JITTER_SLOT_Y = 5
@@ -26,8 +27,8 @@ def film_offsets(ax, ay, base, width: int, height: int):
     depend on the camera, so the regen backward recomputes them."""
     jx = rng.draw_uniform(base, 0, JITTER_SLOT_X, -0.5, 0.5)
     jy = rng.draw_uniform(base, 0, JITTER_SLOT_Y, -0.5, 0.5)
-    w = torch.tensor(float(width), dtype=torch.float32, device=ax.device)
-    h = torch.tensor(float(height), dtype=torch.float32, device=ax.device)
+    w = to_device(float(width), ax.device, torch.float32)
+    h = to_device(float(height), ax.device, torch.float32)
     film_x = -1.0 + torch.div((ax + jx) * 2.0, w)
     film_y = -1.0 + torch.div((ay + jy) * 2.0, h)
     film_w, film_h = film_extent(width, height)
