@@ -642,14 +642,13 @@ def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
         lights = scene_light_indices(sc) if shading != "flat" else ()
         cam = default_camera(sc)
         tb = simple_tables(sc, lights, origin_bound(cam.position[None]))
-        perm, inv = tile_order(w, h)
-        px = torch.as_tensor(perm, device=dev)
+        px = torch.as_tensor(tile_order(w, h)[0], device=dev)
         args = (lane_rows(px, w, SEED), cam13(cam, spp),
                 tb["table"], tb["tri"], tb["boxes"], tb["lidx"], tb["ldat"])
         kw = dict(n_sph=tb["n_sph"], spp=spp, s0=0, width=w, height=h,
                   use_sky=tb["use_sky"], flat=shading == "flat",
                   sph=tb["sph"])
-        return sc, lights, args, kw, inv
+        return sc, lights, args, kw, px
 
     def drive(cfg, sc, calls):
         """render as the CLI drives it (PathTracer.step of one pass),
@@ -755,11 +754,9 @@ def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
         if backend == "fused":
             img, rays = render_pass(tsc, tcam, **kw)
         else:
-            perm, inv = tile_order(w, h)
-            color, rays = render_pixels(
-                tsc, tcam, torch.as_tensor(perm, device=dev),
-                sample_start=0, **kw)
-            img = untile_image(color, w, h, inv)
+            px = torch.as_tensor(tile_order(w, h)[0], device=dev)
+            color, rays = render_pixels(tsc, tcam, px, sample_start=0, **kw)
+            img = untile_image(color, w, h, px)
         image_mse(img, torch.zeros_like(img)).backward()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
@@ -806,7 +803,7 @@ def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
     t0 = time.perf_counter()
     cfg2 = EST_CONFIG2
     _, _, w2, h2, spp2 = cfg2
-    s16, l16, args2, kw2, inv2 = setup(cfg2)
+    s16, l16, args2, kw2, px2 = setup(cfg2)
     require(l16 == (1, 2), f"sixteen's lights are {l16}")
     n_real16 = int((s16.radius > 0).sum())
     out_k2 = simple_trace(*args2, **kw2)
@@ -826,7 +823,7 @@ def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
     require(rays2 == int(out_k2[3].double().sum()),
             f"config 2 pass cast {rays2} rays, K9 {out_k2[3].sum()}")
     require(torch.equal(st2.mean, accumulate(
-        tracer2.init_state(), untile_image(out_k2[0:3].T, w2, h2, inv2),
+        tracer2.init_state(), untile_image(out_k2[0:3].T, w2, h2, px2),
         spp2).mean), "config 2 pass image is not K9's")
     cam16 = default_camera(s16)
     torch.cuda.reset_peak_memory_stats()
@@ -886,7 +883,7 @@ def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
     t0 = time.perf_counter()
     cfg1 = EST_CONFIG1
     _, _, w1, h1, spp1 = cfg1
-    s1, _, args1, kw1, inv1 = setup(cfg1)
+    s1, _, args1, kw1, px1 = setup(cfg1)
     out_k1 = simple_trace(*args1, **kw1)
     sp1 = torch.zeros(N_STATS, dtype=torch.int64, device=dev)
     flops1, bytes1, out_p1, _, _ = work(args1, kw1,
@@ -905,7 +902,7 @@ def estimator_phases(torch, dev, card, reset_counts, counts, k1_paths):
     img_c1, rays_c1 = render_pass(s1, default_camera(s1), width=w1,
                                   height=h1, spp=spp1, seed=SEED,
                                   backend="cuda", shading="flat")
-    img_f1 = untile_image(out_k1[0:3].T, w1, h1, inv1)
+    img_f1 = untile_image(out_k1[0:3].T, w1, h1, px1)
     npx1 = int((img_f1 != img_c1).any(-1).sum())
     require(rays_c1 == rays1 and npx1 == 0,
             f"config 1 image differs from backend cuda's on {npx1} pixels")
@@ -1220,8 +1217,7 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
     tab, boxes = tri_search_table(big.tris), tri_tile_boxes(big.tris)
     n_tiles = boxes.shape[0]
     n_tri_real = big.tris.n_real
-    perm, inv = tile_order(w, h)
-    pixel = torch.as_tensor(perm, device=dev)
+    pixel = torch.as_tensor(tile_order(w, h)[0], device=dev)
     r = pixel.shape[0]
 
     # 30. K10 at the main path's own inputs: every bounce's post-sort
@@ -1434,7 +1430,7 @@ def bigmesh_phases(torch, dev, card, reset_counts, counts, k1_paths):
                                        max_bounces=MAX_BOUNCES,
                                        backend="cuda")
     require(rays_c == rays and torch.equal(state.mean, accumulate(
-        tracer.init_state(), untile_image(c_cuda, w, h, inv), spp).mean),
+        tracer.init_state(), untile_image(c_cuda, w, h, pixel), spp).mean),
         "bigmesh fused pass differs from backend cuda's")
     before = counts()["tri_nearest_hit_stream"]
     (state_p, _), prof_wall, by_key, busy = profiled(
@@ -2674,9 +2670,10 @@ def main() -> int:
     steps = MAIN_SPP * MAX_BOUNCES
     kwm = dict(use_sky=scene.use_sky, max_bounces=MAX_BOUNCES, width=MAIN_W,
                height=MAIN_H)
-    perm, inv = tile_order(MAIN_W, MAIN_H)
-    st0, c13, r2 = wave_init(tracer.camera, torch.as_tensor(perm, device=dev),
-                             MAIN_SPP, SEED, 0, MAIN_W, MAIN_H)
+    perm, _ = tile_order(MAIN_W, MAIN_H)
+    px_main = torch.as_tensor(perm, device=dev)
+    st0, c13, r2 = wave_init(tracer.camera, px_main, MAIN_SPP, SEED, 0,
+                             MAIN_W, MAIN_H)
     # the sphere tiles' host cost, as the route pays it once a pass and a
     # fwd+bwd step (kernels/regen.py _search_of): the table's copy to the
     # host, the tiling, the copy back, wall time to a synchronize
@@ -2693,7 +2690,7 @@ def main() -> int:
     rays_k = int(st_k[22].to(torch.int64).sum())
     require(rays_k == rays, f"K2 launch rays {rays_k} != main path {rays}")
     again = accumulate(tracer.init_state(), untile_image(
-        st_k[16:19].T, MAIN_W, MAIN_H, inv), MAIN_SPP)
+        st_k[16:19].T, MAIN_W, MAIN_H, px_main), MAIN_SPP)
     require(torch.equal(again.mean, mean),
             "K2 launch image differs from the main path's")
     # the sweep of every sphere (the sphere mode before the cull), timed in
@@ -2923,7 +2920,7 @@ def main() -> int:
     # each group's max of the plain version's f64 sum)
     t0 = time.perf_counter()
     col = st_k[16:19].T.contiguous().requires_grad_()
-    image_mse(untile_image(col, MAIN_W, MAIN_H, inv)
+    image_mse(untile_image(col, MAIN_W, MAIN_H, px_main)
               / torch.tensor(float(MAIN_SPP), device=dev), target).backward()
     d_out = torch.zeros_like(st0)
     d_out[16:19] = col.grad.T
@@ -3733,7 +3730,7 @@ def main() -> int:
     require(int(tst_k[22].to(torch.int64).sum()) == rays_t,
             "K2 listed launch rays differ from the path's")
     again = accumulate(tracer_t.init_state(), untile_image(
-        tst_k[16:19].T, MAIN_W, MAIN_H, inv), TRI_SPP)
+        tst_k[16:19].T, MAIN_W, MAIN_H, px_main), TRI_SPP)
     require(torch.equal(again.mean, mean_t),
             "K2 listed launch image differs from the path's")
     k2t_stats = torch.zeros(3, dtype=torch.int64, device=dev)
@@ -3769,7 +3766,7 @@ def main() -> int:
             and sum(counts().values()) == 1,
             f"the sweep's call launched {counts()}")
     sweep_img = accumulate(tracer_t.init_state(), untile_image(
-        tst_s[16:19].T, MAIN_W, MAIN_H, inv), TRI_SPP).mean
+        tst_s[16:19].T, MAIN_W, MAIN_H, px_main), TRI_SPP).mean
     n_px_sweep = int((sweep_img != mean_t).any(-1).sum())
     require(n_px_sweep <= 20, f"the listed route's trimesh image differs "
             f"from the sweep's on {n_px_sweep} pixels")
@@ -4004,7 +4001,7 @@ def main() -> int:
         ms_same_lanes=k2tr_ms_slice)
 
     tcol = tst_k[16:19].T.contiguous().requires_grad_()
-    image_mse(untile_image(tcol, MAIN_W, MAIN_H, inv)
+    image_mse(untile_image(tcol, MAIN_W, MAIN_H, px_main)
               / torch.tensor(float(TRI_SPP), device=dev), target).backward()
     td_out = torch.zeros_like(tst0)
     td_out[16:19] = tcol.grad.T

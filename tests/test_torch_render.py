@@ -107,8 +107,10 @@ def test_progressive_passes_continue_the_streams(scenes, backend, regen):
 def test_tile_order_round_trip():
     perm, inv = tile_order(70, 40)
     assert sorted(perm.tolist()) == list(range(70 * 40))
+    assert perm[inv].tolist() == list(range(70 * 40))
     img = torch.arange(70 * 40 * 3, dtype=torch.float32).reshape(-1, 3)
-    assert torch.equal(untile_image(img[torch.as_tensor(perm)], 70, 40, inv),
+    order = torch.as_tensor(perm)
+    assert torch.equal(untile_image(img[order], 70, 40, order),
                        img.reshape(40, 70, 3))
 
 

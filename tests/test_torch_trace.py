@@ -251,7 +251,8 @@ def test_fwdbwd_counters_match_the_card(cuda_device, tmp_path, kind, spp):
     print(f"{kind}: {syncs} syncs, {htod} B to the card; warned at {where}")
     assert syncs == warned, where
     assert htod == copied
-    assert htod >= 2 * W * H * 8
+    # a warm step sends no tile table (one is W * H * 8 bytes)
+    assert htod < W * H * 8
 
 
 @pytest.mark.cuda
@@ -267,4 +268,5 @@ def test_pass_counters_match_the_card(cuda_device, tmp_path):
     print(f"pass: {syncs} syncs, {htod} B to the card; warned at {where}")
     assert syncs == warned, where
     assert htod == copied
-    assert htod >= 2 * W * H * 8
+    # a warm step sends no tile table (one is W * H * 8 bytes)
+    assert htod < W * H * 8

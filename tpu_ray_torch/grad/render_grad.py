@@ -21,7 +21,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from tpu_ray_torch.core.camera import CAMERA_LEAVES, Camera
 from tpu_ray_torch.core.scene import SCENE_LEAVES, Scene
 from tpu_ray_torch.core.trimesh import TRI_LEAVES
-from tpu_ray_torch.models.path_tracer import (render_pixels, tile_order,
+from tpu_ray_torch.models.path_tracer import (render_pixels, tile_pixels,
                                               untile_image)
 from tpu_ray_torch.parallel.render import _GatherRays, _image, _plan
 from tpu_ray_torch.utils.metrics import span, to_device
@@ -62,8 +62,7 @@ def render_mean(scene: Scene, camera: Camera, *, width: int, height: int,
         fused = backend == "fused"
         if fused:
             with span("tile_order"):
-                perm, inv = tile_order(width, height)
-                pixel = to_device(perm, dev)
+                pixel = tile_pixels(width, height, dev)
         else:
             pixel = torch.arange(width * height, dtype=torch.int64,
                                  device=dev)
@@ -72,7 +71,7 @@ def render_mean(scene: Scene, camera: Camera, *, width: int, height: int,
             sample_start=sample_start, seed=seed, max_bounces=max_bounces,
             backend=backend, ray_chunk=ray_chunk, regen=regen, remat=remat)
         if fused:
-            img = untile_image(color_sum, width, height, inv)
+            img = untile_image(color_sum, width, height, pixel)
         else:
             img = color_sum.reshape(height, width, 3)
         img = img / to_device(float(spp), dev, torch.float32)
@@ -149,13 +148,13 @@ def render_mean_sharded(scene: Scene, camera: Camera, *, mesh: DeviceMesh,
     "torch" and "cuda"."""
     del exact_argmin, cull_secondary
     scene, camera = _world_summed(scene, camera)
-    local, probe, pixel, inv = _plan(scene, mesh, width, height, backend)
+    local, probe, pixel, order = _plan(scene, mesh, width, height, backend)
     color_sum, _ = render_pixels(
         local, camera, pixel, width=width, height=height, spp=spp,
         sample_start=sample_start, seed=seed, max_bounces=max_bounces,
         backend=backend, ray_chunk=ray_chunk, regen=regen, remat=remat,
         probe_fn=probe)
-    img = _image(_GatherRays.apply(color_sum, mesh), width, height, inv)
+    img = _image(_GatherRays.apply(color_sum, mesh), width, height, order)
     return img / torch.tensor(float(spp), dtype=torch.float32,
                               device=img.device)
 

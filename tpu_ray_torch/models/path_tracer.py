@@ -84,7 +84,7 @@ from tpu_ray_torch.ops.shade import scatter_direction, sky_color
 from tpu_ray_torch.ops.shading_modes import (scene_light_indices,
                                              trace_flat, trace_lambert_shadow)
 from tpu_ray_torch.ops.tonemap import linear_to_srgb, pack_rgba8
-from tpu_ray_torch.utils.metrics import span, to_device
+from tpu_ray_torch.utils.metrics import span
 
 # search(center, radius, origins, directions) -> Hit
 SearchFn = Callable[..., Hit]
@@ -170,11 +170,49 @@ def _tile_order(width: int, height: int, tile: int):
     return perm, inv
 
 
-def untile_image(color_sum, width: int, height: int, inv):
-    """Tile-major [n,3] colour buffer -> [H,W,3] image."""
+def tile_pixels(width: int, height: int, device, tile: int = 32):
+    """``tile_order``'s perm as an int64 tensor built on ``device`` by
+    views and copies of an arange: no host table is made or sent. Built
+    each call, not kept: a table kept on the device would add its bytes
+    to a fwd+bwd step's peak, which falls in the backward after the
+    untile's backward has released the step's table."""
+    idx = torch.arange(width * height, dtype=torch.int64,
+                       device=device).view(height, width)
+    fh, fw = height - height % tile, width - width % tile
+    bands = []
+    # the whole bands of tile rows, then the ragged last band; in each
+    # band its whole tiles, row-major within each, then its ragged tile
+    for b in (idx[:fh].view(fh // tile, tile, width),
+              idx[fh:].view(1, height - fh, width)):
+        nb, th, _ = b.shape
+        whole = b[:, :, :fw].reshape(nb, th, fw // tile, tile)
+        bands.append(torch.cat(
+            [whole.permute(0, 2, 1, 3).reshape(nb, th * fw),
+             b[:, :, fw:].reshape(nb, th * (width - fw))], 1))
+    return torch.cat([b.reshape(-1) for b in bands])
+
+
+class _Untile(torch.autograd.Function):
+    """out[perm[i]] = color_sum[i], the inverse tile order's gather as a
+    scatter by perm; its backward is the gather by perm, with no
+    ``inv`` and no sorted accumulate (perm is a permutation)."""
+
+    @staticmethod
+    def forward(ctx, color_sum, perm):
+        ctx.save_for_backward(perm)
+        return torch.empty_like(color_sum).index_copy_(0, perm, color_sum)
+
+    @staticmethod
+    def backward(ctx, grad):
+        perm, = ctx.saved_tensors
+        return grad[perm], None
+
+
+def untile_image(color_sum, width: int, height: int, perm):
+    """Tile-major [n,3] colour buffer -> [H,W,3] image. perm: the tile
+    order as a tensor on color_sum's device (``tile_pixels``)."""
     with span("untile"):
-        inv = to_device(inv, color_sum.device)
-        return color_sum[inv].reshape(height, width, 3)
+        return _Untile.apply(color_sum, perm).reshape(height, width, 3)
 
 
 def probe(scene: Scene, origins, directions, search: SearchFn = nearest_hit,
@@ -457,8 +495,7 @@ def render_pass(scene: Scene, camera: Camera, *, width: int, height: int,
     fused = backend == "fused"
     if fused:
         with span("tile_order"):
-            perm, inv = tile_order(width, height)
-            pixel = to_device(perm, dev)
+            pixel = tile_pixels(width, height, dev)
     else:
         pixel = torch.arange(width * height, dtype=torch.int64, device=dev)
     color_sum, rays = render_pixels(
@@ -467,7 +504,7 @@ def render_pass(scene: Scene, camera: Camera, *, width: int, height: int,
         backend=backend, ray_chunk=ray_chunk, shading=shading,
         lights=lights, regen=regen)
     if fused:
-        return untile_image(color_sum, width, height, inv), rays
+        return untile_image(color_sum, width, height, pixel), rays
     return color_sum.reshape(height, width, 3), rays
 
 

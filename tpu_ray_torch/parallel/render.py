@@ -23,7 +23,7 @@ from tpu_ray_torch.core.camera import Camera
 from tpu_ray_torch.core.scene import Scene
 from tpu_ray_torch.models.path_tracer import (_SEARCH, _TRI_SEARCH, HitTape,
                                               _search, render_pixels,
-                                              tile_order, untile_image)
+                                              tile_pixels, untile_image)
 from tpu_ray_torch.ops.intersect import Hit, Payload, hit_payload
 from tpu_ray_torch.ops.intersect_tri import (merge_payloads, tri_payload,
                                              tri_search_table)
@@ -148,7 +148,7 @@ class _GatherRays(torch.autograd.Function):
 def _plan(scene: Scene, mesh: DeviceMesh, width: int, height: int,
           backend: str):
     """-> (this rank's scene view, its probe or None, its pixel share,
-    the inverse tile order or None)."""
+    the whole tile order or None)."""
     n = width * height
     n_ray = axis_size(mesh, RAY_AXIS)
     if n % n_ray:
@@ -163,19 +163,18 @@ def _plan(scene: Scene, mesh: DeviceMesh, width: int, height: int,
                                   backend=backend)
     dev = scene.device
     if backend == "fused":
-        perm, inv = tile_order(width, height)
-        pixel = torch.as_tensor(perm, device=dev)
+        order = pixel = tile_pixels(width, height, dev)
     else:
-        inv, pixel = None, torch.arange(n, dtype=torch.int64, device=dev)
+        order, pixel = None, torch.arange(n, dtype=torch.int64, device=dev)
     share = n // n_ray
     k = axis_index(mesh, RAY_AXIS)
     return (shard_scene(scene, mesh), probe,
-            pixel[k * share:(k + 1) * share], inv)
+            pixel[k * share:(k + 1) * share], order)
 
 
-def _image(color_sum, width: int, height: int, inv):
-    if inv is not None:
-        return untile_image(color_sum, width, height, inv)
+def _image(color_sum, width: int, height: int, order):
+    if order is not None:
+        return untile_image(color_sum, width, height, order)
     return color_sum.reshape(height, width, 3)
 
 
@@ -196,7 +195,7 @@ def render_pass_sharded(scene: Scene, camera: Camera, *, mesh: DeviceMesh,
     "spheres" dim is refused on "fused". exact_argmin and cull_secondary
     change nothing, as in ``render_pass``."""
     del exact_argmin, cull_secondary
-    local, probe, pixel, inv = _plan(scene, mesh, width, height, backend)
+    local, probe, pixel, order = _plan(scene, mesh, width, height, backend)
     light_data = (scene_light_data(scene, lights)
                   if shading == "lambert_shadow" else None)
     color_sum, rays = render_pixels(
@@ -208,4 +207,4 @@ def render_pass_sharded(scene: Scene, camera: Camera, *, mesh: DeviceMesh,
     total = torch.tensor(int(rays), dtype=torch.int64,
                          device=color_sum.device)
     dist.all_reduce(total, group=mesh.get_group(RAY_AXIS))
-    return _image(color_sum, width, height, inv), int(total)
+    return _image(color_sum, width, height, order), int(total)
