@@ -1,4 +1,4 @@
-"""The host spans and host-device counters of the regen route
+"""The host spans and host-device counters of the regen and probe routes
 (``tpu_ray_torch/utils/metrics.py``), and the benchmark readers' paths to
 them.
 
@@ -6,10 +6,11 @@ On the CPU: a span's self time, the profiler annotation only while a
 profiler records, the route's spans nested as the readers sum them, and
 every counter path a reader names. Marked ``cuda`` (they skip where there
 is no GPU): a warm regen fwd+bwd step on a sphere and on a triangle scene,
-and a progressive pass, their host syncs held to ``torch.cuda``'s
-sync-debug warnings and their host-to-device bytes to the copies in a
-profiler trace of the same step. This file imports no JAX, so it runs on
-the card without the suite's conftest:
+the probe route's step on bigmesh (past the residency rule ``fused``
+falls back to it), and a progressive pass, their host syncs held to
+``torch.cuda``'s sync-debug warnings and their host-to-device bytes to
+the copies in a profiler trace of the same step. This file imports no
+JAX, so it runs on the card without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_trace.py -q
 """
@@ -32,7 +33,7 @@ from tpu_ray_torch.utils.metrics import (EVENT_PREFIX, SPANS, TRANSFERS,
                                          span)
 
 READERS = [f"{n}.{s}" for n in ("route_ms", "host_syncs", "htod_mib")
-           for s in ("fwdbwd", "fwd")]
+           for s in ("fwdbwd", "fwd")] + ["probe_ms"]
 # the route's stages in the order each route opens them
 FWDBWD_STAGES = ("tile_order", "regen_tables", "wave_init", "search_tables",
                  "regen_forward", "untile")
@@ -244,7 +245,8 @@ W, H = 320, 180
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,spp", [("rtweekend", 4), ("trimesh", 1)])
+@pytest.mark.parametrize("kind,spp", [("rtweekend", 4), ("trimesh", 1),
+                                      ("bigmesh", 1)])
 def test_fwdbwd_counters_match_the_card(cuda_device, tmp_path, kind, spp):
     syncs, warned, htod, copied, where = held_to_the_card(
         fwdbwd_step(kind, cuda_device, W, H, spp), tmp_path)

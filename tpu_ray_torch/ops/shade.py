@@ -26,8 +26,11 @@ def sky_color(direction):
     """Vertical sky gradient (reference main.cpp:434-438)."""
     a = (direction[..., 1] + 1.0) * 0.5
     white = torch.ones(3, dtype=torch.float32, device=direction.device)
-    blue = torch.tensor([0.5, 0.7, 1.0], dtype=torch.float32,
-                        device=direction.device)
+    # filled on the device: a tensor made from a host list is a blocking
+    # copy to the card at every call
+    blue = torch.empty(3, dtype=torch.float32, device=direction.device)
+    for i, v in enumerate((0.5, 0.7, 1.0)):
+        blue[i].fill_(v)
     return (1.0 - a)[..., None] * white + a[..., None] * blue
 
 

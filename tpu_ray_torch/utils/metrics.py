@@ -1,6 +1,6 @@
 """Step timing, JSONL metrics and profiling (port of
 ``tpu_ray/utils/metrics.py``), and the host spans and host-device
-counters of the regen route.
+counters of the regen route and the probe route.
 
 Every timing ends in ``torch.cuda.synchronize()`` when the work runs on
 the card: PyTorch returns before the device finishes, so a host clock
@@ -127,11 +127,14 @@ class SpanCounts:
 # accumulate its child) name the benchmark's idle gaps; the route's stages
 # tile_order, regen_tables, search_tables, wave_init, regen_forward,
 # regen_backward and untile are summed by the benchmark's ``route_ms``;
-# wait is the host blocked in ``to_device``/``to_host``.
+# the probe route's forward stages probe_tables, ray_sort, sphere_search,
+# tri_search, payload and shade by its ``probe_ms``; wait is the host
+# blocked in ``to_device``/``to_host``.
 SPANS = SimpleNamespace(**{name: SpanCounts() for name in (
     "render_mean", "pass", "accumulate", "tile_order", "regen_tables",
     "search_tables", "wave_init", "regen_forward", "regen_backward",
-    "untile", "wait")})
+    "untile", "probe_tables", "ray_sort", "sphere_search", "tri_search",
+    "payload", "shade", "wait")})
 
 
 class TransferCounts:
